@@ -4,9 +4,10 @@
 
 Drives the port (``python_audio_mastering_tpu_torch``, never jax) through
 its two entry points on a seeded 180 s 44.1 kHz stereo track with the
-bench settings minus multiband, after building its CUDA kernels from the
-sources in the checkout and checking each against its plain PyTorch
-version at the shapes the chain gives it.  Phases:
+bench settings, multiband off (phases 2-6) and on (phases 7-12), after
+building its CUDA kernels from the sources in the checkout and checking
+each against its plain PyTorch version at the shapes the chain gives it.
+Phases:
 
   0  device, torch/CUDA versions, TF32 flags (refuses without a GPU)
   1  build the kernels (nvcc, sm_90a)
@@ -20,6 +21,25 @@ version at the shapes the chain gives it.  Phases:
   5  engine.process_audio on a temp WAV: equals one-shot master() within
      2e-4
   6  timings (CUDA events, warm, median of 5)
+  7  band_energies kernel vs plain, (2, 20672, 384), hop 8:
+     max |diff| / max |plain| <= 1e-4
+  8  band_gain_apply kernel vs plain, emit_mono off and on: max |diff| /
+     max |plain| <= 1e-4
+  9  ballistics on the track's own detector targets (3, 992256): replay
+     and replay_bnd (every fixed-point round, ctrl included) bitwise equal
+     to their plain versions at full T; pass1_bnd bitwise equal to its
+     plain version on the first 65 536 steps (the plain walk is a Python
+     loop of one step per iteration, too slow at full T); at full T the
+     collapse mode, the serial mode and the forced fallback (iters=1)
+     bitwise equal; fixed-point rounds reported
+ 10  multiband master(): finite, |y| <= 1, oracle loudness within 0.15 LU
+     of -14, every kernel of the path launched, host synchronisations
+     counted, and within 5e-3 max abs / 5e-5 rms / 1e-3 LU of the port's
+     plain path on the CPU (the JAX package's on-chip kernels-vs-XLA
+     residual from detector threshold flips is 1.2e-3 / 1.3e-5)
+ 11  multiband engine.process_audio: equals one-shot master() within 2e-4
+ 12  multiband timings: master(), process_audio, each new kernel vs its
+     plain version (pass1_bnd at 65 536 steps, and at full T)
 
 Exits non-zero at the first failed phase.  The last two lines of output
 are the kernel record and ``{"ok": true, "device": {...}}``.
@@ -34,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -44,13 +65,31 @@ SECONDS = 180
 L = 384
 SETTINGS = {"saturation": 20, "preset": "techno", "width": 1.3,
             "lufs": -14.0}
+MB_SETTINGS = {**SETTINGS, "multiband": True}
+NO_MB_KERNELS = ("front_chain", "kweight_cells")
+MB_KERNELS = ("band_energies", "band_gain_apply", "pass1_bnd", "replay",
+              "replay_bnd")
+K5_PLAIN_STEPS = 65536
+_PMB = "python_audio_mastering_tpu/ops/pallas_multiband.py"
+_PK = "python_audio_mastering_tpu/ops/pallas_kernels.py"
 REPLACES = {
-    "front_chain": "python_audio_mastering_tpu/ops/pallas_multiband.py:228",
-    "kweight_cells": "python_audio_mastering_tpu/ops/pallas_multiband.py:312",
+    "front_chain": f"{_PMB}:228",
+    "kweight_cells": f"{_PMB}:312",
+    "band_energies": f"{_PMB}:421",
+    "band_gain_apply": f"{_PMB}:477",
+    "pass1_bnd": f"{_PK}:152",
+    "replay": f"{_PK}:184",
+    "replay_bnd": f"{_PK}:217",
 }
+_CSRC = "python_audio_mastering_tpu_torch/csrc"
 SOURCES = {
-    "front_chain": "python_audio_mastering_tpu_torch/csrc/front_chain.cu",
-    "kweight_cells": "python_audio_mastering_tpu_torch/csrc/kweight_cells.cu",
+    "front_chain": f"{_CSRC}/front_chain.cu",
+    "kweight_cells": f"{_CSRC}/kweight_cells.cu",
+    "band_energies": f"{_CSRC}/band_energies.cu",
+    "band_gain_apply": f"{_CSRC}/band_gain_apply.cu",
+    "pass1_bnd": f"{_CSRC}/ballistics.cu",
+    "replay": f"{_CSRC}/ballistics.cu",
+    "replay_bnd": f"{_CSRC}/ballistics.cu",
 }
 
 
@@ -93,6 +132,40 @@ def median_of(fn, runs=5):
     fn()                                   # warm
     torch.cuda.synchronize()
     return statistics.median(fn() for _ in range(runs))
+
+
+def count_syncs(fn):
+    """Run ``fn`` with PyTorch's sync debug mode on; returns ``(result,
+    number of host synchronisations it reported)``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def compare(what, got, ref, limit, relative=True):
+    """Print and check ``max |got - ref|`` (over ``max |ref|`` when
+    ``relative``) against ``limit``; returns the max abs difference."""
+    d = (got - ref).abs()
+    mx = d.max().item()
+    val = mx / ref.abs().max().item() if relative else mx
+    print(f"  {what} {tuple(got.shape)}: max abs {mx:.3e}"
+          + (f", / max |plain| {val:.3e}" if relative else ""))
+    check(np.isfinite(val) and val <= limit, f"{what}: {val} > {limit}")
+    return mx
+
+
+def check_bitwise(what, got, ref):
+    same = torch.equal(got, ref)
+    n_diff = int((got != ref).sum()) if got.shape == ref.shape else -1
+    print(f"  {what} {tuple(got.shape)}: bitwise equal {same}")
+    check(same, f"{what}: not bitwise equal ({n_diff} elements differ)")
 
 
 def main():
@@ -210,9 +283,9 @@ def main():
           f"{lufs_out:.4f} LUFS; launches {counts}")
     check(abs(lufs_out - SETTINGS["lufs"]) <= 0.15,
           f"output loudness {lufs_out} not within 0.15 LU of -14")
-    for name, cnt in counts.items():
-        check(cnt > 0, f"kernel {name} was not launched by master()")
-        kernels[name]["launches"] = cnt
+    for name in NO_MB_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched by master()")
+        kernels[name]["launches"] = counts[name]
     cpu = MasteringChain(cfg)(x, params, return_result=True)
     d_cpu = float(np.abs(y - cpu.audio.numpy()).max())
     d_lufs = abs(float(res.measured_lufs) - float(cpu.measured_lufs))
@@ -237,7 +310,7 @@ def main():
         print(f"phase 5 process_audio: {msgs[-1]!r}; launches "
               f"{streamed_counts}; max abs vs master() {d_eng:.3e}")
         check(fs_out == FS and out.shape == x.shape, "process_audio output")
-        check(all(c > 0 for c in streamed_counts.values()),
+        check(all(streamed_counts[k] > 0 for k in NO_MB_KERNELS),
               "process_audio did not launch every kernel")
         check(d_eng < 2e-4, f"process_audio vs master() {d_eng} >= 2e-4")
         print("phase 5 ok", flush=True)
@@ -270,14 +343,221 @@ def main():
         print(f"phase 6 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     print("phase 6 ok", flush=True)
 
+    multiband_phases(x, chain, xrows, kernels)
+
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
-              for name in ("front_chain", "kweight_cells")]
+              for name in NO_MB_KERNELS + MB_KERNELS]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def multiband_phases(x, chain, xrows, kernels):
+    """Phases 7-12: the multiband chain on the same track."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    from python_audio_mastering_tpu_torch import MasteringChain, MasteringParams
+    from python_audio_mastering_tpu_torch import engine
+    from python_audio_mastering_tpu_torch.io import wavio
+    from python_audio_mastering_tpu_torch.ops import ballistics as bal
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops import iir
+    from python_audio_mastering_tpu_torch.ops import multiband as mb
+
+    params = MasteringParams.from_settings(MB_SETTINGS)
+    cfg = chain.config
+    hop = cfg.comp_hop
+    dev = xrows.device
+    for name in MB_KERNELS:
+        kernels[name] = {}
+
+    # the compressor's input and its operands, as the chain builds them
+    xf = chain.front(xrows, params)
+    sos = mb._crossover_sos(FS, 250.0, 4000.0)
+    (s_lp, s_hp), _ = iir.sosfilt_states_multi_rows(
+        sos, xf, ops_list=chain.crossover_ops())
+    band_args = (xf, s_lp, s_hp, *sos)
+
+    # phase 7 ---------------------------------------------------------------
+    xb = cmb.band_energies(*band_args, hop=hop)
+    kernels["band_energies"]["max_abs_err"] = compare(
+        f"phase 7 band_energies hop={hop}", xb,
+        cmb.band_energies_ref(*band_args, hop=hop), 1e-4)
+    print("phase 7 ok", flush=True)
+
+    # the track's own detector targets and the gain columns
+    t = xb.shape[1]
+    stats, _ = mb._fused_stats_from_ctrl(
+        xb, t, FS, (params.low_thresh, params.mid_thresh, params.high_thresh),
+        (params.low_ratio, params.mid_ratio, params.high_ratio), hop, None,
+        mb.detector_lookpad(FS, hop) // hop)
+    # whole 128-step blocks (992256 = 7752 blocks at 180 s: no padding)
+    m = torch.nn.functional.pad(stats["max_att"], (0, -t % bal.BLOCK))
+    m = m.contiguous()
+    ca = torch.tensor([hop / max(a * FS / 1000.0, 1.0)
+                       for a, _ in mb.BAND_BALLISTICS_MS], device=dev)
+    cr = torch.tensor([hop / max(r * FS / 1000.0, 1.0)
+                       for _, r in mb.BAND_BALLISTICS_MS], device=dev)
+    att0 = torch.zeros(3, device=dev)
+    att, _ = bal.ballistics_rates_bt(m, ca, cr, att0)
+    g = 10.0 ** (-att[:, :t] / 20.0)
+    cols = torch.stack([g[1], g[0] - g[1], g[2] - g[1]]).contiguous()
+
+    # phase 8 ---------------------------------------------------------------
+    err = 0.0
+    for emit in (False, True):
+        got = cmb.band_gain_apply(*band_args[:3], cols, *sos, hop=hop,
+                                  emit_mono=emit)
+        ref = cmb.band_gain_apply_ref(*band_args[:3], cols, *sos, hop=hop,
+                                      emit_mono=emit)
+        for what, gg, rr in zip(("y", "mono"), got if emit else (got,),
+                                ref if emit else (ref,)):
+            err = max(err, compare(f"phase 8 band_gain_apply emit_mono={emit}"
+                                   f" {what}", gg, rr, 1e-4))
+    kernels["band_gain_apply"]["max_abs_err"] = err
+    print("phase 8 ok", flush=True)
+
+    # phase 9 ---------------------------------------------------------------
+    print(f"phase 9 targets {tuple(m.shape)}: {int((m > 0).sum())} steps "
+          f"above threshold")
+    cut = m[:, :K5_PLAIN_STEPS].contiguous()
+    check_bitwise(f"phase 9 pass1_bnd (first {K5_PLAIN_STEPS} steps)",
+                  bal.pass1_bnd(cut, ca, cr, att0),
+                  bal.pass1_bnd_ref(cut, ca, cr, att0))
+    kernels["pass1_bnd"]["max_abs_err"] = 0.0
+    bnd = bal.pass1_bnd(m, ca, cr, att0)
+    incomes = torch.cat([att0[:, None], bnd[:, :-1]], dim=1).contiguous()
+    check_bitwise("phase 9 replay", bal.replay(m, ca, cr, incomes),
+                  bal.replay_ref(m, ca, cr, incomes))
+    kernels["replay"]["max_abs_err"] = 0.0
+    idx = bal._frozen_index(m)
+    s = torch.zeros_like(bnd)
+    ck, cp = bal.new_ctrl(dev), bal.new_ctrl(dev)
+    for k in range(bal.FIXPOINT_ITERS):
+        s_k = bal.replay_bnd(m, ca, cr, att0, idx, s, ck)
+        s_p = bal.replay_bnd_ref(m, ca, cr, att0, idx, s, cp)
+        check_bitwise(f"phase 9 replay_bnd round {k + 1}", s_k, s_p)
+        check(torch.equal(ck, cp), f"replay_bnd ctrl {ck.tolist()} != "
+                                   f"plain {cp.tolist()}")
+        s = s_k
+    kernels["replay_bnd"]["max_abs_err"] = 0.0
+    collapse, ctrl = bal._run_collapse(m, ca, cr, att0)
+    rounds, certified = int(ctrl[bal.ROUND]), int(ctrl[bal.CNT]) == 0
+    print(f"phase 9 fixed point: {rounds} rounds, certified {certified} "
+          f"(ctrl {ctrl.tolist()})")
+    check_bitwise("phase 9 serial == collapse", bal._run(m, ca, cr, att0),
+                  collapse)
+    forced, fctrl = bal._run_collapse(m, ca, cr, att0, iters=1)
+    check_bitwise(f"phase 9 forced fallback (iters=1, certified "
+                  f"{int(fctrl[bal.CNT]) == 0}) == collapse", forced,
+                  collapse)
+    print("phase 9 ok", flush=True)
+
+    # phase 10 --------------------------------------------------------------
+    x_dev = torch.from_numpy(x).to(dev)
+    chain(x_dev, params)                       # first call builds operators
+    cmb.reset_launch_counts()
+    res, syncs = count_syncs(lambda: chain(x_dev, params, return_result=True))
+    counts = cmb.launch_counts()
+    y = res.audio.cpu().numpy()
+    check(y.shape == x.shape, f"output shape {y.shape}")
+    check(bool(np.isfinite(y).all()), "non-finite output")
+    peak = float(np.abs(y).max())
+    check(peak <= 1.0, f"|y| max {peak} > 1")
+    lufs_out = oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
+    print(f"phase 10 multiband master(): shape {y.shape} peak {peak:.4f} "
+          f"measured {float(res.measured_lufs):.4f} LUFS gain "
+          f"{float(res.applied_gain_db):.4f} dB; oracle output loudness "
+          f"{lufs_out:.4f} LUFS; launches {counts}; host synchronisations "
+          f"{syncs}")
+    check(abs(lufs_out - SETTINGS["lufs"]) <= 0.15,
+          f"output loudness {lufs_out} not within 0.15 LU of -14")
+    for name in NO_MB_KERNELS + MB_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched by the "
+                                f"multiband master()")
+    for name in MB_KERNELS:
+        kernels[name]["launches"] = counts[name]
+    t0 = time.perf_counter()
+    cpu = MasteringChain(cfg)(x, params, return_result=True)
+    d = np.abs(y - cpu.audio.numpy())
+    d_max, d_rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+    d_lufs = abs(float(res.measured_lufs) - float(cpu.measured_lufs))
+    print(f"phase 10 card vs CPU plain path ({time.perf_counter() - t0:.1f} s"
+          f" on the CPU): max abs {d_max:.3e}, rms {d_rms:.3e}, |dLUFS| "
+          f"{d_lufs:.3e}; elements over 2e-4: {int((d > 2e-4).sum())}")
+    check(d_max < 5e-3, f"card vs CPU max abs {d_max} >= 5e-3")
+    check(d_rms < 5e-5, f"card vs CPU rms {d_rms} >= 5e-5")
+    check(d_lufs < 1e-3, f"card vs CPU |dLUFS| {d_lufs} >= 1e-3")
+    print("phase 10 ok", flush=True)
+
+    # phase 11 --------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
+        wavio.write_wav(src, x, FS, float_format=True)
+        msgs = []
+        job = {**MB_SETTINGS, "input_file": src, "output_file": dst}
+        cmb.reset_launch_counts()
+        ok = engine.process_audio(job, msgs.append, device=dev)
+        check(ok, f"process_audio failed: {msgs[-1] if msgs else ''}")
+        streamed_counts = cmb.launch_counts()
+        out, fs_out = wavio.read_wav(dst)
+        d_eng = float(np.abs(out - y).max())
+        print(f"phase 11 multiband process_audio: {msgs[-1]!r}; launches "
+              f"{streamed_counts}; max abs vs master() {d_eng:.3e}")
+        check(fs_out == FS and out.shape == x.shape, "process_audio output")
+        check(all(streamed_counts[k] > 0 for k in NO_MB_KERNELS + MB_KERNELS),
+              "process_audio did not launch every kernel")
+        check(d_eng < 2e-4, f"process_audio vs master() {d_eng} >= 2e-4")
+        print("phase 11 ok", flush=True)
+
+        # phase 12 ----------------------------------------------------------
+        def engine_s():
+            t0 = time.perf_counter()
+            engine.process_audio(job, device=dev)
+            return time.perf_counter() - t0
+
+        t_master = median_of(lambda: cuda_ms(lambda: chain(x_dev, params),
+                                             reps=1))
+        t_engine = median_of(engine_s)
+    print(f"phase 12 multiband master() {t_master:.3f} ms for {SECONDS} s "
+          f"(x{SECONDS * 1e3 / t_master:.0f} realtime, input on the card); "
+          f"process_audio wall {t_engine:.3f} s; fixed point {rounds} "
+          f"rounds, {syncs} host synchronisations per master()")
+    ctrl0 = bal.new_ctrl(dev)
+    timed = {
+        "band_energies": (
+            lambda: cmb.band_energies(*band_args, hop=hop),
+            lambda: cmb.band_energies_ref(*band_args, hop=hop)),
+        "band_gain_apply": (
+            lambda: cmb.band_gain_apply(*band_args[:3], cols, *sos, hop=hop,
+                                        emit_mono=True),
+            lambda: cmb.band_gain_apply_ref(*band_args[:3], cols, *sos,
+                                            hop=hop, emit_mono=True)),
+        "pass1_bnd": (lambda: bal.pass1_bnd(cut, ca, cr, att0),
+                      lambda: bal.pass1_bnd_ref(cut, ca, cr, att0)),
+        "replay": (lambda: bal.replay(m, ca, cr, incomes),
+                   lambda: bal.replay_ref(m, ca, cr, incomes)),
+        # a fresh (active) ctrl per call: the kernel's time includes its
+        # 24-byte copy
+        "replay_bnd": (
+            lambda: bal.replay_bnd(m, ca, cr, att0, idx, s, ctrl0.clone()),
+            lambda: bal.replay_bnd_ref(m, ca, cr, att0, idx, s,
+                                       ctrl0.clone())),
+    }
+    for name, (kern, plain) in timed.items():
+        ms = median_of(lambda: cuda_ms(kern))
+        plain_ms = median_of(lambda: cuda_ms(plain, reps=1))
+        kernels[name].update(ms=ms, plain_ms=plain_ms)
+        print(f"phase 12 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    full_ms = median_of(lambda: cuda_ms(lambda: bal.pass1_bnd(m, ca, cr,
+                                                              att0)))
+    print(f"phase 12 pass1_bnd at {K5_PLAIN_STEPS} steps above; at full T "
+          f"{m.shape[1]}: kernel {full_ms:.4f} ms")
+    print("phase 12 ok", flush=True)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,9 @@ reference) to PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
 the JAX package, and keeps that package's module layout and function
 names.
 
-This slice runs the worker chain without the multiband compressor:
-saturate → 4-band EQ → stereo width → BS.1770 loudness → gain → soft
-limiter, one-shot (:func:`master`) and streamed (``engine.process_audio``).
+It runs the worker chain: saturate → 4-band EQ → stereo width →
+[3-band multiband compressor] → BS.1770 loudness → gain → soft limiter,
+one-shot (:func:`master`) and streamed (``engine.process_audio``).
 
     >>> from python_audio_mastering_tpu_torch import master, MasteringParams, ChainConfig
     >>> y = master(x, MasteringParams.from_settings({"saturation": 20}),

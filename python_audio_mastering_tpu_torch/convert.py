@@ -39,17 +39,18 @@ def config_from_jax(cfg) -> ChainConfig:
 
 
 def stream_state_from_jax(state, device="cpu") -> StreamState:
-    """A port ``StreamState`` from the JAX one: its scipy-layout
-    ``(K, 2, C)`` ``eq_zi``/``kw_zi`` arrays become float32 tensors on
-    ``device``.
-    A multiband state cannot be carried yet."""
-    if getattr(state, "mb", None) is not None:
-        raise NotImplementedError(
-            "multiband stream state: the multiband compressor is the next "
-            "slice, ROADMAP queue 2")
+    """A port ``StreamState`` from the JAX one: its arrays (the
+    scipy-layout ``(K, 2, C)`` ``eq_zi``/``kw_zi`` and every array of the
+    multiband ``mb`` dict) become float32 tensors on ``device``, dicts
+    keeping their keys."""
 
     def conv(a):
-        return None if a is None else torch.as_tensor(
-            np.asarray(a), dtype=torch.float32, device=device)
+        if a is None:
+            return None
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=device)
 
-    return StreamState(eq_zi=conv(state.eq_zi), kw_zi=conv(state.kw_zi))
+    return StreamState(eq_zi=conv(state.eq_zi), mb=conv(state.mb),
+                       kw_zi=conv(state.kw_zi))

@@ -8,7 +8,9 @@
 // which is a single GEMM over the augmented depth K = L + S:
 // A = [shape(x_blk) | s_in], B = [T ; Wt].  This header computes that
 // product for one tile of kTileRows rows and leaves it in shared memory,
-// where each kernel's epilogue reads it.
+// where each kernel's epilogue reads it.  A kernel that needs two filters
+// of one signal (the crossover bands) runs the loop twice and keeps the
+// first result in a shared-memory region of its own.
 //
 // What bounds it on the H100: per output sample the product does L + S
 // FMAs and moves 8-12 bytes, ~100 FMAs per byte, far above the ~20 FMAs
@@ -49,7 +51,9 @@ struct TileSmem {
 };
 
 // y = [shape(x) | s_in] @ [T ; Wt] for rows (b0 .. b0+br-1) x (0 .. C-1).
-// On return smem[t * L + j] holds row t, column j of the tile (rows past
+// `smem` is the loop's working buffer (TileSmem<L>::kMainFloats floats);
+// `result` (kTileRows * L floats, may be `smem` itself) receives the tile.
+// On return result[t * L + j] holds row t, column j of the tile (rows past
 // the last block hold zeros), and the block is synchronised.
 //   x     (C, nb, L)   raw rows
 //   t     (L, L)       zero-state response operator (causal: T[k][j] = 0
@@ -70,7 +74,7 @@ __device__ __forceinline__ void blocked_iir_tile(
     const float* __restrict__ x, const float* __restrict__ t,
     const float* __restrict__ wt, const float* __restrict__ s_in,
     int C, int nb, int S, int b0, int br, bool shape, float mix, float drive,
-    float* smem) {
+    float* smem, float* result) {
   static_assert(L % 32 == 0, "L must be a multiple of 32");
   constexpr int TN = L / 32;
   constexpr int kAPer = kTileRows * kBK / kThreads;
@@ -166,12 +170,12 @@ __device__ __forceinline__ void blocked_iir_tile(
     stage ^= 1;
   }
 
-  // the tile buffers are dead: reuse the shared memory for the result
+  // the tile buffers are dead: `result` may reuse their shared memory
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      smem[(ty * 4 + i) * L + tx + 32 * j] = acc[i][j];
+      result[(ty * 4 + i) * L + tx + 32 * j] = acc[i][j];
   __syncthreads();
 }
 

@@ -25,7 +25,7 @@ front_chain_kernel(const float* __restrict__ x, const float* __restrict__ t,
   float* smem = reinterpret_cast<float*>(smem4);
   const int b0 = blockIdx.x * br;
   blocked_iir_tile<L>(x, t, wt, s_in, C, nb, S, b0, br, true, mix, drive,
-                      smem);
+                      smem, smem);
   const float inv_c = 1.f / (float)C;
   for (int e = threadIdx.x; e < br * L; e += kThreads) {
     const int bl = e / L;

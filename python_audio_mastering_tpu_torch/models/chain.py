@@ -1,19 +1,22 @@
 """The worker-variant mastering chain over the rows form, in PyTorch.
 
 Counterpart of ``python_audio_mastering_tpu.models.chain`` (the
-rows-resident body ``_master_cm``) for the chain without the multiband
-compressor:
+rows-resident body ``_master_cm``):
 
-    saturate → 4-band EQ → stereo width → BS.1770 gated loudness →
-    gain → soft limiter
+    saturate → 4-band EQ → stereo width → [3-band multiband compressor] →
+    BS.1770 gated loudness → gain → soft limiter
 
 The signal is folded into rows ``(C, nb, L)`` of ``L = block_size``
-samples, zero-padded to a block multiple.  Two kernels carry the path:
-``front_chain`` (saturate + EQ + width + mono downmix in one pass) and
-``kweight_cells`` (the loudness meter's K-weighted cell energies); the
-per-block filter states between them come from a plain-torch states pass
-(``ops.iir``).  On a CUDA tensor the kernels launch; on a CPU tensor their
-plain versions run.  Nothing in the chain is random.
+samples, zero-padded to a block multiple.  Kernels carry the path:
+``front_chain`` (saturate + EQ + width in one pass), the multiband
+compressor's ``band_energies``, ballistics and ``band_gain_apply``
+(``ops.multiband``), and ``kweight_cells`` (the loudness meter's
+K-weighted cell energies).  The loudness meter's mono downmix comes from
+the last kernel before it: ``band_gain_apply`` with multiband on,
+``front_chain`` without.  The per-block filter states between kernels
+come from plain-torch states passes (``ops.iir``).  On a CUDA tensor the
+kernels launch; on a CPU tensor their plain versions run.  Nothing in the
+chain is random.
 
 Signals shorter than ``4 · block_size`` take the same rows body, padded to
 a block multiple (the JAX package sends them to a separate row-major
@@ -45,6 +48,10 @@ from python_audio_mastering_tpu_torch.ops.loudness import (
     gain_for_target,
     integrated_loudness_rows,
     kweight_sos,
+)
+from python_audio_mastering_tpu_torch.ops.multiband import (
+    crossover_ops,
+    multiband_compress_rows,
 )
 from python_audio_mastering_tpu_torch.ops.waveshaper import (
     saturate,
@@ -82,10 +89,6 @@ def eq_sos(params: MasteringParams, sample_rate: int):
 
 def check_supported(params: MasteringParams, config: ChainConfig):
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if params.multiband:
-        raise NotImplementedError(
-            "multiband=True: the multiband compressor (kernels K2, K3, "
-            "K5-K7) is the next slice, ROADMAP queue 2")
     if config.variant != "worker":
         raise NotImplementedError(
             f"variant={config.variant!r}: the legacy chain is ROADMAP "
@@ -111,14 +114,15 @@ def check_fp32_matmul(device):
 
 
 class MasteringChain(nn.Module):
-    """The no-multiband worker chain for one :class:`ChainConfig`.
+    """The worker chain for one :class:`ChainConfig`.
 
     Buffers: the K-weighting blocked operators (float64-built; ``T``/``W``
     cast to the config dtype, ``G``/``A^L`` kept float64 for the states
     pass), moved with the module by ``.to(device)``.  EQ operators
     depend on the sliders and are cached per EQ coefficient set and device
     (the last few); the boundary-prefix operators of both filters are kept
-    beside them.
+    beside them.  The crossover operators are built per device at first
+    use.
     """
 
     def __init__(self, config: ChainConfig):
@@ -133,6 +137,7 @@ class MasteringChain(nn.Module):
         self._kw_k = kw.k
         self._kw_prefix = {}
         self._eq_cache = collections.OrderedDict()
+        self._xover = {}
 
     @property
     def device(self):
@@ -159,6 +164,32 @@ class MasteringChain(nn.Module):
         else:
             self._eq_cache.move_to_end(key)
         return ops
+
+    def crossover_ops(self):
+        """The multiband crossovers' blocked operators on this chain's
+        device (built at first use)."""
+        ops = self._xover.get(self.device)
+        if ops is None:
+            ops = crossover_ops(self.config.sample_rate,
+                                self.config.block_size, self.device)
+            self._xover[self.device] = ops
+        return ops
+
+    def multiband(self, xrows, params: MasteringParams, state=None,
+                  return_state: bool = False, emit_mono: bool = False):
+        """The 3-band compressor over rows
+        (``ops.multiband.multiband_compress_rows``) with this chain's
+        config and crossover operators.  ``state``/``return_state``: the
+        carried multiband state dict of streaming."""
+        cfg = self.config
+        return multiband_compress_rows(
+            xrows, cfg.sample_rate,
+            thresholds_db=(params.low_thresh, params.mid_thresh,
+                           params.high_thresh),
+            ratios=(params.low_ratio, params.mid_ratio, params.high_ratio),
+            hop=cfg.comp_hop, ballistics=cfg.comp_ballistics, state=state,
+            return_state=return_state, emit_mono=emit_mono,
+            ops=self.crossover_ops())
 
     def front(self, xrows, params: MasteringParams, state=None,
               return_state: bool = False, emit_mono: bool = False):
@@ -212,7 +243,12 @@ class MasteringChain(nn.Module):
         want_mono = (params.lufs_enabled and c > 1
                      and cfg.measure_downmix == "reference_mono_mean")
         meter_rows = None
-        if want_mono:
+        if params.multiband:
+            xr = self.multiband(self.front(xr, params), params,
+                                emit_mono=want_mono)
+            if want_mono:
+                xr, meter_rows = xr
+        elif want_mono:
             xr, meter_rows = self.front(xr, params, emit_mono=True)
         else:
             xr = self.front(xr, params)

@@ -2,10 +2,11 @@
 
 The kernels have a plain C interface and are bound with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds.  :func:`library`
-runs ``nvcc`` on the package's own sources at first use, into
-``<package>/_build/`` (ignored by git), under a name keyed by the sources'
-and flags' hash, so an edited source is never served a stale library.
-Nothing is built or loaded when this module is imported.
+runs ``nvcc`` on the package's own sources at first use, one compiler
+process per source, all started together, then links them into one
+library in ``<package>/_build/`` (ignored by git), under a name keyed by
+the sources' and flags' hash, so an edited source is never served a stale
+library.  Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -20,13 +21,16 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KernelLibrary", "library"]
+import torch
+
+__all__ = ["KernelLibrary", "library", "ptr", "raise_on", "upload"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +41,17 @@ _SIGNATURES = {
                         _P],
     # x, t, wt, s_in, out, C, nb, L, S, h, stream
     "pam_kweight_cells": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, t2, wt2, s_lp, s_hp, out, C, nb, L, S, h, stream
+    "pam_band_energies": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, t2, wt2, s_lp, s_hp, cols, y, mono, C, nb, L, S, h, stream
+    "pam_band_gain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P],
+    # m, ca, cr, att0, bnd, ctrl, B, T, stream
+    "pam_pass1_bnd": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # m, ca, cr, incomes, out, B, T, stream
+    "pam_replay": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # m, ca, cr, att0, idx_ex, s_out, s_new, ctrl, B, T, iters, stream
+    "pam_replay_bnd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -76,6 +91,30 @@ def _digest(files):
     return h.hexdigest()[:16]
 
 
+def _compile_all(nvcc, sources, obj_dir):
+    """Compile every source to an object file, all ``nvcc`` processes at
+    once; returns the objects and the compilers' output."""
+    procs = []
+    for src in sources:
+        obj = obj_dir / f"{src.stem}.o"
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", "-I", str(_SRC_DIR), "-o", str(obj),
+               str(src)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    objs, logs, failed = [], [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        objs.append(obj)
+        if proc.returncode != 0:
+            failed.append(src.name)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    return objs, log
+
+
 @functools.cache
 def library() -> KernelLibrary:
     """Build (if needed) and load the kernel library, once per process."""
@@ -84,16 +123,20 @@ def library() -> KernelLibrary:
     log_path = so.with_suffix(".log")
     seconds = 0.0
     if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        obj_dir = _BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+        obj_dir.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc_path(), *_NVCC_FLAGS, "-I", str(_SRC_DIR), "-o",
-               str(tmp), *map(str, cu)]
+        nvcc = _nvcc_path()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs, log = _compile_all(nvcc, cu, obj_dir)
+        proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        shutil.rmtree(obj_dir, ignore_errors=True)
         log_path.write_text(log)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
@@ -104,3 +147,25 @@ def library() -> KernelLibrary:
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib=lib, path=so, build_seconds=seconds,
                          compiler_log=log)
+
+
+def upload(values, dtype, device):
+    """A small host constant (list or array) as a tensor on ``device``.
+
+    The copy is queued on the current stream without a host
+    synchronisation (a plain ``torch.tensor(..., device="cuda")`` waits
+    for the stream); the pageable source is staged before the call
+    returns, so it may be freed at once."""
+    t = torch.as_tensor(values, dtype=dtype)
+    return t.to(device, non_blocking=True)
+
+
+def ptr(t):
+    """A tensor's device address for a ``c_void_p`` argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def raise_on(name, err):
+    """Raise if a kernel entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

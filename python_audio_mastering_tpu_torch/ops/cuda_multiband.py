@@ -1,27 +1,36 @@
-"""The port's hand-written kernels and their plain PyTorch versions.
+"""The port's blocked-IIR kernels and their plain PyTorch versions.
 
-Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband`` for the
-two kernels on the no-multiband chain:
+Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
 
 * :func:`front_chain` (CUDA ``csrc/front_chain.cu``) — saturate → EQ from
   per-block states → stereo width, plus the mono downmix;
 * :func:`kweight_cells` (CUDA ``csrc/kweight_cells.cu``) — K-weighting from
-  per-block states → square → ``h``-bucket sums.
+  per-block states → square → ``h``-bucket sums;
+* :func:`band_energies` (CUDA ``csrc/band_energies.cu``) — the crossover
+  bands from per-block states → channel-mean squared energies in
+  ``hop``-buckets, the multiband detector's input;
+* :func:`band_gain_apply` (CUDA ``csrc/band_gain_apply.cu``) — the bands
+  again → recombination with the control-rate gains, plus the mono
+  downmix.
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU,
 and launches its kernel for a CUDA tensor or raises: there is no fallback
 on the card.  Each counts its kernel launches in ``<wrapper>.launches``
 (only where it launches the kernel); :func:`reset_launch_counts` and
-:func:`launch_counts` read and clear them.
+:func:`launch_counts` read and clear them for every kernel of the port,
+the ballistics kernels of ``ops.ballistics`` included.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
+import numpy as np
 import torch
 
-from python_audio_mastering_tpu_torch.ops import _kernels
+from python_audio_mastering_tpu_torch.ops import _kernels, ballistics
+from python_audio_mastering_tpu_torch.ops._kernels import ptr as _ptr
+from python_audio_mastering_tpu_torch.ops._kernels import raise_on as _raise_on
 from python_audio_mastering_tpu_torch.ops.stereo import stereo_width
 from python_audio_mastering_tpu_torch.ops.waveshaper import (
     saturate,
@@ -29,7 +38,9 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import (
 )
 
 __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
-           "kweight_cells_ref", "launch_counts", "reset_launch_counts"]
+           "kweight_cells_ref", "band_energies", "band_energies_ref",
+           "band_gain_apply", "band_gain_apply_ref", "launch_counts",
+           "reset_launch_counts"]
 
 # the template instantiations and tile height of csrc/blocked_iir.cuh
 _KERNEL_BLOCK_SIZES = (128, 256, 384, 512)
@@ -86,15 +97,6 @@ def _check_operands(name, xrows, s_in, t, w):
         if not ten.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     return c, nb, L, s
-
-
-def _raise_on(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
@@ -164,9 +166,173 @@ def kweight_cells(xrows, s_in, t_kw, w_kw, hop):
     return out
 
 
+@functools.lru_cache(maxsize=16)
+def _crossover_operands(lp_bytes, hp_bytes, k, L, device, dtype):
+    """``t2 (2, L, L)`` (``T_lp``, ``T_hp``) and ``wt2 (2, S, L)`` (the
+    transposed ``W``s) of two static cascades, float64-built, cast to
+    ``dtype`` on ``device``."""
+    from python_audio_mastering_tpu_torch.ops.iir import \
+        _blocked_operators_static
+
+    t_lp, _, w_lp, _ = _blocked_operators_static(lp_bytes, k, L)
+    t_hp, _, w_hp, _ = _blocked_operators_static(hp_bytes, k, L)
+    t2 = torch.as_tensor(np.stack([t_lp, t_hp]), dtype=dtype, device=device)
+    wt2 = torch.as_tensor(np.stack([w_lp.T, w_hp.T]), dtype=dtype,
+                          device=device)
+    return t2.contiguous(), wt2.contiguous()
+
+
+def crossover_operands(sos_lp, sos_hp, L, device, dtype=torch.float32):
+    """The band kernels' operators ``(t2, wt2)`` for a crossover pair
+    (cached per pair, block size, device and dtype)."""
+    lp = np.ascontiguousarray(sos_lp, np.float64)
+    hp = np.ascontiguousarray(sos_hp, np.float64)
+    if lp.shape != hp.shape:
+        raise ValueError("crossover cascades must share the state size")
+    return _crossover_operands(lp.tobytes(), hp.tobytes(), lp.shape[0],
+                               int(L), torch.device(device), dtype)
+
+
+def _bands_ref(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp):
+    """Plain band recompute ``band = rows @ T + s_in @ Wᵀ`` → low, high."""
+    c, nb, L = xrows.shape
+    t2, wt2 = crossover_operands(sos_lp, sos_hp, L, xrows.device,
+                                 xrows.dtype)
+    rows = xrows.reshape(c * nb, L)
+    return tuple((rows @ t2[f] + s.reshape(c * nb, -1) @ wt2[f]).reshape(
+        c, nb, L) for f, s in enumerate((s_in_lp, s_in_hp)))
+
+
+def band_energies_ref(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp, hop=1):
+    """Plain version of :func:`band_energies` (the JAX package's
+    ``band_energies_xla``: bands materialised, bucket sums as a product
+    with the 0/1 bucket matrix)."""
+    from python_audio_mastering_tpu_torch.ops.multiband import _bucket_matrix
+
+    c, nb, L = xrows.shape
+    _check_hop(L, hop)
+    low, high = _bands_ref(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp)
+    mid = xrows - low - high
+    rows = []
+    for sig in (low, mid, high):
+        e = (sig * sig).sum(dim=0)
+        if hop > 1:
+            e = e @ torch.as_tensor(_bucket_matrix(L, hop), dtype=e.dtype,
+                                    device=e.device)
+        rows.append(e.reshape(-1) * (1.0 / c))
+    return torch.stack(rows)
+
+
+def band_gain_apply_ref(xrows, s_in_lp, s_in_hp, cols, sos_lp, sos_hp,
+                        hop=1, emit_mono: bool = False):
+    """Plain version of :func:`band_gain_apply` (the JAX package's
+    ``band_gain_apply_xla``; the upsample is a repeat, which equals its
+    0/1-matrix product exactly: one nonzero term per output)."""
+    c, nb, L = xrows.shape
+    _check_hop(L, hop)
+    low, high = _bands_ref(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp)
+    g = cols.reshape(3, nb, L // hop).repeat_interleave(hop, dim=2)
+    y = xrows * g[0][None] + low * g[1][None] + high * g[2][None]
+    if emit_mono:
+        return y, y.mean(dim=0)
+    return y
+
+
+def _check_hop(L, hop):
+    if L % hop != 0:
+        raise ValueError(f"hop {hop} must divide block size {L}")
+
+
+def _check_band_operands(name, xrows, s_in_lp, s_in_hp, sos_lp, sos_hp):
+    """Validate the band kernels' operands; returns ``(C, nb, L, S, t2,
+    wt2)``."""
+    c, nb, L = xrows.shape
+    t2, wt2 = crossover_operands(sos_lp, sos_hp, L, xrows.device,
+                                 xrows.dtype)
+    _, _, _, s = _check_operands(name, xrows, s_in_lp, t2[0], wt2[0].T)
+    if tuple(s_in_hp.shape) != tuple(s_in_lp.shape) or \
+            s_in_hp.dtype != s_in_lp.dtype or \
+            s_in_hp.device != xrows.device or not s_in_hp.is_contiguous():
+        raise ValueError(f"{name}: the high-pass states must match the "
+                         f"low-pass ones {tuple(s_in_lp.shape)}, contiguous "
+                         f"float32 on {xrows.device}")
+    return c, nb, L, s, t2, wt2
+
+
+def band_energies(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp, hop=1):
+    """Hop-bucketed channel-mean band energies ``(3, nb·L/hop)`` (low,
+    mid, high); the band signals never reach device memory.
+
+    Args:
+      xrows: ``(C, nb, L)`` rows-form signal, float32.
+      s_in_lp / s_in_hp: ``(C, nb, S)`` per-block incoming cascade states
+        (``iir.sosfilt_states_multi_rows``).
+      sos_lp / sos_hp: the concrete ``(K, 6)`` crossover cascades.
+      hop: bucket width, a divisor of ``L``.
+    """
+    if xrows.device.type == "cpu":
+        return band_energies_ref(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp,
+                                 hop)
+    c, nb, L, s, t2, wt2 = _check_band_operands(
+        "band_energies", xrows, s_in_lp, s_in_hp, sos_lp, sos_hp)
+    _check_hop(L, hop)
+    out = torch.empty((3, nb * (L // hop)), dtype=xrows.dtype,
+                      device=xrows.device)
+    lib = _kernels.library().lib
+    with torch.cuda.device(xrows.device):
+        stream = torch.cuda.current_stream(xrows.device).cuda_stream
+        err = lib.pam_band_energies(_ptr(xrows), _ptr(t2), _ptr(wt2),
+                                    _ptr(s_in_lp), _ptr(s_in_hp), _ptr(out),
+                                    c, nb, L, s, int(hop), stream)
+    _raise_on("band_energies", err)
+    band_energies.launches += 1
+    return out
+
+
+def band_gain_apply(xrows, s_in_lp, s_in_hp, cols, sos_lp, sos_hp, hop=1,
+                    emit_mono: bool = False):
+    """Recombine with control-rate gains: ``y = x·gm + low·dl + high·dh``
+    over rows form, one signal read and one write.
+
+    Args:
+      cols: ``(3, nb·L/hop)`` control-rate columns ``(g_mid, g_low − g_mid,
+        g_high − g_mid)``, float32.
+      emit_mono: also return the channel mean of ``y`` as ``(nb, L)`` rows
+        (the loudness meter's downmix).  Returns ``(y, mono)``.
+    """
+    if xrows.device.type == "cpu":
+        return band_gain_apply_ref(xrows, s_in_lp, s_in_hp, cols, sos_lp,
+                                   sos_hp, hop, emit_mono)
+    c, nb, L, s, t2, wt2 = _check_band_operands(
+        "band_gain_apply", xrows, s_in_lp, s_in_hp, sos_lp, sos_hp)
+    _check_hop(L, hop)
+    want = (3, nb * (L // hop))
+    if (tuple(cols.shape) != want or cols.dtype != xrows.dtype
+            or cols.device != xrows.device or not cols.is_contiguous()):
+        raise ValueError(f"band_gain_apply: cols must be a contiguous "
+                         f"{want} {xrows.dtype} tensor on {xrows.device}, "
+                         f"got {tuple(cols.shape)} {cols.dtype}")
+    y = torch.empty_like(xrows)
+    mono = (torch.empty((nb, L), dtype=xrows.dtype, device=xrows.device)
+            if emit_mono else None)
+    lib = _kernels.library().lib
+    with torch.cuda.device(xrows.device):
+        stream = torch.cuda.current_stream(xrows.device).cuda_stream
+        err = lib.pam_band_gain_apply(
+            _ptr(xrows), _ptr(t2), _ptr(wt2), _ptr(s_in_lp), _ptr(s_in_hp),
+            _ptr(cols), _ptr(y), None if mono is None else _ptr(mono), c, nb,
+            L, s, int(hop), stream)
+    _raise_on("band_gain_apply", err)
+    band_gain_apply.launches += 1
+    return (y, mono) if emit_mono else y
+
+
 front_chain.launches = 0
 kweight_cells.launches = 0
-_WRAPPERS = (front_chain, kweight_cells)
+band_energies.launches = 0
+band_gain_apply.launches = 0
+_WRAPPERS = (front_chain, kweight_cells, band_energies, band_gain_apply,
+             ballistics.pass1_bnd, ballistics.replay, ballistics.replay_bnd)
 
 
 def reset_launch_counts():

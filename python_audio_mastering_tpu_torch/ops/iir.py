@@ -22,6 +22,8 @@ signal, above the 2e-5 the JAX package holds its states pass to.  The
 states are cast to the working dtype for the output recompute ``x @ T + s_in @
 Wᵀ``, which is the CUDA kernels' job (``ops.cuda_multiband``), with
 :func:`sosfilt_blocked_rows` here as its plain version.
+:func:`sosfilt_states_multi_rows` serves several cascades of one signal
+(the multiband crossovers) from one shared read.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ __all__ = [
     "zi_to_state",
     "state_to_zi",
     "sosfilt_states_rows",
+    "sosfilt_states_multi_rows",
     "sosfilt_blocked_rows",
 ]
 
@@ -227,6 +230,18 @@ def _initial_state(zi, k, c, like):
     return zi_to_state(zi).T.contiguous()
 
 
+def _states_from_summaries(t_vec, zi, ops, dtype, return_state):
+    """Incoming states ``(C, nb, S)`` in ``dtype`` and the scipy-layout
+    final state from one cascade's float64 block summaries ``t_vec``."""
+    s0 = _initial_state(zi, ops.k, t_vec.shape[0], t_vec)
+    s_in64 = _affine_prefix_static(t_vec, s0, ops.al64, cache=ops.prefix)
+    s_in = s_in64.to(dtype).contiguous()
+    if not return_state:
+        return s_in, zi
+    s_last = s_in64[:, -1] @ ops.al.T + t_vec[:, -1]           # (C, S)
+    return s_in, state_to_zi(s_last.T, ops.k).to(dtype)
+
+
 def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None):
     """Per-block incoming states of one cascade over rows ``(C, nb, L)``.
 
@@ -242,14 +257,43 @@ def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None):
     if ops is None:
         ops = blocked_ops(sos, L, xrows.device, xrows.dtype)
     rows = xrows.reshape(c * nb, L).to(_STATES_DTYPE)
-    s0 = _initial_state(zi, ops.k, c, rows)
     t_vec = (rows @ ops.g).reshape(c, nb, -1)
-    s_in64 = _affine_prefix_static(t_vec, s0, ops.al64, cache=ops.prefix)
-    s_in = s_in64.to(xrows.dtype).contiguous()
-    if not return_state:
-        return s_in, zi, ops
-    s_last = s_in64[:, -1] @ ops.al.T + t_vec[:, -1]           # (C, S)
-    return s_in, state_to_zi(s_last.T, ops.k).to(xrows.dtype), ops
+    s_in, zf = _states_from_summaries(t_vec, zi, ops, xrows.dtype,
+                                      return_state)
+    return s_in, zf, ops
+
+
+def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None,
+                              return_state=True, ops_list=None):
+    """Per-block incoming states of F cascades over rows ``(C, nb, L)``,
+    from ONE shared float64 ``rows @ [G_1 | … | G_F]`` read of the signal
+    (the multiband crossovers: the band kernels recompute each block's
+    band samples from these states).  ``ops_list``: the cascades'
+    :func:`blocked_ops`, looked up when not given.
+
+    Returns ``(s_ins, zfs)``: per-filter ``(C, nb, S_f)`` incoming states
+    and scipy-layout ``(K, 2, C)`` final states (the ``zi`` given, when
+    ``return_state`` is False).
+    """
+    c, nb, L = xrows.shape
+    if ops_list is None:
+        ops_list = [blocked_ops(s, L, xrows.device, xrows.dtype)
+                    for s in sos_list]
+    if zi_list is None:
+        zi_list = [None] * len(ops_list)
+    rows = xrows.reshape(c * nb, L).to(_STATES_DTYPE)
+    tv_cat = rows @ torch.cat([o.g for o in ops_list], dim=1)
+    s_ins, zfs = [], []
+    col = 0
+    for ops, zi in zip(ops_list, zi_list):
+        s_dim = ops.g.shape[1]
+        t_vec = tv_cat[:, col:col + s_dim].reshape(c, nb, s_dim)
+        col += s_dim
+        s_in, zf = _states_from_summaries(t_vec, zi, ops, xrows.dtype,
+                                          return_state)
+        s_ins.append(s_in)
+        zfs.append(zf)
+    return tuple(s_ins), tuple(zfs)
 
 
 def sosfilt_blocked_rows(sos, xrows, zi=None, return_state=True, ops=None):

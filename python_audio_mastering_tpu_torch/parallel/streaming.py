@@ -2,9 +2,10 @@
 
 Counterpart of ``python_audio_mastering_tpu.parallel.streaming`` (the
 rows-form chunk body).  The audio is cut into chunks of
-:func:`default_chunk_frames`; each chunk runs the chain front with the EQ
-state carried from the last one (pass A) and adds its 100 ms loudness
-cells, measured with the K-weighting state carried too.  The gated loudness
+:func:`default_chunk_frames`; each chunk runs the chain front (and the
+multiband compressor) with the EQ (and multiband) state carried from the
+last one (pass A) and adds its 100 ms loudness cells, measured with the
+K-weighting state carried too.  The gated loudness
 of all cells sets one gain, and pass B applies gain and soft limiter chunk
 by chunk, so the streamed result matches the one-shot :func:`master` up to
 float reassociation.
@@ -38,9 +39,12 @@ __all__ = ["master_streamed", "StreamState", "default_chunk_frames"]
 @dataclasses.dataclass
 class StreamState:
     """Carried state across chunks: scipy-layout ``(K, 2, C)`` filter
-    states of the EQ and of the K-weighting (loudness) filter."""
+    states of the EQ and of the K-weighting (loudness) filter, and the
+    multiband compressor's ``{"crossover": {"lp", "hp"}, "att",
+    "ctrl_tail"}`` dict."""
 
     eq_zi: Any = None
+    mb: Any = None
     kw_zi: Any = None
 
 
@@ -63,24 +67,34 @@ def default_chunk_frames(config: ChainConfig, seconds: float = 30.0) -> int:
 def _fx_chunk(chunk, params: MasteringParams, config: ChainConfig,
               state: StreamState, chain: MasteringChain,
               need_cells: bool = True):
-    """Chain front on one ``(C, nb, L)`` chunk with carried state, plus the
-    chunk's loudness cells.  Returns ``(y, new_state, cells or None)``."""
+    """Chain front (and multiband) on one ``(C, nb, L)`` chunk with carried
+    state, plus the chunk's loudness cells.  The meter's mono downmix comes
+    from the last kernel of the chunk, as in the one-shot chain.  Returns
+    ``(y, new_state, cells or None)``."""
     want_mono = (need_cells and chunk.shape[0] > 1
                  and config.measure_downmix == "reference_mono_mean")
-    if want_mono:
+    mb_state = state.mb
+    meter_rows = None
+    if want_mono and not params.multiband:
         y, meter_rows, eq_zi = chain.front(chunk, params, state=state.eq_zi,
                                            return_state=True, emit_mono=True)
-        meter_sig = meter_rows[None]
     else:
         y, eq_zi = chain.front(chunk, params, state=state.eq_zi,
                                return_state=True)
-        meter_sig = y
+    if params.multiband:
+        out = chain.multiband(y, params, state=mb_state, return_state=True,
+                              emit_mono=want_mono)
+        if want_mono:
+            y, meter_rows, mb_state = out
+        else:
+            y, mb_state = out
     if not need_cells:
-        return y, StreamState(eq_zi=eq_zi), None
+        return y, StreamState(eq_zi=eq_zi, mb=mb_state), None
+    meter_sig = y if meter_rows is None else meter_rows[None]
     cells, _, kw_zi = loud.block_cell_energies_rows(
         meter_sig, config.sample_rate, zi=state.kw_zi, return_state=True,
         ops=chain.kweight_ops())
-    return y, StreamState(eq_zi=eq_zi, kw_zi=kw_zi), cells
+    return y, StreamState(eq_zi=eq_zi, mb=mb_state, kw_zi=kw_zi), cells
 
 
 def _finalize_chunk(chunk, gain, config: ChainConfig):

@@ -1,0 +1,186 @@
+"""The port's exact ballistics (python_audio_mastering_tpu_torch.ops.
+ballistics, plain versions of kernels K5-K7 and their driver) against the
+JAX package's ``ballistics_pallas_rates_bt`` (Pallas in interpret mode)
+and its ``attenuation_scan``, on the regimes of test_pallas.py.
+
+Budgets: atol 2e-4 dB against both (test_pallas.py:50, 125).  Inside the
+port the three kernels share one op sequence, so the collapse mode, the
+serial mode and the forced serial fallback (``iters=1``) agree bitwise,
+and bitwise with the port's step-by-step ``attenuation_scan`` fed the
+same products ``m·ca`` / ``m·cr``.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from python_audio_mastering_tpu.ops import compressor as jcomp
+from python_audio_mastering_tpu.ops import pallas_kernels as jpk
+from python_audio_mastering_tpu_torch.ops import ballistics as bal
+from python_audio_mastering_tpu_torch.ops import compressor
+
+CA = np.float32([8 / 220.5, 8 / 441.0, 8 / 882.0])
+CR = np.float32([8 / 2205.0, 8 / 4410.0, 8 / 8820.0])
+T0 = 128 * 128 * 2 + 999   # several JAX tiles, a ragged last block
+
+
+@functools.cache
+def _battery():
+    """The collapse pipeline's regimes (test_pallas.py:_case_battery):
+    collapsing active blocks, frozen silences, never-saturating wander,
+    sparse blips, a random walk, and nonzero incoming states."""
+    rng = np.random.default_rng(0)
+    act = (rng.random(T0) < 0.5).astype(np.float32)
+    tt = np.arange(T0, dtype=np.float32)
+    blip = np.zeros((3, T0), np.float32)
+    blip[:, ::3000] = 10.0
+    walk = np.abs(np.cumsum(rng.standard_normal(T0)).astype(np.float32)) / 50
+    return {
+        "bursty": ((rng.random((3, T0)).astype(np.float32) * 12) * act,
+                   np.float32([0, 0, 0])),
+        "silence": (np.zeros((3, T0), np.float32), np.float32([3, 0, 1.5])),
+        "sustained": (6.0 + rng.random((3, T0)).astype(np.float32),
+                      np.float32([0, 2, 9])),
+        "slow-wander": (
+            ((5.0 + 4.0 * np.sin(2 * np.pi * tt / 50000.0))[None, :]
+             * np.ones((3, 1), np.float32)).astype(np.float32),
+            np.float32([20.0, 0.0, 5.0])),
+        "blips": (blip, np.float32([1, 1, 1])),
+        "randomwalk": (
+            np.stack([walk + 0.5] * 3) * np.float32([1, 0.5, 2])[:, None],
+            np.float32([8, 0, 0])),
+    }
+
+
+CASES = ["bursty", "silence", "sustained", "slow-wander", "blips",
+         "randomwalk"]
+
+
+def _scan_stats(m, ca, cr):
+    """``attenuation_scan`` stats ``(T, B)`` with the rates folded in."""
+    return {"max_att": m.T, "above": m.T > 0, "inc": (m * ca[:, None]).T,
+            "dec": (m * cr[:, None]).T}
+
+
+@functools.cache
+def _port(name, mode, iters=bal.FIXPOINT_ITERS):
+    m, att0 = _battery()[name]
+    return bal.ballistics_rates_bt(torch.from_numpy(m), CA, CR,
+                                   torch.from_numpy(att0), mode=mode,
+                                   iters=iters)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_driver_matches_jax_kernel_and_scan(name):
+    m, att0 = _battery()[name]
+    ref, ref_f = jpk.ballistics_pallas_rates_bt(
+        jnp.asarray(m), jnp.asarray(CA), jnp.asarray(CR), jnp.asarray(att0),
+        interpret=True, mode="collapse")
+    scan, scan_f = jcomp.attenuation_scan(
+        {k: jnp.asarray(v) for k, v in _scan_stats(m, CA, CR).items()},
+        jnp.asarray(att0))
+    att, fin = _port(name, "collapse")
+    assert att.shape == m.shape and att.dtype == torch.float32
+    for r, rf in ((np.asarray(ref), np.asarray(ref_f)),
+                  (np.asarray(scan).T, np.asarray(scan_f))):
+        np.testing.assert_allclose(att.numpy(), r, rtol=0, atol=2e-4,
+                                   err_msg=name)
+        np.testing.assert_allclose(fin.numpy(), rf, rtol=0, atol=2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_collapse_serial_and_fallback_are_bitwise_equal(name):
+    m, att0 = _battery()[name]
+    att, fin = _port(name, "collapse")
+    for other in (_port(name, "serial"), _port(name, "collapse", 1)):
+        assert torch.equal(other[0], att), name
+        assert torch.equal(other[1], fin), name
+    stats = {k: torch.from_numpy(v)
+             for k, v in _scan_stats(m, CA, CR).items()}
+    scan, scan_f = compressor.attenuation_scan(stats, torch.from_numpy(att0))
+    assert torch.equal(scan.T, att), name
+    assert torch.equal(scan_f, fin), name
+
+
+def test_port_scan_matches_jax_scan():
+    """The port's oracle is the JAX one, step for step."""
+    m, att0 = _battery()["bursty"]
+    m = m[:, :4000]
+    stats = _scan_stats(m, CA, CR)
+    ref, ref_f = jcomp.attenuation_scan(
+        {k: jnp.asarray(v) for k, v in stats.items()}, jnp.asarray(att0))
+    got, got_f = compressor.attenuation_scan(
+        {k: torch.from_numpy(v) for k, v in stats.items()},
+        torch.from_numpy(att0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got_f.numpy(), np.asarray(ref_f))
+
+
+def _padded(name):
+    m, att0 = _battery()[name]
+    t = -(-T0 // bal.BLOCK) * bal.BLOCK
+    return (torch.nn.functional.pad(torch.from_numpy(m), (0, t - T0)),
+            torch.from_numpy(CA), torch.from_numpy(CR),
+            torch.from_numpy(att0))
+
+
+def test_fixed_point_certifies_or_falls_back():
+    """Sustained material certifies within the round cap (bursty noise
+    stalls after the grace rounds and takes the walk); with the cap at 1
+    a slowly converging timeline does not certify either."""
+    args = _padded("sustained")
+    _, ctrl = bal._run_collapse(*args)
+    assert int(ctrl[bal.CNT]) == 0 and int(ctrl[bal.ACTIVE]) == 0
+    assert 1 <= int(ctrl[bal.ROUND]) <= bal.FIXPOINT_ITERS
+    args = _padded("randomwalk")
+    out, ctrl = bal._run_collapse(*args, iters=1)
+    assert int(ctrl[bal.ROUND]) == 1 and int(ctrl[bal.CNT]) != 0
+    assert torch.equal(out, bal._run(*args))
+
+
+def test_a_stopped_round_carries_its_input_through():
+    m, ca, cr, att0 = _padded("sustained")
+    nblk = m.shape[1] // bal.BLOCK
+    s = torch.rand((3, nblk))
+    idx = bal._frozen_index(m)
+    ctrl = bal.new_ctrl("cpu")
+    ctrl[bal.ACTIVE] = 0
+    before = ctrl.clone()
+    assert torch.equal(bal.replay_bnd(m, ca, cr, att0, idx, s, ctrl), s)
+    assert torch.equal(ctrl, before)
+    # a certified fixed point leaves the serial walk out
+    ctrl[bal.CNT] = 0
+    assert torch.equal(bal.pass1_bnd(m, ca, cr, att0, ctrl),
+                       torch.zeros((3, nblk)))
+
+
+def test_frozen_blocks_are_read_through():
+    """A block's income index skips every all-zero block before it."""
+    m = torch.zeros((2, 6 * bal.BLOCK))
+    m[0, 1 * bal.BLOCK + 5] = 1.0      # block 1 active
+    m[0, 4 * bal.BLOCK] = 2.0          # block 4 active
+    m[1, 0] = 1.0                      # block 0 active
+    idx = bal._frozen_index(m)
+    assert idx.tolist() == [[0, 0, 2, 2, 2, 5], [0, 1, 1, 1, 1, 1]]
+
+
+def test_single_band_nonzero_att0_and_ragged_length():
+    rng = np.random.default_rng(3)
+    m = np.abs(rng.standard_normal((1, 5 * 128 + 37))).astype(np.float32)
+    ca, cr, att0 = (np.float32([0.01]), np.float32([0.001]),
+                    np.float32([3.0]))
+    att, fin = bal.ballistics_rates_bt(torch.from_numpy(m), ca, cr, att0)
+    scan, scan_f = jcomp.attenuation_scan(
+        {k: jnp.asarray(v) for k, v in _scan_stats(m, ca, cr).items()},
+        jnp.asarray(att0))
+    np.testing.assert_allclose(att.numpy(), np.asarray(scan).T, rtol=0,
+                               atol=2e-4)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(scan_f), rtol=0,
+                               atol=2e-4)
+    with pytest.raises(ValueError, match="mode"):
+        bal.ballistics_rates_bt(torch.from_numpy(m), ca, cr, mode="scan")

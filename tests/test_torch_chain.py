@@ -1,5 +1,5 @@
 """The port's one-shot master() against the JAX package's eager master()
-on the bench settings with multiband off, tpu_default knobs and the
+on the bench settings, multiband off and on, tpu_default knobs and the
 Pallas kernels forced (interpret mode): max abs < 2e-4, the JAX
 kernels-vs-XLA chain budget (test_pallas_multiband.py:269), and the
 measured loudness within 1e-3 LU.
@@ -27,17 +27,25 @@ BENCH_NO_MB = {"saturation": 20, "preset": "techno", "width": 1.3,
                "lufs": -14.0}
 
 
-@pytest.mark.parametrize("channels,seconds", [(2, 1.5), (1, 1.5), (2, 0.03)])
-def test_master_matches_jax(channels, seconds):
+@pytest.mark.parametrize("channels,seconds,multiband", [
+    pytest.param(2, 1.5, False, id="2-1.5"),
+    pytest.param(1, 1.5, False, id="1-1.5"),
+    pytest.param(2, 0.03, False, id="2-0.03"),
+    pytest.param(2, 1.5, True, id="2-1.5-multiband"),
+    pytest.param(1, 1.5, True, id="1-1.5-multiband"),
+])
+def test_master_matches_jax(channels, seconds, multiband):
     """Stereo, mono, and a signal shorter than 4 blocks (the port pads it
-    into the rows body; JAX runs its row-major body)."""
+    into the rows body; JAX runs its row-major body); with multiband, the
+    JAX chain's Pallas multiband kernels and exact ballistics."""
     x = (make_signal(int(FS * seconds), channels=channels, seed=7) * 0.5
          ).astype(np.float32)
+    settings = {**BENCH_NO_MB, "multiband": multiband}
     jcfg = dataclasses.replace(JConfig.tpu_default(FS),
                                mb_kernel="pallas_interpret")
-    ref = jax_master(jnp.asarray(x), JParams.from_settings(BENCH_NO_MB),
+    ref = jax_master(jnp.asarray(x), JParams.from_settings(settings),
                      jcfg, return_result=True)
-    got = master(x, MasteringParams.from_settings(BENCH_NO_MB),
+    got = master(x, MasteringParams.from_settings(settings),
                  ChainConfig.gpu_default(FS), return_result=True)
     assert got.audio.shape == x.shape
     err = np.max(np.abs(got.audio.numpy() - np.asarray(ref.audio)))
@@ -64,9 +72,12 @@ def test_master_no_lufs_and_1d_input():
 
 
 @pytest.mark.parametrize("params,config,match", [
-    ({"multiband": True}, {}, "multiband"),
-    ({}, {"variant": "legacy"}, "legacy"),
-    ({}, {"limiter_mode": "lookahead_truepeak"}, "lookahead"),
+    pytest.param({"multiband": True}, {"comp_ballistics": "blocked"},
+                 "blocked", id="params0-config0-multiband"),
+    pytest.param({}, {"variant": "legacy"}, "legacy",
+                 id="params1-config1-legacy"),
+    pytest.param({}, {"limiter_mode": "lookahead_truepeak"}, "lookahead",
+                 id="params2-config2-lookahead"),
 ])
 def test_outside_the_slice_raises(params, config, match):
     x = np.zeros((4096, 2), np.float32)

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from python_audio_mastering_tpu import config as jcfg
 from python_audio_mastering_tpu.parallel import streaming as jstream
 from python_audio_mastering_tpu_torch import ChainConfig, MasteringParams, convert
@@ -57,6 +59,19 @@ def test_stream_state_from_jax():
     assert st.eq_zi.dtype == torch.float32 and st.eq_zi.shape == (4, 2, 2)
     np.testing.assert_array_equal(st.kw_zi.numpy(), kw_zi.astype(np.float32))
     assert convert.stream_state_from_jax(jstream.StreamState()).eq_zi is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.stream_state_from_jax(
-            jstream.StreamState(eq_zi=eq_zi, mb={"att": 0.0}))
+    # a multiband state: every array of the nested dict, keys kept
+    mb = {"crossover": {"lp": jnp.asarray(r.standard_normal((2, 2, 2))),
+                        "hp": jnp.asarray(r.standard_normal((2, 2, 2)))},
+          "att": jnp.asarray([1.5, 0.0, 3.25]),
+          "ctrl_tail": jnp.asarray(r.random((3, 56)))}
+    st = convert.stream_state_from_jax(
+        jstream.StreamState(eq_zi=eq_zi, mb=mb, kw_zi=kw_zi))
+    assert set(st.mb) == {"crossover", "att", "ctrl_tail"}
+    assert set(st.mb["crossover"]) == {"lp", "hp"}
+    for got, ref in ((st.mb["crossover"]["lp"], mb["crossover"]["lp"]),
+                     (st.mb["crossover"]["hp"], mb["crossover"]["hp"]),
+                     (st.mb["att"], mb["att"]),
+                     (st.mb["ctrl_tail"], mb["ctrl_tail"])):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(ref, np.float32))

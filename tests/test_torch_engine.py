@@ -32,15 +32,20 @@ PKG = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                    "python_audio_mastering_tpu_torch")
 
 
-@pytest.mark.parametrize("fs,seconds,chunk_seconds", [
-    (48000, 2.9, 1.0),     # 3 chunks of 48000 frames, zero-padded tail
-    (44100, 1.0, 30.0),    # one 1128960-frame chunk, mostly padding
+@pytest.mark.parametrize("fs,seconds,chunk_seconds,multiband", [
+    # 3 chunks of 48000 frames, zero-padded tail
+    pytest.param(48000, 2.9, 1.0, False, id="48000-2.9-1.0"),
+    # one 1128960-frame chunk, mostly padding
+    pytest.param(44100, 1.0, 30.0, False, id="44100-1.0-30.0"),
+    # multiband state carried across 3 chunks
+    pytest.param(48000, 2.9, 1.0, True, id="48000-2.9-1.0-multiband"),
 ])
 def test_master_streamed_matches_one_shot_and_jax(fs, seconds,
-                                                  chunk_seconds):
+                                                  chunk_seconds, multiband):
     x = (make_signal(int(fs * seconds), channels=2, fs=fs, seed=11) * 0.5
          ).astype(np.float32)
-    params = MasteringParams.from_settings(SETTINGS)
+    settings = {**SETTINGS, "multiband": multiband}
+    params = MasteringParams.from_settings(settings)
     cfg = ChainConfig.gpu_default(fs)
     out, measured, gain_db = master_streamed(x, params, cfg,
                                              chunk_seconds=chunk_seconds)
@@ -53,7 +58,7 @@ def test_master_streamed_matches_one_shot_and_jax(fs, seconds,
     jcfg = dataclasses.replace(JConfig.tpu_default(fs),
                                mb_kernel="pallas_interpret")
     ref, m_ref, g_ref = jax_master_streamed(
-        x, JParams.from_settings(SETTINGS), jcfg, chunk_seconds=chunk_seconds)
+        x, JParams.from_settings(settings), jcfg, chunk_seconds=chunk_seconds)
     assert np.max(np.abs(out - ref)) < 2e-4
     assert abs(measured - m_ref) < 1e-3
 
@@ -86,7 +91,6 @@ def test_process_audio_writes_wav(tmp_path):
 
 @pytest.mark.parametrize("settings,match", [
     ({"quality": True}, "lookahead"),
-    ({"multiband": True}, "multiband"),
     ({"output_sample_rate": 44100}, "resampler"),
 ])
 def test_process_audio_reports_outside_the_slice(tmp_path, settings, match):
@@ -99,6 +103,36 @@ def test_process_audio_reports_outside_the_slice(tmp_path, settings, match):
     assert not ok
     assert msgs[-1].startswith("ERROR") and match in msgs[-1]
     assert "ROADMAP" in msgs[-1]
+
+
+def test_process_audio_multiband_matches_jax_engine(tmp_path):
+    """A multiband job through the port's engine equals the JAX engine's
+    (its Pallas multiband kernels in interpret mode) within 2e-4 on the
+    16-bit output, and the port's one-shot master()."""
+    from python_audio_mastering_tpu import engine as jax_engine
+
+    fs = 44100
+    x = (make_signal(int(fs * 1.5), channels=2, fs=fs, seed=13) * 0.5
+         ).astype(np.float32)
+    src = tmp_path / "in.wav"
+    wavio.write_wav(src, x, fs, float_format=True)
+    settings = {**SETTINGS, "multiband": True, "input_file": str(src)}
+    outs = {}
+    for name, run, kwargs in (
+            ("port", engine.process_audio, {}),
+            ("jax", jax_engine.process_audio,
+             {"config": dataclasses.replace(JConfig.tpu_default(fs),
+                                            mb_kernel="pallas_interpret")})):
+        dst = tmp_path / f"{name}.wav"
+        msgs = []
+        assert run({**settings, "output_file": str(dst)}, msgs.append,
+                   **kwargs), msgs
+        outs[name], fs_out = wavio.read_wav(dst)
+        assert fs_out == fs and outs[name].shape == x.shape
+    assert np.max(np.abs(outs["port"] - outs["jax"])) < 2e-4
+    one = master(x, MasteringParams.from_settings(settings),
+                 ChainConfig.gpu_default(fs)).numpy()
+    assert np.max(np.abs(outs["port"] - one)) < 2e-4
 
 
 @pytest.mark.parametrize("kwargs", [{"transfer": "pcm16"},
