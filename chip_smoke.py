@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Drives the port (``python_audio_mastering_tpu_torch``, never jax) through
-its two entry points on a seeded 180 s 44.1 kHz stereo track with the
-bench settings, multiband off (phases 2-6) and on (phases 7-12), after
-building its CUDA kernels from the sources in the checkout and checking
-each against its plain PyTorch version at the shapes the chain gives it.
+its entry points, called without a ``device`` argument (they run on the
+card by default), on a seeded 180 s 44.1 kHz stereo track with the bench
+settings, multiband off (phases 2-6) and on (phases 7-12), after building
+its CUDA kernels from the sources in the checkout and checking each
+against its plain PyTorch version at the shapes the chain gives it.
 Phases:
 
   0  device, torch/CUDA versions, TF32 flags (refuses without a GPU)
@@ -15,31 +16,51 @@ Phases:
      max abs <= 1e-4
   3  kweight_cells kernel vs plain, (1, 20672, 384):
      max |diff| / max |plain| <= 1e-4
-  4  master() on the card: finite, |y| <= 1, BS.1770 oracle loudness
-     within 0.15 LU of -14, both kernels launched, and within 2e-4 max
-     abs / 1e-3 LU of the port's plain path on the CPU
-  5  engine.process_audio on a temp WAV: equals one-shot master() within
-     2e-4
-  6  timings (CUDA events, warm, median of 5)
+  4  master() without a device argument: on the card, finite, |y| <= 1,
+     BS.1770 oracle loudness within 0.15 LU of -14, both kernels
+     launched, and within 2e-4 max abs / 1e-3 LU of the port's plain path
+     on the CPU
+  5  engine.process_audio and master_streamed without a device argument,
+     on a temp WAV: both launch the kernels; process_audio equals one-shot
+     master() within 2e-4
+  6  timings: the chain (CUDA events, warm, median of 5), each kernel
+     (its device time under torch.profiler, mean of 10 launches), its
+     plain version and, for the product kernels, one torch.matmul of the
+     same operands (the yardstick, product only; CUDA events, median of
+     5)
   7  band_energies kernel vs plain, (2, 20672, 384), hop 8:
      max |diff| / max |plain| <= 1e-4
-  8  band_gain_apply kernel vs plain, emit_mono off and on: max |diff| /
-     max |plain| <= 1e-4
-  9  ballistics on the track's own detector targets (3, 992256): replay
-     and replay_bnd (every fixed-point round, ctrl included) bitwise equal
-     to their plain versions at full T; pass1_bnd bitwise equal to its
-     plain version on the first 65 536 steps (the plain walk is a Python
-     loop of one step per iteration, too slow at full T); at full T the
-     collapse mode, the serial mode and the forced fallback (iters=1)
+  8  band_gain_apply kernel (3xTF32 on the tensor cores) vs plain (fp32
+     cuBLAS), emit_mono off and on: max |diff| / max |plain| <= 1e-4
+  9  ballistics on the track's own detector targets (3, 992256): K5's two
+     launches (hull pass, run walk) bitwise equal to their plain twins at
+     full T, and the hull statistics (collapsed share, runs, longest
+     run); K5 bitwise equal to the serial walk pass1_bnd_ref on the first
+     65 536 steps (a Python loop of one step per iteration, too slow at
+     full T); replay and replay_bnd (every fixed-point round, ctrl
+     included) bitwise equal to their plain versions at full T; at full T
+     the collapse mode, the serial mode and the forced fallback (iters=1)
      bitwise equal; fixed-point rounds reported
  10  multiband master(): finite, |y| <= 1, oracle loudness within 0.15 LU
      of -14, every kernel of the path launched, host synchronisations
      counted, and within 5e-3 max abs / 5e-5 rms / 1e-3 LU of the port's
      plain path on the CPU (the JAX package's on-chip kernels-vs-XLA
      residual from detector threshold flips is 1.2e-3 / 1.3e-5)
- 11  multiband engine.process_audio: equals one-shot master() within 2e-4
- 12  multiband timings: master(), process_audio, each new kernel vs its
-     plain version (pass1_bnd at 65 536 steps, and at full T)
+ 11  multiband engine.process_audio (no device argument): equals one-shot
+     master() within 2e-4
+ 12  multiband timings: master(), process_audio, the ballistics in serial
+     and collapse mode, each kernel vs its plain version (and the
+     yardstick product for the band kernels)
+ 13  where the time goes: torch.profiler over 5 calls of master(),
+     multiband on and off: device time per call, the kernels that take
+     it, and the share of the wall the device is idle
+
+Each kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations over the
+peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
+TF32 on the tensor cores for K3's three products per multiply-add),
+H100 SXM data-sheet rates at 700 W, from this run's shapes (and, for K5,
+this run's collapsed blocks).
 
 Exits non-zero at the first failed phase.  The last two lines of output
 are the kernel record and ``{"ok": true, "device": {...}}``.
@@ -69,7 +90,14 @@ MB_SETTINGS = {**SETTINGS, "multiband": True}
 NO_MB_KERNELS = ("front_chain", "kweight_cells")
 MB_KERNELS = ("band_energies", "band_gain_apply", "pass1_bnd", "replay",
               "replay_bnd")
+K5_LAUNCHES = ("pass1_hull", "pass1_runs")   # K5's two kernels
+# the multiband kernels by the names of their launch counts
+MB_COUNTED = ("band_energies", "band_gain_apply", *K5_LAUNCHES, "replay",
+              "replay_bnd")
 K5_PLAIN_STEPS = 65536
+FP32_FLOPS = 67e12    # H100 SXM, fp32 on the CUDA cores, dense
+TF32_FLOPS = 495e12   # H100 SXM, TF32 on the tensor cores, dense
+HBM_BYTES = 3.35e12   # H100 SXM, HBM3 bytes/s
 _PMB = "python_audio_mastering_tpu/ops/pallas_multiband.py"
 _PK = "python_audio_mastering_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -161,6 +189,76 @@ def compare(what, got, ref, limit, relative=True):
     return mx
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops, n_bytes, rate=FP32_FLOPS):
+    """The least time the card could take: ``{"bound_ms", "bound_by"}``."""
+    t_ops, t_bytes = flops / rate * 1e3, n_bytes / HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def product_flops(rows, L, S, filters=1):
+    """Operations of ``[x | s] @ [T ; Wt]`` per filter, T's zero triangle
+    skipped (2 per multiply-add)."""
+    return 2.0 * rows * filters * (L * (L + 1) / 2 + S * L)
+
+
+def yardstick(a, b):
+    """``library_ms``: one torch.matmul of the product's operands."""
+    return median_of(lambda: cuda_ms(lambda: torch.matmul(a, b)))
+
+
+def device_profile(fn, calls):
+    """``fn`` run ``calls`` times (after a warm call) under torch.profiler
+    (CUPTI): ``({device activity name: ms per call}, wall ms per call)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / calls)
+    return by_name, wall
+
+
+def kernel_ms(fn, name, calls=10):
+    """Device time per call of the port's kernels ``pam::<name>_kernel``
+    (each name of a tuple) launched by ``fn``: the kernels alone, without
+    the wrapper's host work or allocations."""
+    names = (name,) if isinstance(name, str) else name
+    by_name, _ = device_profile(fn, calls)
+    got = [v for k, v in by_name.items()
+           if any(f"pam::{n}_kernel" in k for n in names)]
+    check(got, f"the profiler saw no kernel of {names}")
+    return sum(got)
+
+
+def profile_calls(fn, calls=5, top=12):
+    """Print the device time per call of ``fn``, its wall per call, the
+    device's idle share of the wall and the ``top`` device activities."""
+    by_name, wall = device_profile(fn, calls)
+    device = sum(by_name.values())
+    check(device > 0.0, "the profiler recorded no device time")
+    print(f"    device {device:.3f} ms per call, wall {wall:.3f} ms per call "
+          f"(profiler on), device idle {100.0 * (1 - device / wall):.1f} % "
+          f"of the wall")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:8.4f} ms {100.0 * ms / device:5.1f} %  {name[:90]}")
+
+
 def check_bitwise(what, got, ref):
     same = torch.equal(got, ref)
     n_diff = int((got != ref).sum()) if got.shape == ref.shape else -1
@@ -198,6 +296,10 @@ def main():
         MasteringChain,
         MasteringParams,
         engine,
+        master,
+    )
+    from python_audio_mastering_tpu_torch.parallel.streaming import (
+        master_streamed,
     )
     from python_audio_mastering_tpu_torch.io import wavio
     from python_audio_mastering_tpu_torch.ops import _kernels, iir
@@ -268,16 +370,19 @@ def main():
 
     # phase 4 ---------------------------------------------------------------
     cmb.reset_launch_counts()
-    res = chain(x, params, return_result=True)
+    res = master(x, params, cfg, return_result=True)   # no device argument
     torch.cuda.synchronize()
     counts = cmb.launch_counts()
+    check(res.audio.device.type == "cuda",
+          f"master() without a device ran on {res.audio.device}")
     y = res.audio.cpu().numpy()
     check(y.shape == x.shape, f"output shape {y.shape}")
     check(bool(np.isfinite(y).all()), "non-finite output")
     peak = float(np.abs(y).max())
     check(peak <= 1.0, f"|y| max {peak} > 1")
     lufs_out = oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
-    print(f"phase 4 master(): shape {y.shape} peak {peak:.4f} measured "
+    print(f"phase 4 master() (no device argument, output on "
+          f"{res.audio.device}): shape {y.shape} peak {peak:.4f} measured "
           f"{float(res.measured_lufs):.4f} LUFS gain "
           f"{float(res.applied_gain_db):.4f} dB; oracle output loudness "
           f"{lufs_out:.4f} LUFS; launches {counts}")
@@ -302,17 +407,27 @@ def main():
         msgs = []
         job = {**SETTINGS, "input_file": src, "output_file": dst}
         cmb.reset_launch_counts()
-        ok = engine.process_audio(job, msgs.append, device=dev)
+        ok = engine.process_audio(job, msgs.append)   # no device argument
         check(ok, f"process_audio failed: {msgs[-1] if msgs else ''}")
         streamed_counts = cmb.launch_counts()
         out, fs_out = wavio.read_wav(dst)
         d_eng = float(np.abs(out - y).max())
-        print(f"phase 5 process_audio: {msgs[-1]!r}; launches "
-              f"{streamed_counts}; max abs vs master() {d_eng:.3e}")
+        print(f"phase 5 process_audio (no device argument): {msgs[-1]!r}; "
+              f"launches {streamed_counts}; max abs vs master() "
+              f"{d_eng:.3e}")
         check(fs_out == FS and out.shape == x.shape, "process_audio output")
         check(all(streamed_counts[k] > 0 for k in NO_MB_KERNELS),
               "process_audio did not launch every kernel")
         check(d_eng < 2e-4, f"process_audio vs master() {d_eng} >= 2e-4")
+        cmb.reset_launch_counts()
+        out_s, _, _ = master_streamed(x, params, cfg)   # no device argument
+        counts_s = cmb.launch_counts()
+        d_str = float(np.abs(out_s - y).max())
+        print(f"phase 5 master_streamed (no device argument): launches "
+              f"{counts_s}; max abs vs master() {d_str:.3e}")
+        check(all(counts_s[k] > 0 for k in NO_MB_KERNELS),
+              "master_streamed without a device did not run on the card")
+        check(d_str < 2e-4, f"master_streamed vs master() {d_str} >= 2e-4")
         print("phase 5 ok", flush=True)
 
         # phase 6 -----------------------------------------------------------
@@ -323,7 +438,7 @@ def main():
 
         def engine_s():
             t0 = time.perf_counter()
-            engine.process_audio(job, device=dev)
+            engine.process_audio(job)
             return time.perf_counter() - t0
 
         t_master = median_of(master_ms)
@@ -332,15 +447,31 @@ def main():
               f"(x{SECONDS * 1e3 / t_master:.0f} realtime, input on the "
               f"card); process_audio wall {t_engine:.3f} s (WAV read, "
               f"upload, chain, readback, WAV write)")
-    shapes = {"front_chain": (cmb.front_chain, cmb.front_chain_ref,
-                              k1_args + (True,)),
-              "kweight_cells": (cmb.kweight_cells, cmb.kweight_cells_ref,
-                                k4_args)}
-    for name, (kern, plain, args) in shapes.items():
-        ms = median_of(lambda: cuda_ms(lambda: kern(*args)))
+    s_k1, s_k4 = s_eq.shape[2], s_kw.shape[2]
+    shapes = {
+        "front_chain": (
+            cmb.front_chain, cmb.front_chain_ref, k1_args + (True,),
+            (xrows, s_eq, eq.t, eq.w.T.contiguous()),
+            bound(product_flops(2 * nb, L, s_k1),
+                  nbytes(xrows, s_eq, eq.t, eq.w) + nbytes(xrows)
+                  + 4 * nb * L)),
+        "kweight_cells": (
+            cmb.kweight_cells, cmb.kweight_cells_ref, k4_args,
+            (mono, s_kw, kw.t, kw.w.T.contiguous()),
+            bound(product_flops(nb, L, s_k4),
+                  nbytes(mono, s_kw, kw.t, kw.w) + 4 * nb * (L // h)))}
+    for name, (kern, plain, args, (rows, st, t_op, wt), bnd_) in \
+            shapes.items():
+        ms = kernel_ms(lambda: kern(*args), name)
         plain_ms = median_of(lambda: cuda_ms(lambda: plain(*args)))
-        kernels[name].update(ms=ms, plain_ms=plain_ms)
-        print(f"phase 6 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        lib_ms = yardstick(
+            torch.cat([rows.reshape(-1, L), st.reshape(-1, st.shape[2])], 1),
+            torch.cat([t_op, wt], 0))
+        kernels[name].update(ms=ms, plain_ms=plain_ms, **bnd_,
+                             library_ms=lib_ms)
+        print(f"phase 6 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library (torch.matmul, product only) {lib_ms:.4f} ms, bound "
+              f"{bnd_['bound_ms']:.4f} ms ({bnd_['bound_by']})")
     print("phase 6 ok", flush=True)
 
     multiband_phases(x, chain, xrows, kernels)
@@ -372,6 +503,7 @@ def multiband_phases(x, chain, xrows, kernels):
     cfg = chain.config
     hop = cfg.comp_hop
     dev = xrows.device
+    nb = xrows.shape[1]
     for name in MB_KERNELS:
         kernels[name] = {}
 
@@ -424,12 +556,32 @@ def multiband_phases(x, chain, xrows, kernels):
     # phase 9 ---------------------------------------------------------------
     print(f"phase 9 targets {tuple(m.shape)}: {int((m > 0).sum())} steps "
           f"above threshold")
+    hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
+    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
+    lo_p, hi_p = bal.pass1_hull_ref(m, ca, cr, hmax)
+    check_bitwise("phase 9 K5 pass1_hull lo", lo, lo_p)
+    check_bitwise("phase 9 K5 pass1_hull hi", hi, hi_p)
+    check_bitwise("phase 9 K5 pass1_runs",
+                  bal.pass1_runs(m, ca, cr, att0, lo, hi),
+                  bal.pass1_runs_ref(m, ca, cr, att0, lo, hi))
+    nblk = lo.shape[1]
+    hull_stats = bal.hull_runs(lo, hi)
+    for band, (n_coll, n_runs, longest) in zip(("low", "mid", "high"),
+                                               hull_stats):
+        print(f"phase 9 K5 hull, {band} band: {n_coll} of {nblk} blocks "
+              f"collapsed ({100.0 * n_coll / nblk:.1f} %), {n_runs} runs of "
+              f"non-collapsed blocks, the longest {longest} blocks "
+              f"({longest * bal.BLOCK} steps)")
+    walked = sum(nblk - n for n, _, _ in hull_stats)
+    bnd = bal.pass1_bnd(m, ca, cr, att0)
+    check_bitwise("phase 9 K5 pass1_bnd vs its plain twin (full T)", bnd,
+                  bal.pass1_runs_ref(m, ca, cr, att0, lo_p, hi_p))
     cut = m[:, :K5_PLAIN_STEPS].contiguous()
-    check_bitwise(f"phase 9 pass1_bnd (first {K5_PLAIN_STEPS} steps)",
+    check_bitwise(f"phase 9 K5 pass1_bnd vs the serial walk pass1_bnd_ref "
+                  f"(first {K5_PLAIN_STEPS} steps)",
                   bal.pass1_bnd(cut, ca, cr, att0),
                   bal.pass1_bnd_ref(cut, ca, cr, att0))
     kernels["pass1_bnd"]["max_abs_err"] = 0.0
-    bnd = bal.pass1_bnd(m, ca, cr, att0)
     incomes = torch.cat([att0[:, None], bnd[:, :-1]], dim=1).contiguous()
     check_bitwise("phase 9 replay", bal.replay(m, ca, cr, incomes),
                   bal.replay_ref(m, ca, cr, incomes))
@@ -476,11 +628,14 @@ def multiband_phases(x, chain, xrows, kernels):
           f"{syncs}")
     check(abs(lufs_out - SETTINGS["lufs"]) <= 0.15,
           f"output loudness {lufs_out} not within 0.15 LU of -14")
-    for name in NO_MB_KERNELS + MB_KERNELS:
+    for name in NO_MB_KERNELS + MB_COUNTED:
         check(counts[name] > 0, f"kernel {name} was not launched by the "
                                 f"multiband master()")
+    launched = {**counts, "pass1_bnd": sum(counts[k] for k in K5_LAUNCHES)}
     for name in MB_KERNELS:
-        kernels[name]["launches"] = counts[name]
+        kernels[name]["launches"] = launched[name]
+    kernels["pass1_bnd"]["launches_by_kernel"] = {k: counts[k]
+                                                  for k in K5_LAUNCHES}
     t0 = time.perf_counter()
     cpu = MasteringChain(cfg)(x, params, return_result=True)
     d = np.abs(y - cpu.audio.numpy())
@@ -501,15 +656,16 @@ def multiband_phases(x, chain, xrows, kernels):
         msgs = []
         job = {**MB_SETTINGS, "input_file": src, "output_file": dst}
         cmb.reset_launch_counts()
-        ok = engine.process_audio(job, msgs.append, device=dev)
+        ok = engine.process_audio(job, msgs.append)   # no device argument
         check(ok, f"process_audio failed: {msgs[-1] if msgs else ''}")
         streamed_counts = cmb.launch_counts()
         out, fs_out = wavio.read_wav(dst)
         d_eng = float(np.abs(out - y).max())
-        print(f"phase 11 multiband process_audio: {msgs[-1]!r}; launches "
-              f"{streamed_counts}; max abs vs master() {d_eng:.3e}")
+        print(f"phase 11 multiband process_audio (no device argument): "
+              f"{msgs[-1]!r}; launches {streamed_counts}; max abs vs "
+              f"master() {d_eng:.3e}")
         check(fs_out == FS and out.shape == x.shape, "process_audio output")
-        check(all(streamed_counts[k] > 0 for k in NO_MB_KERNELS + MB_KERNELS),
+        check(all(streamed_counts[k] > 0 for k in NO_MB_KERNELS + MB_COUNTED),
               "process_audio did not launch every kernel")
         check(d_eng < 2e-4, f"process_audio vs master() {d_eng} >= 2e-4")
         print("phase 11 ok", flush=True)
@@ -517,7 +673,7 @@ def multiband_phases(x, chain, xrows, kernels):
         # phase 12 ----------------------------------------------------------
         def engine_s():
             t0 = time.perf_counter()
-            engine.process_audio(job, device=dev)
+            engine.process_audio(job)
             return time.perf_counter() - t0
 
         t_master = median_of(lambda: cuda_ms(lambda: chain(x_dev, params),
@@ -527,37 +683,89 @@ def multiband_phases(x, chain, xrows, kernels):
           f"(x{SECONDS * 1e3 / t_master:.0f} realtime, input on the card); "
           f"process_audio wall {t_engine:.3f} s; fixed point {rounds} "
           f"rounds, {syncs} host synchronisations per master()")
+    for mode in ("serial", "collapse", "serial", "collapse"):
+        t_mode = median_of(lambda: cuda_ms(
+            lambda: bal.ballistics_rates_bt(m, ca, cr, att0, mode=mode)))
+        print(f"phase 12 ballistics_rates_bt mode={mode} at full T: "
+              f"{t_mode:.4f} ms")
     ctrl0 = bal.new_ctrl(dev)
+    xrows_b, s_lp_b, s_hp_b = (v.reshape(-1, v.shape[2])
+                               for v in band_args[:3])
+    t2, wt2 = cmb.crossover_operands(*sos, L, dev)
+    zeros = torch.zeros_like(wt2[0])
+    band_a = torch.cat([xrows_b, s_lp_b, s_hp_b], 1)
+    band_b = torch.cat([torch.cat([t2[0], t2[1]], 1),
+                        torch.cat([wt2[0], zeros], 1),
+                        torch.cat([zeros, wt2[1]], 1)], 0)
+    s_x = s_lp.shape[2]
+    rows_b = xrows_b.shape[0]
+    band_flops = product_flops(rows_b, L, s_x, filters=2)
+    band_in = nbytes(xf, s_lp, s_hp, t2, wt2)
+    b_, t_ = m.shape
+    step_flops = 4.0 * b_ * t_
     timed = {
         "band_energies": (
             lambda: cmb.band_energies(*band_args, hop=hop),
-            lambda: cmb.band_energies_ref(*band_args, hop=hop)),
+            lambda: cmb.band_energies_ref(*band_args, hop=hop),
+            bound(band_flops, band_in + nbytes(xb)), True),
+        # K3 runs three TF32 products per multiply-add on the tensor cores
         "band_gain_apply": (
             lambda: cmb.band_gain_apply(*band_args[:3], cols, *sos, hop=hop,
                                         emit_mono=True),
             lambda: cmb.band_gain_apply_ref(*band_args[:3], cols, *sos,
-                                            hop=hop, emit_mono=True)),
-        "pass1_bnd": (lambda: bal.pass1_bnd(cut, ca, cr, att0),
-                      lambda: bal.pass1_bnd_ref(cut, ca, cr, att0)),
-        "replay": (lambda: bal.replay(m, ca, cr, incomes),
-                   lambda: bal.replay_ref(m, ca, cr, incomes)),
+                                            hop=hop, emit_mono=True),
+            bound(3 * band_flops, band_in + nbytes(cols, xf)
+                  + 4 * nb * L, TF32_FLOPS), True),
+        # K5's two launches; operations: two steps per step of the hull
+        # pass, one per step of the walked blocks
+        "pass1_bnd": (
+            lambda: bal.pass1_runs(m, ca, cr, att0,
+                                   *bal.pass1_hull(m, ca, cr, hmax)),
+            lambda: bal.pass1_runs_ref(m, ca, cr, att0,
+                                       *bal.pass1_hull_ref(m, ca, cr, hmax)),
+            bound(2 * step_flops + 4.0 * walked * bal.BLOCK,
+                  nbytes(m, ca, cr, att0, bnd)), False),
+        "replay": (
+            lambda: bal.replay(m, ca, cr, incomes),
+            lambda: bal.replay_ref(m, ca, cr, incomes),
+            bound(step_flops, nbytes(m, ca, cr, incomes, m)), False),
         # a fresh (active) ctrl per call: the kernel's time includes its
         # 24-byte copy
         "replay_bnd": (
             lambda: bal.replay_bnd(m, ca, cr, att0, idx, s, ctrl0.clone()),
             lambda: bal.replay_bnd_ref(m, ca, cr, att0, idx, s,
-                                       ctrl0.clone())),
+                                       ctrl0.clone()),
+            bound(step_flops, nbytes(m, ca, cr, att0, idx, s, ctrl0, s)),
+            False),
     }
-    for name, (kern, plain) in timed.items():
-        ms = median_of(lambda: cuda_ms(kern))
+    for name, (kern, plain, bnd_, product) in timed.items():
+        ms = kernel_ms(kern, K5_LAUNCHES if name == "pass1_bnd" else name)
         plain_ms = median_of(lambda: cuda_ms(plain, reps=1))
-        kernels[name].update(ms=ms, plain_ms=plain_ms)
-        print(f"phase 12 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    full_ms = median_of(lambda: cuda_ms(lambda: bal.pass1_bnd(m, ca, cr,
-                                                              att0)))
-    print(f"phase 12 pass1_bnd at {K5_PLAIN_STEPS} steps above; at full T "
-          f"{m.shape[1]}: kernel {full_ms:.4f} ms")
+        lib_ms = yardstick(band_a, band_b) if product else None
+        kernels[name].update(ms=ms, plain_ms=plain_ms, **bnd_,
+                             library_ms=lib_ms)
+        print(f"phase 12 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              + (f", library (torch.matmul, product only) {lib_ms:.4f} ms"
+                 if product else ", library none")
+              + f", bound {bnd_['bound_ms']:.4f} ms ({bnd_['bound_by']})")
+    for name, fn in (("pass1_hull", lambda: bal.pass1_hull(m, ca, cr, hmax)),
+                     ("pass1_runs", lambda: bal.pass1_runs(m, ca, cr, att0,
+                                                           lo, hi))):
+        print(f"phase 12 K5 {name} alone: {kernel_ms(fn, name):.4f} ms")
     print("phase 12 ok", flush=True)
+
+    # phase 13 --------------------------------------------------------------
+    no_mb = MasteringParams.from_settings(SETTINGS)
+    for what, p in (("multiband on", params), ("multiband off", no_mb)):
+        print(f"phase 13 profile of master(), {what}, 180 s, input on the "
+              f"card:")
+        profile_calls(lambda: chain(x_dev, p))
+    for mode in ("serial", "collapse"):
+        print(f"phase 13 profile of ballistics_rates_bt mode={mode}, the "
+              f"track's targets {tuple(m.shape)}:")
+        profile_calls(lambda: bal.ballistics_rates_bt(m, ca, cr, att0,
+                                                      mode=mode), top=6)
+    print("phase 13 ok", flush=True)
 
 
 if __name__ == "__main__":

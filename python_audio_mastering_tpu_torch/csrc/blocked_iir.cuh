@@ -21,8 +21,8 @@
 // 4 rows x L/32 columns in registers, reads its 4 A values as one
 // broadcast float4 and its columns conflict-free (lane-strided), so a
 // k-step is 4·L/32 FMAs for 1 + L/32 shared loads; T's zero triangle is
-// skipped and the k-tiles are double-buffered (see blocked_iir_tile).  A
-// later change can move the product to 3xTF32 or wgmma.
+// skipped and the k-tiles are double-buffered (see blocked_iir_tile).
+// tf32_product.cuh runs the crossover's product on the tensor cores.
 //
 // Rows of a tile are (block, channel) pairs, t = bl * C + c, for the
 // blocks b0 .. b0 + br - 1 of a group, so every channel of a block is in

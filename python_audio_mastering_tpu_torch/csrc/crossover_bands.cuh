@@ -1,5 +1,6 @@
-// The crossover bands of one tile, shared by band_energies and
-// band_gain_apply.
+// The crossover bands of one tile on the fp32 CUDA cores, for
+// band_energies (band_gain_apply runs the same product on the tensor
+// cores, tf32_product.cuh).
 //
 // The worker split is low = LP4(x), high = HP4(x), mid = x - low - high.
 // Both filters read the same raw rows x, so a tile runs the blocked-IIR

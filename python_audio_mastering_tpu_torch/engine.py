@@ -42,7 +42,7 @@ def _config_for(settings: dict, sample_rate: int,
 
 def _run_chain(audio: np.ndarray, sample_rate: int, settings: dict,
                progress_cb=None, config: ChainConfig | None = None,
-               device="cpu"):
+               device="cuda"):
     params = MasteringParams.from_settings(settings)
     cfg = _config_for(settings, sample_rate, config)
     out, measured, gain_db = master_streamed(audio, params, cfg,
@@ -55,10 +55,12 @@ def _run_chain(audio: np.ndarray, sample_rate: int, settings: dict,
 
 
 def process_audio(settings: dict, status_callback=None,
-                  config: ChainConfig | None = None, device="cpu") -> bool:
+                  config: ChainConfig | None = None, device="cuda") -> bool:
     """Desktop single-file engine (GUI contract).  Returns success.
 
-    ``device``: where the chain runs (``"cuda"`` for the card).
+    ``device``: where the chain runs, the card unless the caller passes
+    ``device="cpu"``.  Without a card the job fails with an ``ERROR:``
+    message naming the missing device.
     """
     cb = status_callback or (lambda msg: None)
     try:

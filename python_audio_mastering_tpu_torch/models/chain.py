@@ -59,7 +59,7 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import (
 )
 
 __all__ = ["master", "MasterResult", "MasteringChain", "eq_sos",
-           "check_supported", "check_fp32_matmul"]
+           "check_supported", "check_fp32_matmul", "require_device"]
 
 _EQ_CACHE_SIZE = 16
 
@@ -97,6 +97,19 @@ def check_supported(params: MasteringParams, config: ChainConfig):
         raise NotImplementedError(
             f"limiter_mode={config.limiter_mode!r} (the 'quality' key): the "
             "lookahead true-peak limiter is ROADMAP queue 1 item 5")
+
+
+def require_device(device, what: str):
+    """The ``torch.device`` an entry point runs on.  Every entry point
+    defaults to ``"cuda"``; without a card that request raises, naming the
+    missing device, and never runs on the CPU instead."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}: device {str(device)!r} requested but no CUDA device is "
+            "available (torch.cuda.is_available() is False); pass "
+            "device='cpu' to run on the CPU")
+    return dev
 
 
 def check_fp32_matmul(device):
@@ -277,14 +290,15 @@ class MasteringChain(nn.Module):
 
 
 def master(audio, params: MasteringParams, config: ChainConfig,
-           return_result: bool = False, device=None):
+           return_result: bool = False, device="cuda"):
     """Run the mastering chain on ``(N, C)`` or ``(N,)`` float audio.
 
-    ``device``: where to run; defaults to the device of ``audio`` when it
-    is a tensor, else the CPU.  Every length takes the rows body: a signal shorter than
-    ``4 · block_size`` is padded to whole blocks like any other.
+    ``device``: where to run, the card unless the caller passes
+    ``device="cpu"``; raises when no card is there (see
+    :func:`require_device`).  Every length takes the rows body: a signal
+    shorter than ``4 · block_size`` is padded to whole blocks like any
+    other.
     """
-    if device is None:
-        device = audio.device if isinstance(audio, torch.Tensor) else "cpu"
+    device = require_device(device, "master")
     chain = MasteringChain(config).to(device)
     return chain(audio, params, return_result=return_result)

@@ -46,8 +46,10 @@ _SIGNATURES = {
     # x, t2, wt2, s_lp, s_hp, cols, y, mono, C, nb, L, S, h, stream
     "pam_band_gain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P],
-    # m, ca, cr, att0, bnd, ctrl, B, T, stream
-    "pam_pass1_bnd": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # m, ca, cr, hmax, lo, hi, ctrl, B, T, stream
+    "pam_pass1_hull": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # m, ca, cr, att0, lo, hi, bnd, ctrl, B, T, stream
+    "pam_pass1_runs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # m, ca, cr, incomes, out, B, T, stream
     "pam_replay": [_P, _P, _P, _P, _P, _I, _I, _P],
     # m, ca, cr, att0, idx_ex, s_out, s_new, ctrl, B, T, iters, stream

@@ -7,12 +7,17 @@ the rate factors folded in, see ``csrc/ballistics.cuh``) is
 
     att ← att ≤ m ? min(att + m·ca, m) : max(att − m·cr, 0)
 
-and the timeline is cut into blocks of 128 steps.  Three kernels
+and the timeline is cut into blocks of 128 steps.  Four kernels
 (``csrc/ballistics.cu``), each with a plain PyTorch version that runs the
 same float operations in the same order, so that kernel and plain agree
 bit for bit:
 
-* :func:`pass1_bnd` (K5) — the serial walk, each block's outgoing state;
+* :func:`pass1_bnd` (K5) — each block's outgoing state as the serial walk
+  gives it, as a segmented exact walk of two launches:
+  :func:`pass1_hull` (every block's interval of outgoing states; a block
+  whose interval is one float has collapsed) and :func:`pass1_runs` (the
+  runs of non-collapsed blocks walked serially, all runs in parallel).
+  :func:`pass1_bnd_ref`, the serial walk itself, is its oracle;
 * :func:`replay` (K6) — every block replayed from its incoming state,
   per-step output;
 * :func:`replay_bnd` (K7) — one round of the block-boundary fixed point.
@@ -39,9 +44,10 @@ from python_audio_mastering_tpu_torch.ops._kernels import ptr as _ptr
 from python_audio_mastering_tpu_torch.ops._kernels import raise_on as _raise_on
 from python_audio_mastering_tpu_torch.ops._kernels import upload
 
-__all__ = ["ballistics_rates_bt", "pass1_bnd", "pass1_bnd_ref", "replay",
-           "replay_ref", "replay_bnd", "replay_bnd_ref", "new_ctrl",
-           "BLOCK", "FIXPOINT_ITERS"]
+__all__ = ["ballistics_rates_bt", "pass1_bnd", "pass1_bnd_ref",
+           "pass1_hull", "pass1_hull_ref", "pass1_runs", "pass1_runs_ref",
+           "hull_runs", "replay", "replay_ref", "replay_bnd",
+           "replay_bnd_ref", "new_ctrl", "BLOCK", "FIXPOINT_ITERS"]
 
 BLOCK = 128           # control steps per block (part of the algorithm)
 FIXPOINT_ITERS = 12   # certification cap before the serial fallback
@@ -78,11 +84,92 @@ def _incomes(s_out, att0, idx_ex):
     return torch.where(idx_ex == 0, att0[:, None], gathered)
 
 
+def _hull_step(lo, hi, m, ca, cr):
+    """One step of the block hull pass (``ballistics_hull_step`` in
+    ``csrc/ballistics.cuh``, where the argument is): the interval is split
+    at ``m`` and each part's ends go through :func:`_step`."""
+    inf = torch.full_like(m, float("inf"))
+    att_part = lo <= m
+    rel_part = hi > m
+    a_lo = _step(lo, m, ca, cr)
+    a_hi = _step(torch.minimum(hi, m), m, ca, cr)
+    r_lo = _step(torch.maximum(lo, torch.nextafter(m, inf)), m, ca, cr)
+    r_hi = _step(hi, m, ca, cr)
+    new_lo = torch.minimum(torch.where(att_part, a_lo, inf),
+                           torch.where(rel_part, r_lo, inf))
+    new_hi = torch.maximum(torch.where(att_part, a_hi, -inf),
+                           torch.where(rel_part, r_hi, -inf))
+    return new_lo, new_hi
+
+
+def _skipped(ctrl):
+    return ctrl is not None and int(ctrl[CNT]) == 0
+
+
+def pass1_hull_ref(m, ca, cr, hmax, ctrl=None):
+    """Plain version of :func:`pass1_hull`, every block at once."""
+    b, t = m.shape
+    lo = torch.zeros((b, t // BLOCK), dtype=m.dtype, device=m.device)
+    if _skipped(ctrl):
+        return lo, lo.clone()
+    hi = hmax[:, None].expand_as(lo).clone()
+    mb = _blocks(m)
+    ca, cr = ca[:, None], cr[:, None]
+    for j in range(BLOCK):
+        lo, hi = _hull_step(lo, hi, mb[:, :, j], ca, cr)
+    return lo, hi
+
+
+def pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl=None):
+    """Plain version of :func:`pass1_runs`: collapsed blocks take their
+    constant, and the runs of non-collapsed blocks are walked together,
+    one block of every unfinished run per round."""
+    nblk = lo.shape[1]
+    if _skipped(ctrl):
+        return torch.zeros_like(lo)
+    collapsed = lo == hi
+    bnd = torch.where(collapsed, lo, 0.0)
+    before = torch.cat([torch.ones_like(collapsed[:, :1]),
+                        collapsed[:, :-1]], dim=1)
+    band, k = torch.nonzero(~collapsed & before, as_tuple=True)
+    if band.numel() == 0:
+        return bnd
+    att = torch.where(k == 0, att0[band], lo[band, (k - 1).clamp_min(0)])
+    mb = _blocks(m)
+    ca, cr = ca[band], cr[band]
+    while band.numel():
+        steps = mb[band, k]
+        for j in range(BLOCK):
+            att = _step(att, steps[:, j], ca, cr)
+        bnd[band, k] = att
+        k = k + 1
+        inside = k < nblk
+        go = inside.clone()   # the run goes on into a non-collapsed block
+        go[inside] = ~collapsed[band[inside], k[inside]]
+        band, k, att, ca, cr = band[go], k[go], att[go], ca[go], cr[go]
+    return bnd
+
+
+def hull_runs(lo, hi):
+    """Per band: ``(collapsed blocks, runs of non-collapsed blocks,
+    longest run in blocks)`` of a hull pass (host ints)."""
+    out = []
+    for c in (lo == hi).cpu().tolist():
+        runs, longest, cur = 0, 0, 0
+        for done in c:
+            cur = 0 if done else cur + 1
+            runs += cur == 1
+            longest = max(longest, cur)
+        out.append((sum(c), runs, longest))
+    return out
+
+
 def pass1_bnd_ref(m, ca, cr, att0, ctrl=None):
-    """Plain version of :func:`pass1_bnd`: a Python loop over T steps."""
+    """The serial walk, a Python loop over T steps: the oracle of
+    :func:`pass1_bnd` (same output, bit for bit)."""
     bnd = torch.zeros((m.shape[0], m.shape[1] // BLOCK), dtype=m.dtype,
                       device=m.device)
-    if ctrl is not None and int(ctrl[CNT]) == 0:
+    if _skipped(ctrl):
         return bnd
     att = att0
     for i, m_i in enumerate(m.T.contiguous().unbind(0)):
@@ -161,32 +248,69 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def pass1_hull(m, ca, cr, hmax, ctrl=None):
+    """K5's first launch: each block's interval ``(lo, hi)`` ``(B, T/128)``
+    of outgoing states over every incoming state in ``[0, hmax]``
+    (``csrc/ballistics.cu`` has the argument).  ``lo == hi``: the block has
+    collapsed to that state.  Gated on ``ctrl`` as :func:`pass1_bnd`."""
+    if m.device.type == "cpu":
+        return pass1_hull_ref(m, ca, cr, hmax, ctrl)
+    b, t = _check("pass1_hull", m,
+                  (("ca", ca), ("cr", cr), ("hmax", hmax)))
+    if ctrl is not None:
+        _check_ctrl("pass1_hull", ctrl, m.device)
+    lo = torch.empty((b, t // BLOCK), dtype=m.dtype, device=m.device)
+    hi = torch.empty_like(lo)
+    lib = _kernels.library().lib
+    with torch.cuda.device(m.device):
+        err = lib.pam_pass1_hull(_ptr(m), _ptr(ca), _ptr(cr), _ptr(hmax),
+                                 _ptr(lo), _ptr(hi), None if ctrl is None
+                                 else _ptr(ctrl), b, t, _stream(m.device))
+    _raise_on("pass1_hull", err)
+    pass1_hull.launches += 1
+    return lo, hi
+
+
+def pass1_runs(m, ca, cr, att0, lo, hi, ctrl=None):
+    """K5's second launch: the outgoing state of every block ``(B,
+    T/128)``, collapsed blocks from their constant, every run of
+    non-collapsed blocks walked serially from the exact state before it,
+    all runs in parallel.  Gated on ``ctrl`` as :func:`pass1_bnd`."""
+    if m.device.type == "cpu":
+        return pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl)
+    b, t = _check("pass1_runs", m, (("ca", ca), ("cr", cr), ("att0", att0)),
+                  (("lo", lo, torch.float32), ("hi", hi, torch.float32)))
+    if ctrl is not None:
+        _check_ctrl("pass1_runs", ctrl, m.device)
+    bnd = torch.zeros((b, t // BLOCK), dtype=m.dtype, device=m.device)
+    lib = _kernels.library().lib
+    with torch.cuda.device(m.device):
+        err = lib.pam_pass1_runs(_ptr(m), _ptr(ca), _ptr(cr), _ptr(att0),
+                                 _ptr(lo), _ptr(hi), _ptr(bnd),
+                                 None if ctrl is None else _ptr(ctrl), b, t,
+                                 _stream(m.device))
+    _raise_on("pass1_runs", err)
+    pass1_runs.launches += 1
+    return bnd
+
+
 def pass1_bnd(m, ca, cr, att0, ctrl=None):
-    """Outgoing attenuation of every 128-step block ``(B, T/128)`` by one
-    serial walk of the timeline (K5).
+    """Outgoing attenuation of every 128-step block ``(B, T/128)``, bit for
+    bit the serial walk of the timeline (K5): :func:`pass1_hull`, then
+    :func:`pass1_runs`, no host synchronisation.
 
     Args:
-      m: ``(B, T)`` per-step targets (dB ≥ 0), float32, T a multiple of 128.
+      m: ``(B, T)`` per-step targets (dB ≥ 0, no -0.0), float32, T a
+        multiple of 128.
       ca / cr: ``(B,)`` attack / release rate factors; att0: ``(B,)``
-        incoming attenuation.
+        incoming attenuation (≥ 0, no -0.0).
       ctrl: a fixed-point record (:func:`new_ctrl`); when given, the walk
         runs only if the fixed point's last round changed a boundary, and
         the output is zeros otherwise.
     """
-    if m.device.type == "cpu":
-        return pass1_bnd_ref(m, ca, cr, att0, ctrl)
-    b, t = _check("pass1_bnd", m, (("ca", ca), ("cr", cr), ("att0", att0)))
-    if ctrl is not None:
-        _check_ctrl("pass1_bnd", ctrl, m.device)
-    bnd = torch.zeros((b, t // BLOCK), dtype=m.dtype, device=m.device)
-    lib = _kernels.library().lib
-    with torch.cuda.device(m.device):
-        err = lib.pam_pass1_bnd(_ptr(m), _ptr(ca), _ptr(cr), _ptr(att0),
-                                _ptr(bnd), None if ctrl is None
-                                else _ptr(ctrl), b, t, _stream(m.device))
-    _raise_on("pass1_bnd", err)
-    pass1_bnd.launches += 1
-    return bnd
+    hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
+    lo, hi = pass1_hull(m, ca, cr, hmax, ctrl)
+    return pass1_runs(m, ca, cr, att0, lo, hi, ctrl)
 
 
 def replay(m, ca, cr, incomes):
@@ -231,7 +355,8 @@ def replay_bnd(m, ca, cr, att0, idx_ex, s_out, ctrl, iters=FIXPOINT_ITERS):
     return s_new
 
 
-pass1_bnd.launches = 0
+pass1_hull.launches = 0
+pass1_runs.launches = 0
 replay.launches = 0
 replay_bnd.launches = 0
 
@@ -295,13 +420,16 @@ def ballistics_rates_bt(max_att_bt, attack_rate, release_rate, att0=None,
       iters: the fixed point's round cap (collapse only).
 
     T is padded to whole 128-step blocks with zero targets, which freeze
-    the state.  Returns ``(att (B, T), att_final (B,))``.
+    the state.  The targets and ``att0`` get +0.0 added, which turns a
+    -0.0 into +0.0 and leaves every other value as it is: K5 compares
+    states by value (see :func:`pass1_bnd`).  Returns ``(att (B, T),
+    att_final (B,))``.
     """
     m = max_att_bt
     b, t = m.shape
     dt, dev = m.dtype, m.device
     t_pad = max(1, -(-t // BLOCK)) * BLOCK
-    m_p = torch.nn.functional.pad(m, (0, t_pad - t)).contiguous()
+    m_p = torch.nn.functional.pad(m + 0.0, (0, t_pad - t)).contiguous()
     ca, cr = (r.to(dt).contiguous() if torch.is_tensor(r)
               else upload(r, dt, dev) for r in (attack_rate, release_rate))
     if att0 is None:
@@ -310,6 +438,7 @@ def ballistics_rates_bt(max_att_bt, attack_rate, release_rate, att0=None,
         a0 = att0.to(device=dev, dtype=dt).contiguous()
     else:
         a0 = upload(att0, dt, dev)
+    a0 = a0 + 0.0
     if mode == "collapse":
         out, _ = _run_collapse(m_p, ca, cr, a0, iters)
     elif mode == "serial":

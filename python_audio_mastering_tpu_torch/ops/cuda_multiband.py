@@ -10,8 +10,9 @@ Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
   bands from per-block states → channel-mean squared energies in
   ``hop``-buckets, the multiband detector's input;
 * :func:`band_gain_apply` (CUDA ``csrc/band_gain_apply.cu``) — the bands
-  again → recombination with the control-rate gains, plus the mono
-  downmix.
+  again, as one product on the tensor cores in 3xTF32
+  (``csrc/tf32_product.cuh``) → recombination with the control-rate gains,
+  plus the mono downmix.
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU,
 and launches its kernel for a CUDA tensor or raises: there is no fallback
@@ -312,6 +313,9 @@ def band_gain_apply(xrows, s_in_lp, s_in_hp, cols, sos_lp, sos_hp, hop=1,
         raise ValueError(f"band_gain_apply: cols must be a contiguous "
                          f"{want} {xrows.dtype} tensor on {xrows.device}, "
                          f"got {tuple(cols.shape)} {cols.dtype}")
+    if xrows.data_ptr() % 16:
+        raise ValueError("band_gain_apply: the rows must start on a 16-byte "
+                         "boundary (the kernel copies 16-byte chunks)")
     y = torch.empty_like(xrows)
     mono = (torch.empty((nb, L), dtype=xrows.dtype, device=xrows.device)
             if emit_mono else None)
@@ -332,7 +336,8 @@ kweight_cells.launches = 0
 band_energies.launches = 0
 band_gain_apply.launches = 0
 _WRAPPERS = (front_chain, kweight_cells, band_energies, band_gain_apply,
-             ballistics.pass1_bnd, ballistics.replay, ballistics.replay_bnd)
+             ballistics.pass1_hull, ballistics.pass1_runs, ballistics.replay,
+             ballistics.replay_bnd)
 
 
 def reset_launch_counts():

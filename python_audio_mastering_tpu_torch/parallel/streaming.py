@@ -29,6 +29,7 @@ from python_audio_mastering_tpu_torch.models.chain import (
     MasteringChain,
     check_fp32_matmul,
     check_supported,
+    require_device,
 )
 from python_audio_mastering_tpu_torch.ops import loudness as loud
 from python_audio_mastering_tpu_torch.ops.waveshaper import soft_limiter
@@ -105,9 +106,10 @@ def master_streamed(audio, params: MasteringParams, config: ChainConfig,
                     chunk_seconds: float = 30.0, progress_cb=None,
                     checkpoint_dir=None,
                     transfer: str = "float32", return_meters: bool = False,
-                    device="cpu"):
+                    device="cuda"):
     """Master ``(N, C)`` or ``(N,)`` float audio chunk by chunk on
-    ``device``.
+    ``device``: the card unless the caller passes ``device="cpu"``; raises
+    when no card is there.
 
     Args:
       audio: numpy array.
@@ -126,6 +128,7 @@ def master_streamed(audio, params: MasteringParams, config: ChainConfig,
     if return_meters:
         raise NotImplementedError(
             "return_meters: the R128 meters are ROADMAP queue 1 item 5")
+    device = require_device(device, "master_streamed")
     check_supported(params, config)
     check_fp32_matmul(device)
     chain = MasteringChain(config).to(device)

@@ -4,10 +4,12 @@ JAX package's ``ballistics_pallas_rates_bt`` (Pallas in interpret mode)
 and its ``attenuation_scan``, on the regimes of test_pallas.py.
 
 Budgets: atol 2e-4 dB against both (test_pallas.py:50, 125).  Inside the
-port the three kernels share one op sequence, so the collapse mode, the
-serial mode and the forced serial fallback (``iters=1``) agree bitwise,
-and bitwise with the port's step-by-step ``attenuation_scan`` fed the
-same products ``m·ca`` / ``m·cr``.
+port the kernels share one op sequence, so the collapse mode, the serial
+mode and the forced serial fallback (``iters=1``) agree bitwise, and
+bitwise with the port's step-by-step ``attenuation_scan`` fed the same
+products ``m·ca`` / ``m·cr``.  K5's segmented walk (the hull pass, then
+the runs of non-collapsed blocks) equals the serial walk bitwise, on
+those regimes and on timelines built against it.
 """
 
 import functools
@@ -60,6 +62,41 @@ CASES = ["bursty", "silence", "sustained", "slow-wander", "blips",
          "randomwalk"]
 
 
+@functools.cache
+def _adversarial():
+    """Timelines built against the segmented walk, with their own rates:
+    ``(m, att0, ca, cr)``."""
+    rng = np.random.default_rng(1)
+    slow = np.float32([1e-4, 2e-4, 5e-5])
+    bursty = (rng.random((3, T0)).astype(np.float32) * 12
+              * (rng.random(T0) < 0.5))
+    tail = np.full((3, T0), 10.0, np.float32)
+    tail[:, T0 // 2:] = 0.1   # a slow release from 10 dB to the end
+    return {
+        # slow attack and release throughout: no block collapses
+        "no-collapse": (6.0 + rng.random((3, T0)).astype(np.float32),
+                        np.float32([0, 3, 9]), slow, slow),
+        # every block frozen from a zero state: all collapse to 0
+        "all-frozen": (np.zeros((3, T0), np.float32), np.float32([0, 0, 0]),
+                       CA, CR),
+        "att0-high": (bursty, np.float32([20, 5, 0.5]), CA, CR),
+        "run-to-the-end": (tail, np.float32([0, 0, 0]), CA,
+                           np.float32([1e-4, 1e-4, 1e-4])),
+        "single-block": (bursty[:, :100], np.float32([1, 0, 2]), CA, CR),
+    }
+
+
+def _case(name):
+    """``(m, att0, ca, cr)`` of a regime of CASES or ADVERSARIAL."""
+    if name in CASES:
+        return (*_battery()[name], CA, CR)
+    return _adversarial()[name]
+
+
+ADVERSARIAL = ["no-collapse", "all-frozen", "att0-high", "run-to-the-end",
+               "single-block"]
+
+
 def _scan_stats(m, ca, cr):
     """``attenuation_scan`` stats ``(T, B)`` with the rates folded in."""
     return {"max_att": m.T, "above": m.T > 0, "inc": (m * ca[:, None]).T,
@@ -68,20 +105,20 @@ def _scan_stats(m, ca, cr):
 
 @functools.cache
 def _port(name, mode, iters=bal.FIXPOINT_ITERS):
-    m, att0 = _battery()[name]
-    return bal.ballistics_rates_bt(torch.from_numpy(m), CA, CR,
+    m, att0, ca, cr = _case(name)
+    return bal.ballistics_rates_bt(torch.from_numpy(m), ca, cr,
                                    torch.from_numpy(att0), mode=mode,
                                    iters=iters)
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + ADVERSARIAL)
 def test_driver_matches_jax_kernel_and_scan(name):
-    m, att0 = _battery()[name]
+    m, att0, ca, cr = _case(name)
     ref, ref_f = jpk.ballistics_pallas_rates_bt(
-        jnp.asarray(m), jnp.asarray(CA), jnp.asarray(CR), jnp.asarray(att0),
+        jnp.asarray(m), jnp.asarray(ca), jnp.asarray(cr), jnp.asarray(att0),
         interpret=True, mode="collapse")
     scan, scan_f = jcomp.attenuation_scan(
-        {k: jnp.asarray(v) for k, v in _scan_stats(m, CA, CR).items()},
+        {k: jnp.asarray(v) for k, v in _scan_stats(m, ca, cr).items()},
         jnp.asarray(att0))
     att, fin = _port(name, "collapse")
     assert att.shape == m.shape and att.dtype == torch.float32
@@ -93,15 +130,15 @@ def test_driver_matches_jax_kernel_and_scan(name):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + ADVERSARIAL)
 def test_collapse_serial_and_fallback_are_bitwise_equal(name):
-    m, att0 = _battery()[name]
+    m, att0, ca, cr = _case(name)
     att, fin = _port(name, "collapse")
     for other in (_port(name, "serial"), _port(name, "collapse", 1)):
         assert torch.equal(other[0], att), name
         assert torch.equal(other[1], fin), name
     stats = {k: torch.from_numpy(v)
-             for k, v in _scan_stats(m, CA, CR).items()}
+             for k, v in _scan_stats(m, ca, cr).items()}
     scan, scan_f = compressor.attenuation_scan(stats, torch.from_numpy(att0))
     assert torch.equal(scan.T, att), name
     assert torch.equal(scan_f, fin), name
@@ -122,11 +159,58 @@ def test_port_scan_matches_jax_scan():
 
 
 def _padded(name):
-    m, att0 = _battery()[name]
-    t = -(-T0 // bal.BLOCK) * bal.BLOCK
-    return (torch.nn.functional.pad(torch.from_numpy(m), (0, t - T0)),
-            torch.from_numpy(CA), torch.from_numpy(CR),
+    m, att0, ca, cr = _case(name)
+    t = -(-m.shape[1] // bal.BLOCK) * bal.BLOCK
+    return (torch.nn.functional.pad(torch.from_numpy(m), (0, t - m.shape[1])),
+            torch.from_numpy(ca), torch.from_numpy(cr),
             torch.from_numpy(att0))
+
+
+@pytest.mark.parametrize("name", CASES + ADVERSARIAL)
+def test_segmented_walk_equals_the_serial_walk(name):
+    """K5's plain twin (hull pass, then the runs walked together) against
+    the serial walk ``pass1_bnd_ref``, bitwise; the adversarial regimes
+    are checked to be what they claim."""
+    m, ca, cr, att0 = _padded(name)
+    hmax = torch.maximum(att0, m.amax(dim=1))
+    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
+    assert torch.equal(bal.pass1_bnd(m, ca, cr, att0),
+                       bal.pass1_bnd_ref(m, ca, cr, att0)), name
+    collapsed, runs, longest = zip(*bal.hull_runs(lo, hi))
+    nblk = lo.shape[1]
+    if name == "no-collapse":
+        assert collapsed == (0, 0, 0) and longest == (nblk,) * 3
+    elif name == "all-frozen":
+        assert collapsed == (nblk,) * 3 and runs == (0, 0, 0)
+    elif name == "run-to-the-end":
+        assert all(lo[:, -1] != hi[:, -1]) and all(c > 0 for c in collapsed)
+    elif name == "single-block":
+        assert nblk == 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hull_pass_is_sound(seed):
+    """Every incoming state in [0, H] (its ends included), replayed through
+    a block, lands inside the block's hull; through a collapsed block, on
+    its constant bit for bit."""
+    rng = np.random.default_rng(seed)
+    nblk = 24
+    act = rng.random((3, nblk * bal.BLOCK)) < (0.3 + 0.3 * seed)
+    m = torch.from_numpy(
+        (rng.random((3, nblk * bal.BLOCK)) * 12 * act).astype(np.float32))
+    ca = torch.from_numpy(rng.uniform(1e-3, 0.5, 3).astype(np.float32))
+    cr = torch.from_numpy(rng.uniform(1e-4, 0.05, 3).astype(np.float32))
+    hmax = m.amax(dim=1) + 1.0
+    lo, hi = bal.pass1_hull_ref(m, ca, cr, hmax)
+    assert bool((lo <= hi).all())
+    collapsed = lo == hi
+    for trial in range(48):
+        u = torch.from_numpy(rng.random((3, nblk)).astype(np.float32))
+        incomes = ({0: torch.zeros_like(u), 1: hmax[:, None].expand_as(u)}
+                   .get(trial, u * hmax[:, None])).contiguous()
+        out = bal.replay_ref(m, ca, cr, incomes)[:, bal.BLOCK - 1::bal.BLOCK]
+        assert bool(((lo <= out) & (out <= hi)).all()), trial
+        assert torch.equal(out[collapsed], lo[collapsed]), trial
 
 
 def test_fixed_point_certifies_or_falls_back():

@@ -46,7 +46,8 @@ def test_master_matches_jax(channels, seconds, multiband):
     ref = jax_master(jnp.asarray(x), JParams.from_settings(settings),
                      jcfg, return_result=True)
     got = master(x, MasteringParams.from_settings(settings),
-                 ChainConfig.gpu_default(FS), return_result=True)
+                 ChainConfig.gpu_default(FS), return_result=True,
+                 device="cpu")
     assert got.audio.shape == x.shape
     err = np.max(np.abs(got.audio.numpy() - np.asarray(ref.audio)))
     assert err < 2e-4, err
@@ -63,10 +64,10 @@ def test_master_no_lufs_and_1d_input():
     x = (make_signal(FS, channels=1, seed=2) * 0.5).astype(np.float32)
     params = MasteringParams.from_settings({"saturation": 10, "lufs": None})
     cfg = ChainConfig.gpu_default(FS)
-    res = master(x, params, cfg, return_result=True)
+    res = master(x, params, cfg, return_result=True, device="cpu")
     assert np.isnan(float(res.measured_lufs))
     assert float(res.applied_gain_db) == 0.0
-    flat = master(x[:, 0], params, cfg)
+    flat = master(x[:, 0], params, cfg, device="cpu")
     assert flat.shape == (FS,)
     np.testing.assert_array_equal(flat.numpy(), res.audio[:, 0].numpy())
 
@@ -83,4 +84,4 @@ def test_outside_the_slice_raises(params, config, match):
     x = np.zeros((4096, 2), np.float32)
     cfg = dataclasses.replace(ChainConfig.gpu_default(FS), **config)
     with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP"):
-        master(x, MasteringParams.from_settings(params), cfg)
+        master(x, MasteringParams.from_settings(params), cfg, device="cpu")

@@ -48,8 +48,9 @@ def test_master_streamed_matches_one_shot_and_jax(fs, seconds,
     params = MasteringParams.from_settings(settings)
     cfg = ChainConfig.gpu_default(fs)
     out, measured, gain_db = master_streamed(x, params, cfg,
-                                             chunk_seconds=chunk_seconds)
-    one = master(x, params, cfg, return_result=True)
+                                             chunk_seconds=chunk_seconds,
+                                             device="cpu")
+    one = master(x, params, cfg, return_result=True, device="cpu")
     assert out.shape == x.shape and out.dtype == np.float32
     assert np.max(np.abs(out - one.audio.numpy())) < 2e-4
     assert abs(measured - float(one.measured_lufs)) < 1e-3
@@ -78,13 +79,14 @@ def test_process_audio_writes_wav(tmp_path):
     wavio.write_wav(src, x, fs, float_format=True)
     msgs = []
     ok = engine.process_audio({**SETTINGS, "input_file": str(src),
-                               "output_file": str(dst)}, msgs.append)
+                               "output_file": str(dst)}, msgs.append,
+                              device="cpu")
     assert ok, msgs
     assert "complete" in msgs[-1]
     y, fs_out = wavio.read_wav(dst)
     assert fs_out == fs and y.shape == x.shape
     one = master(x, MasteringParams.from_settings(SETTINGS),
-                 ChainConfig.gpu_default(fs)).numpy()
+                 ChainConfig.gpu_default(fs), device="cpu").numpy()
     # 16-bit output: truncation adds < 1/32768
     assert np.max(np.abs(y - one)) < 2e-4
 
@@ -99,7 +101,7 @@ def test_process_audio_reports_outside_the_slice(tmp_path, settings, match):
     msgs = []
     ok = engine.process_audio({**settings, "input_file": str(src),
                                "output_file": str(tmp_path / "o.wav")},
-                              msgs.append)
+                              msgs.append, device="cpu")
     assert not ok
     assert msgs[-1].startswith("ERROR") and match in msgs[-1]
     assert "ROADMAP" in msgs[-1]
@@ -119,7 +121,7 @@ def test_process_audio_multiband_matches_jax_engine(tmp_path):
     settings = {**SETTINGS, "multiband": True, "input_file": str(src)}
     outs = {}
     for name, run, kwargs in (
-            ("port", engine.process_audio, {}),
+            ("port", engine.process_audio, {"device": "cpu"}),
             ("jax", jax_engine.process_audio,
              {"config": dataclasses.replace(JConfig.tpu_default(fs),
                                             mb_kernel="pallas_interpret")})):
@@ -131,7 +133,7 @@ def test_process_audio_multiband_matches_jax_engine(tmp_path):
         assert fs_out == fs and outs[name].shape == x.shape
     assert np.max(np.abs(outs["port"] - outs["jax"])) < 2e-4
     one = master(x, MasteringParams.from_settings(settings),
-                 ChainConfig.gpu_default(fs)).numpy()
+                 ChainConfig.gpu_default(fs), device="cpu").numpy()
     assert np.max(np.abs(outs["port"] - one)) < 2e-4
 
 
@@ -141,7 +143,41 @@ def test_process_audio_multiband_matches_jax_engine(tmp_path):
 def test_master_streamed_outside_the_slice_raises(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         master_streamed(np.zeros((4800, 2), np.float32), MasteringParams(),
-                        ChainConfig.gpu_default(48000), **kwargs)
+                        ChainConfig.gpu_default(48000), device="cpu",
+                        **kwargs)
+
+
+def _skip_with_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+
+
+@pytest.mark.parametrize("entry", ["master", "master_streamed"])
+def test_entry_points_default_to_the_card(entry):
+    """Called without ``device``, the entry points run on the card; with
+    none they raise, naming the missing device, and never fall back to
+    the CPU."""
+    _skip_with_a_card()
+    run = {"master": master, "master_streamed": master_streamed}[entry]
+    with pytest.raises(RuntimeError, match=f"{entry}: device 'cuda'.*CUDA"):
+        run(np.zeros((4800, 2), np.float32), MasteringParams(),
+            ChainConfig.gpu_default(48000))
+
+
+def test_process_audio_defaults_to_the_card(tmp_path):
+    """Without ``device`` and without a card the job fails visibly: False
+    and an ``ERROR:`` message naming CUDA, no output file."""
+    _skip_with_a_card()
+    src, dst = tmp_path / "in.wav", tmp_path / "out.wav"
+    wavio.write_wav(src, np.zeros((4800, 2), np.float32), 48000)
+    msgs = []
+    ok = engine.process_audio({**SETTINGS, "input_file": str(src),
+                               "output_file": str(dst)}, msgs.append)
+    assert not ok
+    assert msgs[-1].startswith("ERROR:") and "CUDA" in msgs[-1], msgs
+    assert not dst.exists()
 
 
 def test_port_imports_without_jax():
@@ -154,7 +190,7 @@ def test_port_imports_without_jax():
         "from python_audio_mastering_tpu_torch import engine, convert\n"
         "from python_audio_mastering_tpu_torch.parallel import streaming\n"
         "y = p.master(np.zeros((2048, 2), np.float32), p.MasteringParams(),"
-        " p.ChainConfig.gpu_default())\n"
+        " p.ChainConfig.gpu_default(), device='cpu')\n"
         "assert not any(m == 'python_audio_mastering_tpu' or"
         " m.startswith('python_audio_mastering_tpu.') for m in sys.modules)\n"
         "print('ok', tuple(y.shape))\n")

@@ -8,8 +8,9 @@ so the card's machine, which has no jax, runs it:
 Tests marked ``cuda`` need an NVIDIA GPU and skip without one; the
 others check the wrappers' device dispatch on the CPU.  Kernel vs plain
 on the card: fp32 sums in another order, max abs ≤ 1e-4 (K2, K4:
-relative to the largest value); the ballistics kernels K5-K7 run the
-plain version's float operations in its order, so they agree bitwise.
+relative to the largest value; K3 runs its product in 3xTF32 on the
+tensor cores, close to fp32); the ballistics kernels K5-K7 run the plain
+version's float operations in its order, so they agree bitwise.
 The multiband chain on the card vs the CPU path: max abs < 5e-3, rms <
 5e-5, |ΔLUFS| < 1e-3 (the JAX package's on-chip kernels-vs-XLA residual,
 1.2e-3 max / 1.3e-5 rms, comes from detector threshold flips,
@@ -71,14 +72,14 @@ def _kweight_operands(channels, nb, device, fs):
             math.gcd(loud._gating_geometry(fs)[0], L))
 
 
-def _band_operands(channels, nb, device, hop=8, fs=44100):
+def _band_operands(channels, nb, device, hop=8, fs=44100, block=L):
     """(xrows, s_lp, s_hp, sos_lp, sos_hp) and control-rate gain columns."""
-    xrows = torch.as_tensor(_signal(nb * L, channels, fs, 20 + channels),
-                            device=device).reshape(channels, nb, L)
+    xrows = torch.as_tensor(_signal(nb * block, channels, fs, 20 + channels),
+                            device=device).reshape(channels, nb, block)
     sos = mb._crossover_sos(fs, 250.0, 4000.0)
     (s_lp, s_hp), _ = iir.sosfilt_states_multi_rows(sos, xrows)
     r = np.random.default_rng(channels)
-    g = torch.as_tensor(0.5 + 0.5 * r.random((3, nb * L // hop)),
+    g = torch.as_tensor(0.5 + 0.5 * r.random((3, nb * block // hop)),
                         dtype=torch.float32, device=device)
     cols = torch.stack([g[1], g[0] - g[1], g[2] - g[1]]).contiguous()
     return (xrows, s_lp, s_hp, *sos), cols
@@ -130,9 +131,15 @@ def test_wrappers_take_the_plain_version_on_cpu(emit_mono):
     assert torch.equal(bal.replay_bnd(m, ca, cr, att0, idx, inc, c1),
                        bal.replay_bnd_ref(m, ca, cr, att0, idx, inc, c2))
     assert torch.equal(c1, c2)
+    lo, hi = bal.pass1_hull(m, ca, cr, att0 + 12.0)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (lo, hi), bal.pass1_hull_ref(m, ca, cr, att0 + 12.0)))
+    assert torch.equal(bal.pass1_runs(m, ca, cr, att0, lo, hi),
+                       bal.pass1_runs_ref(m, ca, cr, att0, lo, hi))
     assert cmb.launch_counts() == {
         "front_chain": 0, "kweight_cells": 0, "band_energies": 0,
-        "band_gain_apply": 0, "pass1_bnd": 0, "replay": 0, "replay_bnd": 0}
+        "band_gain_apply": 0, "pass1_hull": 0, "pass1_runs": 0, "replay": 0,
+        "replay_bnd": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -155,6 +162,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     idx = torch.zeros((3, 2), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         bal.pass1_bnd(m, ca, cr, att0)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        bal.pass1_runs(m, ca, cr, att0, inc, inc)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         bal.replay(m, ca, cr, inc)
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -249,12 +258,23 @@ def test_band_kernels_match_plain(cuda_device, channels, hop):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [128, 70 * 128, 300 * 128])
 def test_ballistics_kernels_match_plain_bitwise(cuda_device, t):
-    """K5, K6 and K7 against their plain versions on the card, bitwise;
-    T spans one block, a ragged last CTA and several CTAs."""
+    """K5 (each of its two launches, and the two together against the
+    serial walk), K6 and K7 against their plain versions on the card,
+    bitwise; T spans one block, a ragged last CTA and several CTAs."""
     m, ca, cr, att0 = _ballistics_operands(t, cuda_device)
     nblk = t // bal.BLOCK
+    hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
+    before = cmb.launch_counts()
+    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
+    lo_p, hi_p = bal.pass1_hull_ref(m, ca, cr, hmax)
+    assert torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
+    assert torch.equal(bal.pass1_runs(m, ca, cr, att0, lo, hi),
+                       bal.pass1_runs_ref(m, ca, cr, att0, lo, hi))
     bnd = bal.pass1_bnd(m, ca, cr, att0)
     assert torch.equal(bnd, bal.pass1_bnd_ref(m, ca, cr, att0))
+    after = cmb.launch_counts()
+    assert after["pass1_hull"] == before["pass1_hull"] + 2
+    assert after["pass1_runs"] == before["pass1_runs"] + 2
     inc = torch.cat([att0[:, None], bnd[:, :-1]], dim=1).contiguous()
     assert torch.equal(bal.replay(m, ca, cr, inc),
                        bal.replay_ref(m, ca, cr, inc))
@@ -270,6 +290,42 @@ def test_ballistics_kernels_match_plain_bitwise(cuda_device, t):
     assert torch.equal(bal.ballistics_rates_bt(m, ca, cr, att0)[0],
                        bal.ballistics_rates_bt(m, ca, cr, att0,
                                                mode="serial")[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 256, 512])
+def test_band_gain_apply_kernel_matches_plain_at_every_block_size(
+        cuda_device, block):
+    """K3's column tiles (64 wide) and its causal k-tile skip at every
+    block size the kernels take, stereo, hop 8, both outputs; nb = 70
+    leaves a ragged last row tile.  Limit: the chip smoke's, 1e-4 of the
+    largest value."""
+    bargs, cols = _band_operands(2, 70, cuda_device, block=block)
+    got = cmb.band_gain_apply(*bargs[:3], cols, *bargs[3:], hop=8,
+                              emit_mono=True)
+    ref = cmb.band_gain_apply_ref(*bargs[:3], cols, *bargs[3:], hop=8,
+                                  emit_mono=True)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert ((g - r).abs().max() / r.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["ballistics.cu", "band_gain_apply.cu"])
+def test_kernel_sources_do_not_spill(cuda_device, source):
+    """ptxas -v on the rewritten sources: every kernel in them reports 0
+    bytes of spill stores and loads."""
+    import re
+
+    from python_audio_mastering_tpu_torch.ops import _kernels
+
+    log = _kernels.library().compiler_log
+    assert f"== {source}" in log, "no compiler log beside the library"
+    section = log.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        section)
+    assert spills, section
+    assert all(a == "0" and b == "0" for a, b in spills), section
 
 
 @pytest.mark.cuda
