@@ -12,8 +12,8 @@ Phases:
 
   0  device, torch/CUDA versions, TF32 flags (refuses without a GPU)
   1  build the kernels (nvcc, sm_90a)
-  2  front_chain kernel vs plain, (2, 20672, 384), emit_mono off and on:
-     max abs <= 1e-4
+  2  front_chain kernel (3xTF32 on the tensor cores) vs plain (fp32
+     cuBLAS), (2, 20672, 384), emit_mono off and on: max abs <= 1e-4
   3  kweight_cells kernel vs plain, (1, 20672, 384):
      max |diff| / max |plain| <= 1e-4
   4  master() without a device argument: on the card, finite, |y| <= 1,
@@ -28,8 +28,9 @@ Phases:
      plain version and, for the product kernels, one torch.matmul of the
      same operands (the yardstick, product only; CUDA events, median of
      5)
-  7  band_energies kernel vs plain, (2, 20672, 384), hop 8:
-     max |diff| / max |plain| <= 1e-4
+  7  band_energies kernel (3xTF32 on the tensor cores) vs plain,
+     (2, 20672, 384), at the chain's hop 8 and at hop 3 (buckets that
+     cross the kernel's 64-column tiles): max |diff| / max |plain| <= 1e-4
   8  band_gain_apply kernel (3xTF32 on the tensor cores) vs plain (fp32
      cuBLAS), emit_mono off and on: max |diff| / max |plain| <= 1e-4
   9  ballistics on the track's own detector targets (3, 992256): K5's two
@@ -58,9 +59,10 @@ Phases:
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
-TF32 on the tensor cores for K3's three products per multiply-add),
-H100 SXM data-sheet rates at 700 W, from this run's shapes (and, for K5,
-this run's collapsed blocks).
+TF32 on the tensor cores for the three products per multiply-add of K1,
+K2 and K3, whose bound on the fp32 cores is printed beside it), H100 SXM
+data-sheet rates at 700 W, from this run's shapes (and, for K5, this
+run's collapsed blocks).
 
 Exits non-zero at the first failed phase.  The last two lines of output
 are the kernel record and ``{"ok": true, "device": {...}}``.
@@ -198,6 +200,14 @@ def bound(flops, n_bytes, rate=FP32_FLOPS):
     t_ops, t_bytes = flops / rate * 1e3, n_bytes / HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def product_bounds(flops, n_bytes, tf32):
+    """``(bound, bound on the fp32 cores)`` of a product kernel: the first
+    at the 3xTF32 rate (three TF32 products a multiply-add) where
+    ``tf32``, else the second."""
+    fp32 = bound(flops, n_bytes)
+    return (bound(3 * flops, n_bytes, TF32_FLOPS) if tf32 else fp32), fp32
 
 
 def product_flops(rows, L, S, filters=1):
@@ -452,15 +462,16 @@ def main():
         "front_chain": (
             cmb.front_chain, cmb.front_chain_ref, k1_args + (True,),
             (xrows, s_eq, eq.t, eq.w.T.contiguous()),
-            bound(product_flops(2 * nb, L, s_k1),
-                  nbytes(xrows, s_eq, eq.t, eq.w) + nbytes(xrows)
-                  + 4 * nb * L)),
+            product_bounds(product_flops(2 * nb, L, s_k1),
+                           nbytes(xrows, s_eq, eq.t, eq.w) + nbytes(xrows)
+                           + 4 * nb * L, tf32=True)),
         "kweight_cells": (
             cmb.kweight_cells, cmb.kweight_cells_ref, k4_args,
             (mono, s_kw, kw.t, kw.w.T.contiguous()),
-            bound(product_flops(nb, L, s_k4),
-                  nbytes(mono, s_kw, kw.t, kw.w) + 4 * nb * (L // h)))}
-    for name, (kern, plain, args, (rows, st, t_op, wt), bnd_) in \
+            product_bounds(product_flops(nb, L, s_k4),
+                           nbytes(mono, s_kw, kw.t, kw.w)
+                           + 4 * nb * (L // h), tf32=False))}
+    for name, (kern, plain, args, (rows, st, t_op, wt), (bnd_, fp32_)) in \
             shapes.items():
         ms = kernel_ms(lambda: kern(*args), name)
         plain_ms = median_of(lambda: cuda_ms(lambda: plain(*args)))
@@ -471,7 +482,8 @@ def main():
                              library_ms=lib_ms)
         print(f"phase 6 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library (torch.matmul, product only) {lib_ms:.4f} ms, bound "
-              f"{bnd_['bound_ms']:.4f} ms ({bnd_['bound_by']})")
+              f"{bnd_['bound_ms']:.4f} ms ({bnd_['bound_by']}; on the fp32 "
+              f"cores {fp32_['bound_ms']:.4f} ms)")
     print("phase 6 ok", flush=True)
 
     multiband_phases(x, chain, xrows, kernels)
@@ -515,10 +527,16 @@ def multiband_phases(x, chain, xrows, kernels):
     band_args = (xf, s_lp, s_hp, *sos)
 
     # phase 7 ---------------------------------------------------------------
-    xb = cmb.band_energies(*band_args, hop=hop)
-    kernels["band_energies"]["max_abs_err"] = compare(
-        f"phase 7 band_energies hop={hop}", xb,
-        cmb.band_energies_ref(*band_args, hop=hop), 1e-4)
+    # the chain's hop, then hop 3, whose buckets cross the 64-column tiles
+    err = 0.0
+    for h in (hop, 3):
+        got = cmb.band_energies(*band_args, hop=h)
+        err = max(err, compare(f"phase 7 band_energies hop={h}", got,
+                               cmb.band_energies_ref(*band_args, hop=h),
+                               1e-4))
+        if h == hop:
+            xb = got
+    kernels["band_energies"]["max_abs_err"] = err
     print("phase 7 ok", flush=True)
 
     # the track's own detector targets and the gain columns
@@ -703,19 +721,23 @@ def multiband_phases(x, chain, xrows, kernels):
     band_in = nbytes(xf, s_lp, s_hp, t2, wt2)
     b_, t_ = m.shape
     step_flops = 4.0 * b_ * t_
+    # K2 and K3 run three TF32 products per multiply-add on the tensor cores
+    k2_bnd, k2_fp32 = product_bounds(band_flops, band_in + nbytes(xb),
+                                     tf32=True)
+    k3_bnd, k3_fp32 = product_bounds(band_flops, band_in + nbytes(cols, xf)
+                                     + 4 * nb * L, tf32=True)
+    fp32_bound = {"band_energies": k2_fp32, "band_gain_apply": k3_fp32}
     timed = {
         "band_energies": (
             lambda: cmb.band_energies(*band_args, hop=hop),
             lambda: cmb.band_energies_ref(*band_args, hop=hop),
-            bound(band_flops, band_in + nbytes(xb)), True),
-        # K3 runs three TF32 products per multiply-add on the tensor cores
+            k2_bnd, True),
         "band_gain_apply": (
             lambda: cmb.band_gain_apply(*band_args[:3], cols, *sos, hop=hop,
                                         emit_mono=True),
             lambda: cmb.band_gain_apply_ref(*band_args[:3], cols, *sos,
                                             hop=hop, emit_mono=True),
-            bound(3 * band_flops, band_in + nbytes(cols, xf)
-                  + 4 * nb * L, TF32_FLOPS), True),
+            k3_bnd, True),
         # K5's two launches; operations: two steps per step of the hull
         # pass, one per step of the walked blocks
         "pass1_bnd": (
@@ -747,7 +769,12 @@ def multiband_phases(x, chain, xrows, kernels):
         print(f"phase 12 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               + (f", library (torch.matmul, product only) {lib_ms:.4f} ms"
                  if product else ", library none")
-              + f", bound {bnd_['bound_ms']:.4f} ms ({bnd_['bound_by']})")
+              + f", bound {bnd_['bound_ms']:.4f} ms ({bnd_['bound_by']}"
+              + (f"; on the fp32 cores {fp32_bound[name]['bound_ms']:.4f} ms"
+                 if name in fp32_bound else "") + ")")
+    k2_h3 = kernel_ms(lambda: cmb.band_energies(*band_args, hop=3),
+                      "band_energies")
+    print(f"phase 12 band_energies hop=3 alone: {k2_h3:.4f} ms")
     for name, fn in (("pass1_hull", lambda: bal.pass1_hull(m, ca, cr, hmax)),
                      ("pass1_runs", lambda: bal.pass1_runs(m, ca, cr, att0,
                                                            lo, hi))):

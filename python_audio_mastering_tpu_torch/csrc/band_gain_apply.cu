@@ -5,8 +5,9 @@
 // Replaces the TPU kernel python_audio_mastering_tpu/ops/pallas_multiband.py
 // band_gain_apply / _gain_apply_kernel.  It recomputes the low and high
 // bands of a tile from their incoming states as one product on the tensor
-// cores in 3xTF32 (tf32_product.cuh: bound by the products, ~12.5 GFLOP for
-// a 3-min stereo track), repeats each of the three control-rate gain
+// cores in 3xTF32 (tf32_product.cuh with F = 2: bound by the products,
+// ~12.5 GFLOP for a 3-min stereo track, 0.076 ms at the 3xTF32 rate),
+// repeats each of the three control-rate gain
 // columns over its h samples, and writes y once: the band signals and the
 // mid band never reach device memory.  The TPU kernel upsamples the gains
 // as a product with a 0/1 matrix; each output there has one nonzero term,
@@ -37,7 +38,8 @@ band_gain_apply_kernel(const float* __restrict__ x,
   float* smem = reinterpret_cast<float*>(smem4);
   const int b0 = blockIdx.y * br;
   const int j0 = (gridDim.x - 1 - blockIdx.x) * kGN;
-  crossover_tile_tf32(x, t2, wt2, s_lp, s_hp, C, nb, L, S, b0, br, j0, smem);
+  product_tile_tf32<2>(x, t2, wt2, s_lp, s_hp, C, nb, L, S, b0, br, j0,
+                       RawX{}, smem);
   const int lh = L / h;
   const size_t T = (size_t)nb * lh;
   const float inv_c = 1.f / (float)C;
@@ -73,9 +75,9 @@ extern "C" int pam_band_gain_apply(const float* x, const float* t2,
                                    const float* s_hp, const float* cols,
                                    float* y, float* mono, int C, int nb,
                                    int L, int S, int h, void* stream) {
-  if (C < 1 || C > pam::kGM || nb < 1 || S < 1 || S > pam::kGMaxStates ||
-      h < 1 || L < pam::kGN || L % pam::kGN != 0 || L % h != 0 ||
-      (long long)C * nb * L >= (1LL << 31))
+  if (C < 1 || C > pam::kGM || nb < 1 || S < 1 ||
+      2 * S > pam::kGStateDepth || h < 1 || L < pam::kGN ||
+      L % pam::kGN != 0 || L % h != 0 || (long long)C * nb >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int br = pam::kGM / C;
   const dim3 grid(L / pam::kGN, (nb + br - 1) / br);

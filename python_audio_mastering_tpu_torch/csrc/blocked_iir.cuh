@@ -1,4 +1,6 @@
-// Blocked-IIR tile loop shared by the front_chain and kweight_cells kernels.
+// The fp32 blocked-IIR tile loop of the kweight_cells kernel, its only
+// user until K4 moves to the tensor-core product of tf32_product.cuh, as
+// front_chain, band_energies and band_gain_apply have.
 //
 // A block of L samples of a biquad cascade is recomputed from its incoming
 // cascade state as one product:
@@ -6,11 +8,9 @@
 //     y_blk = x_blk @ T + s_in @ Wt        T (L, L), Wt (S, L)
 //
 // which is a single GEMM over the augmented depth K = L + S:
-// A = [shape(x_blk) | s_in], B = [T ; Wt].  This header computes that
+// A = [x_blk | s_in], B = [T ; Wt].  This header computes that
 // product for one tile of kTileRows rows and leaves it in shared memory,
-// where each kernel's epilogue reads it.  A kernel that needs two filters
-// of one signal (the crossover bands) runs the loop twice and keeps the
-// first result in a shared-memory region of its own.
+// where the kernel's epilogue reads it.
 //
 // What bounds it on the H100: per output sample the product does L + S
 // FMAs and moves 8-12 bytes, ~100 FMAs per byte, far above the ~20 FMAs
@@ -22,13 +22,11 @@
 // broadcast float4 and its columns conflict-free (lane-strided), so a
 // k-step is 4·L/32 FMAs for 1 + L/32 shared loads; T's zero triangle is
 // skipped and the k-tiles are double-buffered (see blocked_iir_tile).
-// tf32_product.cuh runs the crossover's product on the tensor cores.
 //
 // Rows of a tile are (block, channel) pairs, t = bl * C + c, for the
 // blocks b0 .. b0 + br - 1 of a group, so every channel of a block is in
-// the same CTA: the width epilogue couples channels and the bucket sums
-// couple columns, and both stay inside the CTA.  Rows past the last block
-// are loaded as zeros and never stored.
+// the same CTA: the bucket sums couple columns and stay inside the CTA.
+// Rows past the last block are loaded as zeros and never stored.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,18 +48,15 @@ struct TileSmem {
       sizeof(float) * (kMainFloats > kEpiFloats ? kMainFloats : kEpiFloats);
 };
 
-// y = [shape(x) | s_in] @ [T ; Wt] for rows (b0 .. b0+br-1) x (0 .. C-1).
-// `smem` is the loop's working buffer (TileSmem<L>::kMainFloats floats);
-// `result` (kTileRows * L floats, may be `smem` itself) receives the tile.
-// On return result[t * L + j] holds row t, column j of the tile (rows past
-// the last block hold zeros), and the block is synchronised.
+// y = [x | s_in] @ [T ; Wt] for rows (b0 .. b0+br-1) x (0 .. C-1).
+// `smem` holds TileSmem<L>::kBytes.  On return smem[t * L + j] holds row
+// t, column j of the tile (rows past the last block hold zeros), and the
+// block is synchronised.
 //   x     (C, nb, L)   raw rows
 //   t     (L, L)       zero-state response operator (causal: T[k][j] = 0
 //                      for j < k)
 //   wt    (S, L)       state-correction operator, transposed
 //   s_in  (C, nb, S)   incoming cascade states
-//   shape: apply the exciter (1-mix)·x + mix·tanh(drive·x) to x as the
-//          A tile is loaded (the states s_in are not shaped)
 //
 // The k-tiles are double-buffered: the next tile's global loads are in
 // flight in registers while the current one is multiplied from shared
@@ -73,8 +68,7 @@ template <int L>
 __device__ __forceinline__ void blocked_iir_tile(
     const float* __restrict__ x, const float* __restrict__ t,
     const float* __restrict__ wt, const float* __restrict__ s_in,
-    int C, int nb, int S, int b0, int br, bool shape, float mix, float drive,
-    float* smem, float* result) {
+    int C, int nb, int S, int b0, int br, float* smem) {
   static_assert(L % 32 == 0, "L must be a multiple of 32");
   constexpr int TN = L / 32;
   constexpr int kAPer = kTileRows * kBK / kThreads;
@@ -117,18 +111,15 @@ __device__ __forceinline__ void blocked_iir_tile(
       rb[i] = v;
     }
   };
-  // the exciter is applied here, not in load(), so that the loads stay in
-  // flight across the multiply of the previous tile
-  auto store = [&](int stage, int k0) {
+  // stored apart from load(), so that the loads stay in flight across the
+  // multiply of the previous tile
+  auto store = [&](int stage) {
     float* As = smem + stage * TileSmem<L>::kStageFloats;
     float* Bs = As + kBK * kAStride;
 #pragma unroll
     for (int i = 0; i < kAPer; ++i) {
       const int e = tid + i * kThreads;
-      float v = ra[i];
-      if (shape && k0 + e % kBK < L)
-        v = (1.f - mix) * v + mix * tanhf(v * drive);
-      As[(e % kBK) * kAStride + e / kBK] = v;
+      As[(e % kBK) * kAStride + e / kBK] = ra[i];
     }
 #pragma unroll
     for (int i = 0; i < kBPer; ++i) Bs[tid + i * kThreads] = rb[i];
@@ -141,7 +132,7 @@ __device__ __forceinline__ void blocked_iir_tile(
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   load(0);
-  store(0, 0);
+  store(0);
   __syncthreads();
   int stage = 0;
   for (int k0 = 0; k0 < K; k0 += kBK) {
@@ -165,17 +156,17 @@ __device__ __forceinline__ void blocked_iir_tile(
         }
       }
     }
-    if (more) store(stage ^ 1, k0 + kBK);
+    if (more) store(stage ^ 1);
     __syncthreads();
     stage ^= 1;
   }
 
-  // the tile buffers are dead: `result` may reuse their shared memory
+  // the tile buffers are dead: the result tile reuses their shared memory
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      result[(ty * 4 + i) * L + tx + 32 * j] = acc[i][j];
+      smem[(ty * 4 + i) * L + tx + 32 * j] = acc[i][j];
   __syncthreads();
 }
 

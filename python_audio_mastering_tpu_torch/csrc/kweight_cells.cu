@@ -22,8 +22,7 @@ kweight_cells_kernel(const float* __restrict__ x, const float* __restrict__ t,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b0 = blockIdx.x * br;
-  blocked_iir_tile<L>(x, t, wt, s_in, C, nb, S, b0, br, false, 0.f, 1.f,
-                      smem, smem);
+  blocked_iir_tile<L>(x, t, wt, s_in, C, nb, S, b0, br, smem);
   const int lh = L / h;
   for (int e = threadIdx.x; e < br * C * lh; e += kThreads) {
     const int r = e / lh;

@@ -1,29 +1,35 @@
-// The crossover bands of a tile on the tensor cores, in 3xTF32.
+// The blocked-IIR product of a tile on the tensor cores, in 3xTF32, for
+// one filter (front_chain) or the two crossover filters (band_energies,
+// band_gain_apply).
 //
 // A block of L samples of a biquad cascade is recomputed from its incoming
-// cascade state as one product (blocked_iir.cuh).  The crossover runs two
-// cascades over the same rows, so both become one product of depth
-// K = L + 2S and width 2L:
+// cascade state as one product, y_blk = x_blk @ T + s_in @ Wt (T (L, L)
+// causal, Wt (S, L) the transposed state operator).  With F filters over
+// the same rows it is one product of depth K = L + F·S:
 //
-//     [low | high] = [x_blk | s_lp | s_hp] @ [ T_lp  T_hp ]
-//                                            [ W_lp   0   ]
-//                                            [  0    W_hp ]
+//     F = 1:   y            = [x_blk | s] @ [ T  ]
+//                                            [ Wt ]
 //
-// (W the transposed state operators wt2.)  crossover_tile_tf32 computes
-// the tile of kGM rows and output columns j0 .. j0 + kGN - 1 of both bands
-// and leaves it in shared memory for the kernel's epilogue.
+//     F = 2:   [low | high] = [x_blk | s_lp | s_hp] @ [ T_lp  T_hp ]
+//                                                     [ W_lp   0   ]
+//                                                     [  0    W_hp ]
 //
-// What bounds it on the H100: ~150 000 multiply-adds per row, ~12.5 GFLOP
-// for a 3-min stereo track, against ~170 MB of the kernel's own traffic:
-// the products.  They run on the tensor cores (mma.sync.m16n8k8.tf32),
-// which TF32 alone would leave at ~3 decimal digits: reduced-precision
-// products put 0.105 max abs error on the chain on the TPU.  So every
-// fp32 operand v is split into a TF32 big part and the TF32 rounding of
-// the rest, v = big + small, and a product takes three MMAs, small·big +
-// big·small + big·big, accumulated in fp32 (the small·small term, ~2^-22
-// relative, is dropped, see split_tf32): close to fp32 accuracy at a
-// third of the TF32 rate (495 / 3 TFLOP/s dense against 67 for fp32 on
-// the CUDA cores).
+// product_tile_tf32<F> computes kGM rows and 2·kGN output columns, j0 ..
+// j0 + 2·kGN - 1 of the one filter (F = 1) or j0 .. j0 + kGN - 1 of each
+// band (F = 2), and leaves them in shared memory for the kernel's
+// epilogue.  Either way the 8 warps hold the same 32 x 64 warp tiles.
+//
+// What bounds it on the H100: L(L+1)/2 + F·S·L multiply-adds a filter and
+// row (T's zero triangle skipped), ~75 000 at L = 384, against 8-12 bytes
+// of signal a row and column: the products.  They run on the tensor cores
+// (mma.sync.m16n8k8.tf32), which TF32 alone would leave at ~3 decimal
+// digits: reduced-precision products put 0.105 max abs error on the chain
+// on the TPU.  So every fp32 operand v is split into a TF32 big part and
+// the TF32 rounding of the rest, v = big + small, and a product takes
+// three MMAs, small·big + big·small + big·big, accumulated in fp32 (the
+// small·small term, ~2^-22 relative, is dropped, see split_tf32): close
+// to fp32 accuracy at a third of the TF32 rate (495 / 3 TFLOP/s dense
+// against 67 for fp32 on the CUDA cores).
 //
 // Why mma.sync and not wgmma: TF32 wgmma wants both operands K-major in
 // shared memory with swizzled descriptors and 64-row warpgroup tiles; the
@@ -34,19 +40,31 @@
 // Staging: a ring of kGStages tiles in shared memory, filled with cp.async
 // (16-byte copies, rows past the last block zero-filled) kGStages - 1
 // tiles ahead of the MMAs.  T is causal (T[k][j] = 0 for j < k), so the
-// column tile j0 .. j0 + kGN - 1 needs only the rows k < j0 + kGN of T:
-// the other k-tiles are never loaded or multiplied.  The states and W
-// come last as one short tile (2S rows, padded to 8).  A CTA holds kGM =
-// 128 rows, so each operator tile it loads from L2 serves 128 rows (the
-// fp32 loop of blocked_iir.cuh serves 32).
+// tile's columns need only the rows k < (last column + 1) of T: the other
+// k-tiles are never loaded or multiplied, and at F = 1 the warps of the
+// left 64 columns also skip the k-tiles that are zero for them alone.
+// The states and W come first, as one short tile (F·S rows, padded to 8)
+// staged before the loop, so that its staging (plain loads and stores)
+// takes no registers beside the live accumulators.
+// A CTA holds kGM = 128 rows, so each operator tile it loads from L2
+// serves 128 rows (the fp32 loop of blocked_iir.cuh serves 32).
+//
+// cp.async copies the signal raw, so a transform of x (front_chain's
+// exciter) cannot ride on the copy: each thread applies `xop` in place to
+// the 16-byte chunks of the A tile that it copied itself, after its own
+// wait for that stage and before the barrier that hands the stage to the
+// MMAs.  The states tile is never transformed.
 //
 // Rows of a tile are (block, channel) pairs, t = bl * C + c, for the
 // blocks b0 .. b0 + br - 1, so every channel of a block is in the CTA and
-// the epilogue's channel mean stays inside it.  Rows past the last block
-// are loaded as zeros and never stored.
+// the epilogues' channel couplings (width, means) stay inside it.  Rows
+// past the last block are loaded as zeros and never stored.  A row's
+// offset in x is (c·nb + b)·L in 64 bits: the callers refuse only C·nb >=
+// 2^31 rows, ~1 TiB of signal, which no card can address.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -54,19 +72,20 @@ namespace pam {
 
 constexpr int kGM = 128;        // rows of a tile
 constexpr int kGWarpsM = kGM / 32;          // row groups of 32 rows
-constexpr int kGThreads = 64 * kGWarpsM;    // a warp per row group and band
-constexpr int kGN = 64;         // output columns of a tile (each band)
+constexpr int kGThreads = 64 * kGWarpsM;    // 2 warps of 64 columns a group
+constexpr int kGN = 64;         // output columns of a warp tile
 constexpr int kGK = 32;         // depth of a stage
 constexpr int kGStages = 3;
 constexpr int kGAStride = kGK + 4;        // A tile row: conflict-free frags
 constexpr int kGBStride = 2 * kGN + 8;    // B tile row: conflict-free frags
 constexpr int kGEStride = 2 * kGN + 4;    // result tile row
 constexpr int kGStageFloats = kGM * kGAStride + kGK * kGBStride;
-constexpr int kGMaxStates = 8;  // 2S <= 16: the state tile is <= 2 k-steps
-// the ring, then the x offset of every tile row
+constexpr int kGStateDepth = 16;  // F·S <= 16: the states tile <= 2 k-steps
+// the ring, then the row index of every tile row
 constexpr size_t kGSmemBytes =
     sizeof(float) * kGStages * kGStageFloats + sizeof(int) * kGM;
-static_assert(kGM * kGEStride <= kGStages * kGStageFloats,
+constexpr int kGRingFloats = kGStages * kGStageFloats;
+static_assert(kGM * kGEStride <= kGRingFloats,
               "the result tile reuses the ring");
 
 constexpr uint32_t kTf32Mask = 0xffffe000u;  // sign, exponent, 10 bits
@@ -111,90 +130,119 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Low and high band of rows (b0 .. b0+br-1) x (0 .. C-1), columns j0 ..
-// j0 + kGN - 1.  On return smem[t * kGEStride + f * kGN + j] holds row t,
-// column j0 + j of band f (0 low, 1 high), and the block is synchronised.
-//   x          (C, nb, L)   raw rows (16-byte aligned, L % 4 == 0,
-//                           fewer than 2^31 floats)
-//   t2         (2, L, L)    zero-state operators T_lp, T_hp (causal)
-//   wt2        (2, S, L)    state operators, transposed
-//   s_lp, s_hp (C, nb, S)   incoming cascade states
+// The signal as it is copied (no transform of x; never called).
+struct RawX {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+
+// F filters' product for rows (b0 .. b0+br-1) x (0 .. C-1) and the
+// columns above.  On return smem[t * kGEStride + n] holds row t, column n
+// of the result tile (F = 1: output column j0 + n; F = 2: column j0 + n %
+// kGN of band n / kGN, 0 low, 1 high), and the block is synchronised.
+//   x        (C, nb, L)   raw rows (16-byte aligned, L % 4 == 0)
+//   t        (F, L, L)    zero-state operators (causal; 16-byte aligned)
+//   wt       (F, S, L)    state operators, transposed
+//   s0, s1   (C, nb, S)   incoming states of filter 0 and 1 (s1 unused
+//                         at F = 1)
+//   xop      RawX, or a functor float -> float applied to every element
+//            of x (not to the states) before it enters the product
 // `smem` holds kGSmemBytes.
-__device__ __forceinline__ void crossover_tile_tf32(
-    const float* __restrict__ x, const float* __restrict__ t2,
-    const float* __restrict__ wt2, const float* __restrict__ s_lp,
-    const float* __restrict__ s_hp, int C, int nb, int L, int S, int b0,
-    int br, int j0, float* smem) {
+template <int F, typename XOp>
+__device__ __forceinline__ void product_tile_tf32(
+    const float* __restrict__ x, const float* __restrict__ t,
+    const float* __restrict__ wt, const float* __restrict__ s0,
+    const float* __restrict__ s1, int C, int nb, int L, int S, int b0,
+    int br, int j0, XOp xop, float* smem) {
+  static_assert(F == 1 || F == 2, "one or two filters");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int wm = warp % kGWarpsM;  // rows wm * 32 .. wm * 32 + 31
-  const int wn = warp / kGWarpsM;  // band: accumulator columns wn * kGN ..
+  const int wn = warp / kGWarpsM;  // result tile columns wn * kGN ..
   const int g = lane >> 2;
   const int tg = lane & 3;
   const int rows = br * C;
-  const int n_x = (j0 + kGN) / kGK;  // k-tiles of T with nonzero columns
+  // k-tiles of T with nonzero columns in the tile, and in this warp's
+  const int n_x = (j0 + (3 - F) * kGN) / kGK;
+  const int n_x_warp = F == 1 ? (j0 + (wn + 1) * kGN) / kGK : n_x;
   const int n_tiles = n_x + 1;       // + the states tile
-  const int ks_states = (2 * S + 7) / 8;
+  const int ks_states = (F * S + 7) / 8;
 
-  // the (channel, block) row of tile row t, and whether it exists
-  auto row_of = [&](int t) -> size_t {
-    return (size_t)(t % C) * nb + b0 + t / C;
-  };
-  auto valid = [&](int t) { return t < rows && b0 + t / C < nb; };
-
-  // The offset in x of every tile row (-1 past the last block), worked
-  // out once, since a row's channel and block take divisions by C; kept
-  // in shared memory, where it costs no registers.
-  int* row_off = reinterpret_cast<int*>(smem + kGStages * kGStageFloats);
-  for (int t = tid; t < kGM; t += kGThreads)
-    row_off[t] = valid(t) ? (int)(row_of(t) * L) : -1;
+  // The (channel, block) row of every tile row (-1 past the last block),
+  // worked out once, since a row's channel and block take divisions by C;
+  // kept in shared memory, where it costs no registers.
+  int* row_idx = reinterpret_cast<int*>(smem + kGRingFloats);
+  for (int r = tid; r < kGM; r += kGThreads)
+    row_idx[r] = r < rows && b0 + r / C < nb ? (r % C) * nb + b0 + r / C : -1;
   __syncthreads();
   constexpr int kAChunks = kGM * kGK / 4 / kGThreads;
   const int q_a = tid % (kGK / 4);  // this thread's 16-byte chunk of a row
 
-  auto stage_tile = [&](int tile, int stage) {
+  auto stage_x = [&](int xt, int stage) {  // x k-tile xt
     float* As = smem + stage * kGStageFloats;
     float* Bs = As + kGM * kGAStride;
-    if (tile < n_x) {
-      const int k0 = tile * kGK;
-#pragma unroll
-      for (int i = 0; i < kAChunks; ++i) {
-        const int t = (tid + i * kGThreads) / (kGK / 4);
-        const int off = row_off[t];
-        cp_async16(As + t * kGAStride + 4 * q_a,
-                   off >= 0 ? x + off + k0 + 4 * q_a : x, off >= 0 ? 16 : 0);
-      }
-#pragma unroll
-      for (int i = 0; i < kGK * 2 * kGN / 4 / kGThreads; ++i) {
-        const int e = tid + i * kGThreads;
-        const int kr = e / (2 * kGN / 4);
-        const int q = e % (2 * kGN / 4);
-        const int f = q / (kGN / 4);
-        const int c4 = 4 * (q % (kGN / 4));
-        cp_async16(Bs + kr * kGBStride + f * kGN + c4,
-                   t2 + (size_t)f * L * L + (size_t)(k0 + kr) * L + j0 + c4,
-                   16);
-      }
-    } else {  // the states tile: [s_lp | s_hp] @ [W_lp 0 ; 0 W_hp]
-      const int kd = 8 * ks_states;
-      for (int e = tid; e < kGM * kd; e += kGThreads) {
-        const int t = e / kd;
-        const int k = e % kd;
-        float v = 0.f;
-        if (valid(t) && k < 2 * S)
-          v = k < S ? s_lp[row_of(t) * S + k] : s_hp[row_of(t) * S + k - S];
-        As[t * kGAStride + k] = v;
-      }
-      for (int e = tid; e < kd * 2 * kGN; e += kGThreads) {
-        const int k = e / (2 * kGN);
-        const int n = e % (2 * kGN);
-        const int f = n / kGN;
-        float v = 0.f;  // wt2 row k is W_lp's row k (k < S), else W_hp's
-        if (k < 2 * S && (k >= S) == (f == 1))
-          v = wt2[(size_t)k * L + j0 + n % kGN];
-        Bs[k * kGBStride + n] = v;
-      }
+    const int k0 = xt * kGK;
+    // rolled: the copies' addresses, unrolled beside the accumulators,
+    // spill at 128 registers
+#pragma unroll 1
+    for (int i = 0; i < kAChunks; ++i) {
+      const int r = (tid + i * kGThreads) / (kGK / 4);
+      const int row = row_idx[r];
+      cp_async16(As + r * kGAStride + 4 * q_a,
+                 row >= 0 ? x + (size_t)row * L + k0 + 4 * q_a : x,
+                 row >= 0 ? 16 : 0);
+    }
+#pragma unroll 1
+    for (int i = 0; i < kGK * 2 * kGN / 4 / kGThreads; ++i) {
+      const int e = tid + i * kGThreads;
+      const int kr = e / (2 * kGN / 4);
+      const int n = 4 * (e % (2 * kGN / 4));
+      const int f = F == 2 ? n / kGN : 0;
+      const int col = F == 2 ? n % kGN : n;
+      cp_async16(Bs + kr * kGBStride + n,
+                 t + (size_t)f * L * L + (size_t)(k0 + kr) * L + j0 + col,
+                 16);
+    }
+  };
+  // the states tile: [s0 | s1] @ blockdiag(W_0, W_1)
+  auto stage_states = [&](int stage) {
+    float* As = smem + stage * kGStageFloats;
+    float* Bs = As + kGM * kGAStride;
+    const int kd = 8 * ks_states;
+    for (int e = tid; e < kGM * kd; e += kGThreads) {
+      const int r = e / kd;
+      const int k = e % kd;
+      const int row = row_idx[r];
+      float v = 0.f;
+      if (row >= 0 && k < F * S)
+        v = k < S ? s0[(size_t)row * S + k] : s1[(size_t)row * S + k - S];
+      As[r * kGAStride + k] = v;
+    }
+    for (int e = tid; e < kd * 2 * kGN; e += kGThreads) {
+      const int k = e / (2 * kGN);
+      const int n = e % (2 * kGN);
+      const int f = F == 2 ? n / kGN : 0;
+      const int col = F == 2 ? n % kGN : n;
+      float v = 0.f;  // wt row k is filter 0's row k (k < S), else 1's
+      if (k < F * S && (k >= S) == (f == 1))
+        v = wt[(size_t)k * L + j0 + col];
+      Bs[k * kGBStride + n] = v;
+    }
+  };
+
+  // xop on the chunks of x this thread copied into `stage`
+  auto transform_own = [&](int stage) {
+    float* As = smem + stage * kGStageFloats;
+#pragma unroll 1  // beside the live accumulators, one chunk at a time
+    for (int i = 0; i < kAChunks; ++i) {
+      const int r = (tid + i * kGThreads) / (kGK / 4);
+      float4* p = reinterpret_cast<float4*>(As + r * kGAStride + 4 * q_a);
+      float4 v = *p;
+      v.x = xop(v.x);
+      v.y = xop(v.y);
+      v.z = xop(v.z);
+      v.w = xop(v.w);
+      *p = v;
     }
   };
 
@@ -238,18 +286,22 @@ __device__ __forceinline__ void crossover_tile_tf32(
     }
   };
 
-#pragma unroll
-  for (int s = 0; s < kGStages - 1; ++s) {
-    if (s < n_tiles) stage_tile(s, s);
-    cp_async_commit();
-  }
+  // tile 0 is the states tile, tiles 1 .. n_x the x k-tiles
+  stage_states(0);
+  cp_async_commit();
+  stage_x(0, 1);
+  cp_async_commit();
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<kGStages - 2>();
+    if constexpr (!std::is_same_v<XOp, RawX>) {
+      if (i > 0) transform_own(i % kGStages);
+    }
     __syncthreads();
     const int next = i + kGStages - 1;
-    if (next < n_tiles) stage_tile(next, next % kGStages);
+    if (next < n_tiles) stage_x(next - 1, next % kGStages);
     cp_async_commit();
-    compute(i % kGStages, i < n_x ? kGK / 8 : ks_states);
+    if (F == 2 || i == 0 || i - 1 < n_x_warp)
+      compute(i % kGStages, i == 0 ? ks_states : kGK / 8);
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring: reuse it

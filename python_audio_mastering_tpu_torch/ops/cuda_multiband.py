@@ -4,15 +4,19 @@ Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
 
 * :func:`front_chain` (CUDA ``csrc/front_chain.cu``) — saturate → EQ from
   per-block states → stereo width, plus the mono downmix;
-* :func:`kweight_cells` (CUDA ``csrc/kweight_cells.cu``) — K-weighting from
-  per-block states → square → ``h``-bucket sums;
+* :func:`kweight_cells` (CUDA ``csrc/kweight_cells.cu``, the fp32 tile
+  loop of ``csrc/blocked_iir.cuh``) — K-weighting from per-block states →
+  square → ``h``-bucket sums;
 * :func:`band_energies` (CUDA ``csrc/band_energies.cu``) — the crossover
   bands from per-block states → channel-mean squared energies in
   ``hop``-buckets, the multiband detector's input;
 * :func:`band_gain_apply` (CUDA ``csrc/band_gain_apply.cu``) — the bands
-  again, as one product on the tensor cores in 3xTF32
-  (``csrc/tf32_product.cuh``) → recombination with the control-rate gains,
-  plus the mono downmix.
+  again → recombination with the control-rate gains, plus the mono
+  downmix.
+
+``front_chain`` (one filter), ``band_energies`` and ``band_gain_apply``
+(the two crossover filters) compute their product on the tensor cores in
+3xTF32, through the one product tile of ``csrc/tf32_product.cuh``.
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU,
 and launches its kernel for a CUDA tensor or raises: there is no fallback
@@ -43,9 +47,12 @@ __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
            "band_gain_apply", "band_gain_apply_ref", "launch_counts",
            "reset_launch_counts"]
 
-# the template instantiations and tile height of csrc/blocked_iir.cuh
+# the template instantiations and tile height of csrc/blocked_iir.cuh (the
+# tensor-core kernels take these too)
 _KERNEL_BLOCK_SIZES = (128, 256, 384, 512)
 _KERNEL_MAX_CHANNELS = 32
+# csrc/tf32_product.cuh: its states tile holds filters·S <= 16 columns
+_TF32_STATE_DEPTH = 16
 
 
 def front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
@@ -100,6 +107,27 @@ def _check_operands(name, xrows, s_in, t, w):
     return c, nb, L, s
 
 
+def _check_tf32_operands(name, xrows, t, s, filters):
+    """What the tensor-core kernels take beyond :func:`_check_operands`.
+
+    They copy the rows and ``T`` in 16-byte chunks, and hold ``filters·S``
+    state columns in one short tile.  Row offsets are 64-bit and row
+    indices 32-bit: only ``C·nb >= 2^31`` rows are refused, over 1 TiB of
+    float32 signal at these block sizes, which no card can address."""
+    c, nb, _ = xrows.shape
+    if filters * s > _TF32_STATE_DEPTH:
+        raise ValueError(f"{name}: the kernel takes at most "
+                         f"{_TF32_STATE_DEPTH // filters} states a filter, "
+                         f"got {s}")
+    if c * nb >= 2 ** 31:
+        raise ValueError(f"{name}: {c * nb} rows, the kernel addresses fewer "
+                         f"than 2^31")
+    for what, ten in (("rows", xrows), ("T", t)):
+        if ten.data_ptr() % 16:
+            raise ValueError(f"{name}: the {what} must start on a 16-byte "
+                             f"boundary (the kernel copies 16-byte chunks)")
+
+
 def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
                 emit_mono: bool = False):
     """Fused chain front over rows form: one signal read + one write.
@@ -118,11 +146,12 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
         return front_chain_ref(xrows, s_in_eq, t_eq, w_eq,
                                saturation_percent, width, emit_mono)
     c, nb, L, s = _check_operands("front_chain", xrows, s_in_eq, t_eq, w_eq)
+    t_eq = t_eq.contiguous()
+    _check_tf32_operands("front_chain", xrows, t_eq, s, filters=1)
     y = torch.empty_like(xrows)
     mono = (torch.empty((nb, L), dtype=xrows.dtype, device=xrows.device)
             if emit_mono else None)
     wt = w_eq.T.contiguous()
-    t_eq = t_eq.contiguous()
     mix, drive = saturation_coefs(saturation_percent)
     lib = _kernels.library().lib
     with torch.cuda.device(xrows.device):
@@ -251,6 +280,7 @@ def _check_band_operands(name, xrows, s_in_lp, s_in_hp, sos_lp, sos_hp):
     t2, wt2 = crossover_operands(sos_lp, sos_hp, L, xrows.device,
                                  xrows.dtype)
     _, _, _, s = _check_operands(name, xrows, s_in_lp, t2[0], wt2[0].T)
+    _check_tf32_operands(name, xrows, t2, s, filters=2)
     if tuple(s_in_hp.shape) != tuple(s_in_lp.shape) or \
             s_in_hp.dtype != s_in_lp.dtype or \
             s_in_hp.device != xrows.device or not s_in_hp.is_contiguous():
@@ -313,9 +343,6 @@ def band_gain_apply(xrows, s_in_lp, s_in_hp, cols, sos_lp, sos_hp, hop=1,
         raise ValueError(f"band_gain_apply: cols must be a contiguous "
                          f"{want} {xrows.dtype} tensor on {xrows.device}, "
                          f"got {tuple(cols.shape)} {cols.dtype}")
-    if xrows.data_ptr() % 16:
-        raise ValueError("band_gain_apply: the rows must start on a 16-byte "
-                         "boundary (the kernel copies 16-byte chunks)")
     y = torch.empty_like(xrows)
     mono = (torch.empty((nb, L), dtype=xrows.dtype, device=xrows.device)
             if emit_mono else None)

@@ -8,8 +8,8 @@ so the card's machine, which has no jax, runs it:
 Tests marked ``cuda`` need an NVIDIA GPU and skip without one; the
 others check the wrappers' device dispatch on the CPU.  Kernel vs plain
 on the card: fp32 sums in another order, max abs ≤ 1e-4 (K2, K4:
-relative to the largest value; K3 runs its product in 3xTF32 on the
-tensor cores, close to fp32); the ballistics kernels K5-K7 run the plain
+relative to the largest value; K1, K2 and K3 run their products in
+3xTF32 on the tensor cores, close to fp32); the ballistics kernels K5-K7 run the plain
 version's float operations in its order, so they agree bitwise.
 The multiband chain on the card vs the CPU path: max abs < 5e-3, rms <
 5e-5, |ΔLUFS| < 1e-3 (the JAX package's on-chip kernels-vs-XLA residual,
@@ -17,6 +17,7 @@ The multiband chain on the card vs the CPU path: max abs < 5e-3, rms <
 DESIGN.md:124-129).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -53,11 +54,12 @@ def _signal(n, channels, fs, seed):
     return np.ascontiguousarray(x, np.float32)            # (C, N)
 
 
-def _front_operands(channels, nb, device, fs=44100):
+def _front_operands(channels, nb, device, fs=44100, block=L):
     params = MasteringParams.from_settings(SETTINGS)
-    chain = MasteringChain(ChainConfig.gpu_default(fs)).to(device)
-    xrows = torch.as_tensor(_signal(nb * L, channels, fs, channels),
-                            device=device).reshape(channels, nb, L)
+    cfg = dataclasses.replace(ChainConfig.gpu_default(fs), block_size=block)
+    chain = MasteringChain(cfg).to(device)
+    xrows = torch.as_tensor(_signal(nb * block, channels, fs, channels),
+                            device=device).reshape(channels, nb, block)
     ops = chain.eq_ops(params)
     s_in, _, _ = iir.sosfilt_states_rows(
         None, saturate(xrows, params.saturation), ops=ops)
@@ -174,9 +176,13 @@ def test_wrappers_refuse_devices_without_a_kernel():
 @pytest.mark.cuda
 @pytest.mark.parametrize("emit_mono", [False, True])
 @pytest.mark.parametrize("channels", [1, 2, 3])
-def test_front_chain_kernel_matches_plain(cuda_device, channels, emit_mono):
-    """nb = 45 leaves a ragged last group for every channel count."""
-    args = _front_operands(channels, 45, cuda_device)
+@pytest.mark.parametrize("block", [128, 256, 384, 512])
+def test_front_chain_kernel_matches_plain(cuda_device, block, channels,
+                                          emit_mono):
+    """K1's 128-column tiles, its causal k-tile skips and the exciter at
+    every block size the kernels take; nb = 45 leaves a ragged last row
+    tile for every channel count."""
+    args = _front_operands(channels, 45, cuda_device, block=block)
     before = cmb.front_chain.launches
     got = cmb.front_chain(*args, emit_mono=emit_mono)
     torch.cuda.synchronize()
@@ -200,6 +206,25 @@ def test_kweight_cells_kernel_matches_plain(cuda_device, fs, channels):
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
 
 
+@pytest.mark.parametrize("case", ["states_f1", "states_f2", "rows", "T"])
+def test_tensor_core_wrappers_refuse_what_the_kernels_cannot_take(case):
+    """The checks the tensor-core kernels' wrappers run before a launch:
+    at most 16 state columns (16 states of one filter, 8 of each of two),
+    and rows and T on 16-byte boundaries (checked on CPU tensors here)."""
+    xrows = torch.zeros((2, 4, 128))
+    t = torch.zeros((128, 128))
+    args = {"states_f1": (xrows, t, 17, 1, "at most 16 states"),
+            "states_f2": (xrows, t, 9, 2, "at most 8 states"),
+            "rows": (torch.zeros(2 * 4 * 128 + 2)[2:].view(2, 4, 128), t, 8,
+                     1, "the rows must start on a 16-byte"),
+            "T": (xrows, torch.zeros(128 * 128 + 1)[1:].view(128, 128), 4,
+                  2, "the T must start on a 16-byte")}
+    x, tt, s, filters, match = args[case]
+    cmb._check_tf32_operands("k", xrows, t, 16 // filters, filters)  # edge
+    with pytest.raises(ValueError, match=match):
+        cmb._check_tf32_operands("k", x, tt, s, filters)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_validate_operands(cuda_device):
     xrows, s_in, t, w, sat, width = _front_operands(2, 8, cuda_device)
@@ -210,6 +235,9 @@ def test_kernel_wrappers_validate_operands(cuda_device):
                         s_in, t, w, sat, width)
     with pytest.raises(ValueError, match="shape"):
         cmb.front_chain(xrows, s_in[:, :4], t, w, sat, width)
+    shifted = torch.empty(xrows.numel() + 1, device=cuda_device)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        cmb.front_chain(shifted.view(xrows.shape), s_in, t, w, sat, width)
 
 
 @pytest.mark.cuda
@@ -311,7 +339,28 @@ def test_band_gain_apply_kernel_matches_plain_at_every_block_size(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("source", ["ballistics.cu", "band_gain_apply.cu"])
+@pytest.mark.parametrize(("block", "hop"), [
+    (block, hop) for block in (128, 256, 384, 512)
+    for hop in (1, 3, 6, 8, 12, block) if block % hop == 0])
+def test_band_energies_kernel_matches_plain_at_every_block_and_hop(
+        cuda_device, block, hop):
+    """K2 at every block size and at hops whose buckets lie inside a
+    64-column tile (1, 8), cross from one tile into the next (3, 6, 12)
+    or span several (the whole block); stereo, nb = 70 leaves a ragged
+    last row tile.  Limit: the chip smoke's, 1e-4 of the largest value."""
+    bargs, _ = _band_operands(2, 70, cuda_device, hop=hop, block=block)
+    before = cmb.band_energies.launches
+    got = cmb.band_energies(*bargs, hop=hop)
+    torch.cuda.synchronize()
+    assert cmb.band_energies.launches == before + 1
+    ref = cmb.band_energies_ref(*bargs, hop=hop)
+    assert got.shape == (3, 70 * block // hop)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["ballistics.cu", "band_gain_apply.cu",
+                                    "front_chain.cu", "band_energies.cu"])
 def test_kernel_sources_do_not_spill(cuda_device, source):
     """ptxas -v on the rewritten sources: every kernel in them reports 0
     bytes of spill stores and loads."""
