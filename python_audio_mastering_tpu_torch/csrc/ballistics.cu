@@ -9,12 +9,16 @@
 //                        timeline gives it (two launches, see below).
 //   pam_replay        <- _replay / _replay_kernel: every block replayed from
 //                        its exact incoming state, per-step attenuation out.
-//   pam_replay_bnd    <- _replay_bnd / _replay_bnd_kernel: one round of the
-//                        block-boundary fixed point (outgoing states only).
+//   pam_replay_bnd    <- _replay_bnd / _replay_bnd_kernel: up to `rounds`
+//                        rounds of the block-boundary fixed point (outgoing
+//                        states only) in one cooperative launch, where the
+//                        TPU loop (_run_collapse's lax.while_loop) runs one
+//                        kernel a round.
 //
 // What bounds them on the H100: a dependent chain of ~4 float ops per
 // step, never bandwidth (the timeline is 12 MB for a 3-min track).  The
-// replays are 128-step chains, one thread per (band, block); a CTA of 64
+// replay and the hull pass are 128-step chains, one thread per (band,
+// block); a CTA of 64
 // threads stages its 64 blocks (contiguous in the timeline) through shared
 // memory, so the loads and stores are coalesced and each thread walks its
 // own padded row of the tile without bank conflicts.  The TPU's 8-sublane
@@ -60,13 +64,45 @@
 // whole timeline, a serial walk of all T steps plus the hull pass (about
 // one K7 round).
 //
-// The fixed point's control stays on the device.  `ctrl` is an int32
-// record (kCtrl* below); each round of pam_replay_bnd adds its changed
-// boundaries to it, and its last CTA applies the loop's stopping rule, so
-// the driver launches every round without reading anything back: a round
-// launched after the loop stopped copies its input through and exits.
-// The two K5 launches, given `ctrl`, run only when the fixed point did
-// not certify.
+// The fixed point (K7) runs every round in one launch.  A round is cheap
+// (128 dependent steps a block, ~12 MB of targets for a 3-min track) and
+// the rounds depend on each other only through the outgoing states, so
+// one launch a round spent most of its time launching, and re-read every
+// target from device memory each round.  Here a cooperative grid, sized to
+// be resident (occupancy x SMs), holds the rounds:
+//
+//   - each CTA owns a contiguous range of the B * T/128 blocks, one thread
+//     a block; where the whole timeline fits in the grid's shared memory
+//     (~59 000 blocks on an H100: a one-shot track up to ~7 minutes at hop
+//     8), each CTA stages its blocks' targets once, 16-byte loads into
+//     padded rows, and every round walks them from there; a longer
+//     timeline is staged again each round, kFixThreads blocks at a time
+//     (on an H100 the 3-min track's fixed point takes 0.025 ms staged
+//     once and 0.037 ms staged every round, though its 12 MB sit in L2);
+//   - a round reads a block's incoming state from the outgoing states of
+//     the round before (gathered through idx_ex, so from other CTAs'
+//     blocks: two global buffers, ping-pong, read past L1) and counts its
+//     changed boundaries into ctrl, in one counter for even rounds and one
+//     for odd ones, totals that only grow inside the launch;
+//   - after a grid barrier every thread reads the round's total, less the
+//     total it saw two rounds before, and applies the loop's stopping rule
+//     itself, so every CTA leaves the loop after the same round.  The
+//     counter of round r is added to again only in round r + 2, after the
+//     barrier that every thread reaches once it has read it.
+//
+// Its bound is reading the targets once and 16 bytes a block a round (the
+// income index and the state in, the state out); what sets its time is
+// each round's 128 dependent steps and the grid barrier after them.
+//
+// `ctrl` is an int32 record (kCtrl* below) that ops/ballistics.py never
+// reads back: a launch on a stopped loop copies its input through, and the two
+// K5 launches, given `ctrl`, run only when the fixed point did not
+// certify.  When the loop stops, ctrl holds what that many one-round
+// launches leave: active, the last two counts and the rounds run, its
+// two counters back at 0.
+#include <algorithm>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ballistics.cuh"
@@ -77,8 +113,9 @@ constexpr int kCtrlActive = 0;   // 1 while the fixed point iterates
 constexpr int kCtrlCnt = 1;      // boundaries changed by the last round
 constexpr int kCtrlCntPrev = 2;  // ... by the round before it
 constexpr int kCtrlRound = 3;    // rounds run
-constexpr int kCtrlChanged = 4;  // this round's running count (scratch)
-constexpr int kCtrlDone = 5;     // CTAs of this round finished (scratch)
+constexpr int kCtrlChanged = 4;  // changed boundaries, even rounds, and
+                                 // odd ones at 5: totals of one launch
+                                 // (scratch, 0 between launches)
 constexpr int kStallGrace = 4;   // rounds before the stall rule may stop
 
 constexpr int kReplayRows = 64;            // blocks (= threads) per CTA
@@ -207,59 +244,127 @@ replay_kernel(const float* __restrict__ m, const float* __restrict__ ca,
     dst[e] = tile[(e / kBalBlock) * kTileStride + e % kBalBlock];
 }
 
-__global__ void __launch_bounds__(kReplayRows)
+constexpr int kFixThreads = 128;  // threads (blocks walked at once) a CTA
+
+// Stage the timeline's blocks g .. g + n - 1 (contiguous in m, band-major)
+// into padded rows of `tile`: 16-byte loads, 32 threads a block.
+__device__ __forceinline__ void stage_blocks(const float* __restrict__ m,
+                                             size_t g, int n, float* tile) {
+  const float4* src = reinterpret_cast<const float4*>(m + g * kBalBlock);
+  for (int e = threadIdx.x; e < n * (kBalBlock / 4); e += kFixThreads) {
+    const float4 v = src[e];
+    float* d = tile + (e / (kBalBlock / 4)) * kTileStride +
+               4 * (e % (kBalBlock / 4));
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+}
+
+// Up to `rounds` fixed-point rounds (see the note above).  CTA i owns the
+// blocks i * per .. i * per + per - 1 of the n_total = B * nblk; `tile`
+// holds `per` rows when `resident`, else kFixThreads.  s_new and s_alt
+// are the ping-pong buffers; the result ends in s_new.
+__global__ void __launch_bounds__(kFixThreads)
 replay_bnd_kernel(const float* __restrict__ m, const float* __restrict__ ca,
                   const float* __restrict__ cr,
                   const float* __restrict__ att0,
-                  const long long* __restrict__ idx_ex,
-                  const float* __restrict__ s_out, float* __restrict__ s_new,
-                  int* __restrict__ ctrl, int T, int iters) {
-  __shared__ float tile[kReplayRows * kTileStride];
-  __shared__ bool last;
-  const int b = blockIdx.y;
-  const int nblk = T / kBalBlock;
-  const int blk0 = blockIdx.x * kReplayRows;
-  const int rows = min(kReplayRows, nblk - blk0);
-  const int t = threadIdx.x;
-  const size_t at = (size_t)b * nblk + blk0 + t;
-  if (ctrl[kCtrlActive] == 0) {  // the loop has stopped: carry s through
-    if (t < rows) s_new[at] = s_out[at];
-    return;
+                  const long long* __restrict__ idx_ex, const float* s_out,
+                  float* s_new, float* s_alt, int* ctrl, int nblk,
+                  int n_total, int per, int resident, int iters,
+                  int rounds) {
+  extern __shared__ float4 tile4[];
+  float* tile = reinterpret_cast<float*>(tile4);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int tid = threadIdx.x;
+  const int g0 = blockIdx.x * per;
+  const int n_own = max(0, min(per, n_total - g0));
+  const int chunk = resident ? per : kFixThreads;
+  // the loop's state, the same in every thread: block 0 writes these
+  // fields only after the last barrier.  The two counters are 0 on entry
+  // (every launch leaves them so) and are never read here: other CTAs may
+  // already be adding to them in round 0
+  int active = ctrl[kCtrlActive];
+  int cnt = ctrl[kCtrlCnt];
+  int prev = ctrl[kCtrlCntPrev];
+  int k = ctrl[kCtrlRound];
+  int seen_even = 0;  // counter totals read so far
+  int seen_odd = 0;
+  if (resident && active) {
+    stage_blocks(m, g0, n_own, tile);
+    __syncthreads();
   }
-  load_tile(m + (size_t)b * T, blk0, rows, tile);
-  bool changed = false;
-  if (t < rows) {
-    // incoming state: the outgoing state of the last non-frozen block
-    // before this one (frozen blocks, m == 0 throughout, are identities)
-    const long long src = idx_ex[at];
-    float att = src == 0 ? att0[b] : s_out[(size_t)b * nblk + src - 1];
-    const float a = ca[b];
-    const float r = cr[b];
-    const float* v = tile + t * kTileStride;
+  int ran = 0;
+  for (; ran < rounds && active; ++ran) {
+    const float* cur = ran == 0 ? s_out : ((ran - 1) & 1 ? s_alt : s_new);
+    float* nxt = ran & 1 ? s_alt : s_new;
+    int n_changed = 0;
+    for (int c0 = 0; c0 < n_own; c0 += chunk) {
+      const int nc = min(chunk, n_own - c0);
+      if (!resident) {
+        __syncthreads();  // the walks of the chunk before are done
+        stage_blocks(m, (size_t)g0 + c0, nc, tile);
+        __syncthreads();
+      }
+      for (int i0 = 0; i0 < nc; i0 += kFixThreads) {
+        const int i = i0 + tid;
+        bool changed = false;
+        if (i < nc) {
+          const int g = g0 + c0 + i;
+          const int b = g / nblk;
+          // incoming state: the outgoing state of the last non-frozen
+          // block before this one (frozen blocks, m == 0 throughout, are
+          // identities), written by any CTA in the round before
+          const long long src = idx_ex[g];
+          float att = src == 0 ? att0[b]
+                               : __ldcg(cur + (size_t)b * nblk + src - 1);
+          const float a = ca[b];
+          const float r = cr[b];
+          const float* v = tile + i * kTileStride;
 #pragma unroll 8
-    for (int j = 0; j < kBalBlock; ++j) att = ballistics_step(att, v[j], a, r);
-    s_new[at] = att;
-    changed = att != s_out[at];
+          for (int j = 0; j < kBalBlock; ++j)
+            att = ballistics_step(att, v[j], a, r);
+          nxt[g] = att;
+          changed = att != __ldcg(cur + g);
+        }
+        n_changed += __syncthreads_count(changed);
+      }
+    }
+    int* counter = ctrl + kCtrlChanged + (ran & 1);
+    if (tid == 0 && n_changed) atomicAdd(counter, n_changed);
+    grid.sync();
+    // the stopping rule of the one-round loop, in every thread
+    const int total = __ldcg(counter);
+    prev = cnt;
+    if (ran & 1) {
+      cnt = total - seen_odd;
+      seen_odd = total;
+    } else {
+      cnt = total - seen_even;
+      seen_even = total;
+    }
+    ++k;
+    active = cnt != 0 && k < iters &&
+             (k <= kStallGrace || 4LL * cnt < 3LL * (long long)prev);
   }
-  const int n_changed = __syncthreads_count(changed);
-  if (t == 0) {
-    if (n_changed) atomicAdd(&ctrl[kCtrlChanged], n_changed);
-    __threadfence();
-    last = atomicAdd(&ctrl[kCtrlDone], 1) == (int)(gridDim.x * gridDim.y) - 1;
+  // the result into s_new, each CTA its own blocks, by the threads that
+  // wrote them: the input when no round ran, s_alt after an even count
+  if (ran == 0 || (ran & 1) == 0) {
+    const float* src = ran == 0 ? s_out : s_alt;
+    for (int i = tid; i < n_own; i += kFixThreads)
+      s_new[g0 + i] = __ldcg(src + g0 + i);
   }
-  __syncthreads();
-  if (last && t == 0) {  // every CTA of the round has counted: stop rule
-    __threadfence();
-    const int cnt = atomicExch(&ctrl[kCtrlChanged], 0);
-    const int prev = ctrl[kCtrlCnt];
-    const int k = ctrl[kCtrlRound] + 1;
-    ctrl[kCtrlDone] = 0;
-    ctrl[kCtrlCntPrev] = prev;
-    ctrl[kCtrlCnt] = cnt;
-    ctrl[kCtrlRound] = k;
-    ctrl[kCtrlActive] =
-        cnt != 0 && k < iters &&
-        (k <= kStallGrace || 4LL * cnt < 3LL * (long long)prev);
+  if (ran > 0) {
+    grid.sync();  // every thread has read the counters
+    if (blockIdx.x == 0 && tid == 0) {
+      ctrl[kCtrlActive] = active;
+      ctrl[kCtrlCnt] = cnt;
+      ctrl[kCtrlCntPrev] = prev;
+      ctrl[kCtrlRound] = k;
+      ctrl[kCtrlChanged] = 0;
+      ctrl[kCtrlChanged + 1] = 0;
+    }
   }
 }
 
@@ -317,15 +422,53 @@ extern "C" int pam_replay(const float* m, const float* ca, const float* cr,
   return (int)cudaGetLastError();
 }
 
-// One fixed-point round: s_new (B, T / 128) from s_out, and ctrl updated
-// (see above).
+// Up to `rounds` fixed-point rounds in one cooperative launch: s_new (B,
+// T / 128) from s_out, and ctrl updated (see above).  s_alt (B, T / 128)
+// is scratch, needed when rounds > 1.  m must be 16-byte aligned.  The
+// grid is as many CTAs as the card holds at once (it must be resident for
+// the grid barrier), at most one a block.
 extern "C" int pam_replay_bnd(const float* m, const float* ca, const float* cr,
                               const float* att0, const long long* idx_ex,
-                              const float* s_out, float* s_new, int* ctrl,
-                              int B, int T, int iters, void* stream) {
-  if (bad_shape(B, T) || iters < 1) return (int)cudaErrorInvalidValue;
-  pam::replay_bnd_kernel<<<replay_grid(B, T), pam::kReplayRows, 0,
-                           (cudaStream_t)stream>>>(
-      m, ca, cr, att0, idx_ex, s_out, s_new, ctrl, T, iters);
+                              const float* s_out, float* s_new, float* s_alt,
+                              int* ctrl, int B, int T, int iters, int rounds,
+                              void* stream) {
+  if (bad_shape(B, T) || iters < 1 || rounds < 1 ||
+      (rounds > 1 && s_alt == nullptr) ||
+      (long long)B * (T / pam::kBalBlock) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  int nblk = T / pam::kBalBlock;
+  int n_total = B * nblk;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // resident: a CTA an SM holds the whole timeline in shared memory
+  const size_t row_bytes = sizeof(float) * pam::kTileStride;
+  const long long per_sm = (n_total + sms - 1) / sms;
+  int resident = per_sm * (long long)row_bytes <= optin;
+  size_t smem = resident ? per_sm * row_bytes : pam::kFixThreads * row_bytes;
+  err = cudaFuncSetAttribute(pam::replay_bnd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, pam::replay_bnd_kernel, pam::kFixThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int grid = (int)std::min<long long>((long long)occ * sms, n_total);
+  int per = (n_total + grid - 1) / grid;
+  if (resident) smem = per * row_bytes;  // fewer rows: still resident
+  void* args[] = {&m,    &ca,   &cr,   &att0,    &idx_ex,   &s_out,
+                  &s_new, &s_alt, &ctrl, &nblk,  &n_total,  &per,
+                  &resident, &iters, &rounds};
+  err = cudaLaunchCooperativeKernel((const void*)pam::replay_bnd_kernel,
+                                    dim3(grid), dim3(pam::kFixThreads), args,
+                                    smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,8 @@
 // memory: the kernel reads the rows (and the tiny states) and writes three
 // control-rate rows.  What bounds it on the H100, at the main path's shapes
 // (3-min stereo track, L = 384, hop 8): its ~12.5 GFLOP of products, 0.076
-// ms at the 3xTF32 rate (0.186 ms on the fp32 CUDA cores, where its earlier
-// blocked_iir.cuh loop ran), against ~78 MB in and out (0.023 ms at 3.35
+// ms at the 3xTF32 rate (0.186 ms on the fp32 CUDA cores, where the first
+// version's tile loop ran it), against ~78 MB in and out (0.023 ms at 3.35
 // TB/s).  The TPU kernel sums buckets as a product with a 0/1 matrix (a
 // matrix-unit trick); here they are plain sums from shared memory.
 //

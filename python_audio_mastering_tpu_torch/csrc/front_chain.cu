@@ -8,8 +8,8 @@
 // it on the H100, at the main path's shapes (3-min stereo track, L = 384,
 // with the mono output): ~160 MB of signal in and out, 0.048 ms at 3.35
 // TB/s, just above its ~6.4 GFLOP of products, 0.039 ms at the 3xTF32 rate
-// (0.095 ms on the fp32 CUDA cores, where its earlier blocked_iir.cuh loop
-// ran).  The design reads the raw rows from device memory once (the column
+// (0.095 ms on the fp32 CUDA cores, where the first version's tile loop ran it).  The
+// design reads the raw rows from device memory once (the column
 // tiles of a row group re-read them from L2), applies the exciter (1-mix)·x
 // + mix·tanh(drive·x) in place to the A tiles as they land in shared memory
 // (the states are not shaped: they come from the saturated signal already),

@@ -47,7 +47,16 @@
 // staged before the loop, so that its staging (plain loads and stores)
 // takes no registers beside the live accumulators.
 // A CTA holds kGM = 128 rows, so each operator tile it loads from L2
-// serves 128 rows (the fp32 loop of blocked_iir.cuh serves 32).
+// serves 128 rows (the fp32 tile loop that K1-K4 ran first served 32).
+//
+// The states term in fp32 (kFp32States, one filter): where W is large
+// beside the result, its 3xTF32 rounding dominates the product's error.
+// The K-weighting's near-unit-circle poles give max |Wt| ~70 against
+// |y| ~1, and 3xTF32 s_in @ Wt then errs by ~1.3e-5 of the max, x @ T by
+// ~1e-6 (tests/test_torch_tf32.py).  With kFp32States the states tile is
+// not multiplied on the tensor cores: once the x @ T tile is in shared
+// memory, s_in @ Wt (F·S <= 16 multiply-adds an element, ~2 % of the
+// product at S = 4, L = 384) is added to it with fmaf on the CUDA cores.
 //
 // cp.async copies the signal raw, so a transform of x (front_chain's
 // exciter) cannot ride on the copy: each thread applies `xop` in place to
@@ -87,6 +96,10 @@ constexpr size_t kGSmemBytes =
 constexpr int kGRingFloats = kGStages * kGStageFloats;
 static_assert(kGM * kGEStride <= kGRingFloats,
               "the result tile reuses the ring");
+// the fp32 states term's operands beside the result tile, in the ring
+static_assert(kGM * kGEStride + (kGM + 2 * kGN) * kGStateDepth <=
+                  kGRingFloats,
+              "the states and W fit in the ring beside the result tile");
 
 constexpr uint32_t kTf32Mask = 0xffffe000u;  // sign, exponent, 10 bits
 
@@ -146,14 +159,17 @@ struct RawX {
 //                         at F = 1)
 //   xop      RawX, or a functor float -> float applied to every element
 //            of x (not to the states) before it enters the product
+//   kFp32States  s0 @ Wt in fp32 on the CUDA cores, added to the 3xTF32
+//            x @ T tile (F = 1 only; see the note above)
 // `smem` holds kGSmemBytes.
-template <int F, typename XOp>
+template <int F, typename XOp, bool kFp32States = false>
 __device__ __forceinline__ void product_tile_tf32(
     const float* __restrict__ x, const float* __restrict__ t,
     const float* __restrict__ wt, const float* __restrict__ s0,
     const float* __restrict__ s1, int C, int nb, int L, int S, int b0,
     int br, int j0, XOp xop, float* smem) {
   static_assert(F == 1 || F == 2, "one or two filters");
+  static_assert(F == 1 || !kFp32States, "the fp32 states term: one filter");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -286,8 +302,9 @@ __device__ __forceinline__ void product_tile_tf32(
     }
   };
 
-  // tile 0 is the states tile, tiles 1 .. n_x the x k-tiles
-  stage_states(0);
+  // tile 0 is the states tile (empty with kFp32States), tiles 1 .. n_x
+  // the x k-tiles
+  if constexpr (!kFp32States) stage_states(0);
   cp_async_commit();
   stage_x(0, 1);
   cp_async_commit();
@@ -300,7 +317,7 @@ __device__ __forceinline__ void product_tile_tf32(
     const int next = i + kGStages - 1;
     if (next < n_tiles) stage_x(next - 1, next % kGStages);
     cp_async_commit();
-    if (F == 2 || i == 0 || i - 1 < n_x_warp)
+    if ((F == 2 || i == 0 || i - 1 < n_x_warp) && !(kFp32States && i == 0))
       compute(i % kGStages, i == 0 ? ks_states : kGK / 8);
   }
   cp_async_wait<0>();
@@ -318,6 +335,29 @@ __device__ __forceinline__ void product_tile_tf32(
           make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
   __syncthreads();
+
+  if constexpr (kFp32States) {
+    // y += s0 @ Wt: the states (kGM, S) and Wt's tile columns (S, 2·kGN)
+    // staged beside the result tile, then S fmaf an element
+    float* ss = smem + kGM * kGEStride;
+    float* ws = ss + kGM * kGStateDepth;
+    for (int e = tid; e < kGM * S; e += kGThreads) {
+      const int row = row_idx[e / S];
+      ss[e] = row >= 0 ? s0[(size_t)row * S + e % S] : 0.f;
+    }
+    for (int e = tid; e < S * 2 * kGN; e += kGThreads)
+      ws[e] = wt[(size_t)(e / (2 * kGN)) * L + j0 + e % (2 * kGN)];
+    __syncthreads();
+    for (int e = tid; e < kGM * 2 * kGN; e += kGThreads) {
+      const int r = e / (2 * kGN);
+      const int n = e % (2 * kGN);
+      float v = 0.f;
+      for (int k = 0; k < S; ++k)
+        v = fmaf(ss[r * S + k], ws[k * 2 * kGN + n], v);
+      smem[r * kGEStride + n] += v;
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace pam

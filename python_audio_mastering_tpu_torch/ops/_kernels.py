@@ -39,8 +39,9 @@ _SIGNATURES = {
     # x, t, wt, s_in, y, mono, C, nb, L, S, mix, drive, width, stream
     "pam_front_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                         _P],
-    # x, t, wt, s_in, out, C, nb, L, S, h, stream
-    "pam_kweight_cells": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, t, wt, s_in, out, part, tickets, C, nb, L, S, h, stream
+    "pam_kweight_cells": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P],
     # x, t2, wt2, s_lp, s_hp, out, C, nb, L, S, h, stream
     "pam_band_energies": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, t2, wt2, s_lp, s_hp, cols, y, mono, C, nb, L, S, h, stream
@@ -52,8 +53,10 @@ _SIGNATURES = {
     "pam_pass1_runs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # m, ca, cr, incomes, out, B, T, stream
     "pam_replay": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # m, ca, cr, att0, idx_ex, s_out, s_new, ctrl, B, T, iters, stream
-    "pam_replay_bnd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # m, ca, cr, att0, idx_ex, s_out, s_new, s_alt, ctrl, B, T, iters,
+    # rounds, stream
+    "pam_replay_bnd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P],
 }
 
 

@@ -20,7 +20,8 @@ bit for bit:
   :func:`pass1_bnd_ref`, the serial walk itself, is its oracle;
 * :func:`replay` (K6) — every block replayed from its incoming state,
   per-step output;
-* :func:`replay_bnd` (K7) — one round of the block-boundary fixed point.
+* :func:`replay_bnd` (K7) — rounds of the block-boundary fixed point, as
+  many as asked for (until the loop stops) in one cooperative launch.
 
 Two exact modes (:func:`ballistics_rates_bt`): ``"serial"`` walks the
 timeline (K5) and replays (K6); ``"collapse"`` iterates the boundary
@@ -53,8 +54,9 @@ BLOCK = 128           # control steps per block (part of the algorithm)
 FIXPOINT_ITERS = 12   # certification cap before the serial fallback
 _STALL_GRACE = 4      # rounds before the stall rule may stop the loop
 
-# the ctrl record, int32 (see csrc/ballistics.cu)
-ACTIVE, CNT, CNT_PREV, ROUND, CHANGED, DONE = range(6)
+# the ctrl record, int32 (see csrc/ballistics.cu; the two counters are
+# the kernel's scratch, 0 between launches)
+ACTIVE, CNT, CNT_PREV, ROUND, CHANGED_EVEN, CHANGED_ODD = range(6)
 _CTRL0 = (1, 1, 1 << 30, 0, 0, 0)
 
 
@@ -199,8 +201,22 @@ def _stop_rule(ctrl, iters):
 
 
 def replay_bnd_ref(m, ca, cr, att0, idx_ex, s_out, ctrl,
-                   iters=FIXPOINT_ITERS):
-    """Plain version of :func:`replay_bnd` (updates ``ctrl`` in place)."""
+                   iters=FIXPOINT_ITERS, rounds=1):
+    """Plain version of :func:`replay_bnd` (updates ``ctrl`` in place):
+    ``rounds`` one-round calls in a row.  Refuses a ``ctrl`` whose two
+    counters are not 0: the kernel relies on them being 0 on entry."""
+    if int(ctrl[CHANGED_EVEN]) or int(ctrl[CHANGED_ODD]):
+        raise ValueError(f"replay_bnd: ctrl's counters must be 0 on entry, "
+                         f"got {ctrl.tolist()} (see new_ctrl)")
+    s = s_out
+    for _ in range(rounds):
+        s = _replay_bnd_round(m, ca, cr, att0, idx_ex, s, ctrl, iters)
+    return s
+
+
+def _replay_bnd_round(m, ca, cr, att0, idx_ex, s_out, ctrl, iters):
+    """One fixed-point round; a round on a stopped loop returns a copy of
+    ``s_out`` and leaves ``ctrl`` as it is."""
     if int(ctrl[ACTIVE]) == 0:
         return s_out.clone()
     att = _incomes(s_out, att0, idx_ex)
@@ -330,25 +346,39 @@ def replay(m, ca, cr, incomes):
     return out
 
 
-def replay_bnd(m, ca, cr, att0, idx_ex, s_out, ctrl, iters=FIXPOINT_ITERS):
-    """One fixed-point round (K7): every block replayed from the incoming
-    state that ``s_out (B, T/128)`` gives it (:func:`_incomes` with the
-    frozen-block index ``idx_ex``, int64), returning the new outgoing
-    states.  ``ctrl`` is updated in place: the changed-boundary count,
-    the round, and whether the loop goes on.  A round on a stopped loop
-    returns ``s_out`` unchanged."""
+def replay_bnd(m, ca, cr, att0, idx_ex, s_out, ctrl, iters=FIXPOINT_ITERS,
+               rounds=1):
+    """Up to ``rounds`` fixed-point rounds (K7), one launch.  A round
+    replays every block from the incoming state that the outgoing states
+    of the round before give it (:func:`_incomes` with the frozen-block
+    index ``idx_ex``, int64), starting from ``s_out (B, T/128)``; returns
+    the outgoing states of the last round run.  ``ctrl`` is updated in
+    place, as by ``rounds`` one-round calls: the changed-boundary counts,
+    the rounds run, and whether the loop goes on (``iters`` caps the
+    rounds).  Rounds on a stopped loop return their input unchanged.
+    ``ctrl``'s two counters must be 0 on entry, as :func:`new_ctrl` and
+    every launch leave them (not checked here: that would read ``ctrl``
+    back to the host)."""
     if m.device.type == "cpu":
-        return replay_bnd_ref(m, ca, cr, att0, idx_ex, s_out, ctrl, iters)
+        return replay_bnd_ref(m, ca, cr, att0, idx_ex, s_out, ctrl, iters,
+                              rounds)
     b, t = _check("replay_bnd", m, (("ca", ca), ("cr", cr), ("att0", att0)),
                   (("idx_ex", idx_ex, torch.int64),
                    ("s_out", s_out, torch.float32)))
     _check_ctrl("replay_bnd", ctrl, m.device)
+    if rounds < 1:
+        raise ValueError(f"replay_bnd: rounds must be >= 1, got {rounds}")
+    if m.data_ptr() % 16:
+        raise ValueError("replay_bnd: m must start on a 16-byte boundary "
+                         "(the kernel loads 16-byte chunks)")
     s_new = torch.empty_like(s_out)
+    s_alt = torch.empty_like(s_out) if rounds > 1 else None
     lib = _kernels.library().lib
     with torch.cuda.device(m.device):
         err = lib.pam_replay_bnd(_ptr(m), _ptr(ca), _ptr(cr), _ptr(att0),
                                  _ptr(idx_ex), _ptr(s_out), _ptr(s_new),
-                                 _ptr(ctrl), b, t, int(iters),
+                                 None if s_alt is None else _ptr(s_alt),
+                                 _ptr(ctrl), b, t, int(iters), int(rounds),
                                  _stream(m.device))
     _raise_on("replay_bnd", err)
     replay_bnd.launches += 1
@@ -387,9 +417,9 @@ def _run_collapse(m, ca, cr, att0, iters=FIXPOINT_ITERS):
     the exact answer, is set out in the JAX package's ``_run_collapse``:
     ``s_{k+1} = g_k(s_k)`` is a triangular system, a 128-step block's map
     collapses to a constant once a clamp saturates, and frozen blocks are
-    read through.  Every round is launched (``iters`` of them); rounds
-    after the loop stopped return at once.  The serial walk then runs
-    only if the last round still changed a boundary.
+    read through.  Every round runs in one launch of K7, which stops
+    where the loop's rule stops it (at most ``iters`` rounds).  The serial
+    walk then runs only if the last round still changed a boundary.
 
     Returns ``(att (B, T), ctrl)``; ``ctrl[ROUND]`` is the rounds run and
     ``ctrl[CNT] == 0`` means the fixed point certified.
@@ -398,8 +428,7 @@ def _run_collapse(m, ca, cr, att0, iters=FIXPOINT_ITERS):
     ctrl = new_ctrl(m.device)
     s = torch.zeros((m.shape[0], m.shape[1] // BLOCK), dtype=m.dtype,
                     device=m.device)
-    for _ in range(iters):
-        s = replay_bnd(m, ca, cr, att0, idx_ex, s, ctrl, iters)
+    s = replay_bnd(m, ca, cr, att0, idx_ex, s, ctrl, iters, rounds=iters)
     bnd = pass1_bnd(m, ca, cr, att0, ctrl)
     serial = torch.cat([att0[:, None], bnd[:, :-1]], dim=1)
     incomes = torch.where(ctrl[CNT] == 0, _incomes(s, att0, idx_ex), serial)

@@ -4,9 +4,8 @@ Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
 
 * :func:`front_chain` (CUDA ``csrc/front_chain.cu``) — saturate → EQ from
   per-block states → stereo width, plus the mono downmix;
-* :func:`kweight_cells` (CUDA ``csrc/kweight_cells.cu``, the fp32 tile
-  loop of ``csrc/blocked_iir.cuh``) — K-weighting from per-block states →
-  square → ``h``-bucket sums;
+* :func:`kweight_cells` (CUDA ``csrc/kweight_cells.cu``) — K-weighting
+  from per-block states → square → ``h``-bucket sums;
 * :func:`band_energies` (CUDA ``csrc/band_energies.cu``) — the crossover
   bands from per-block states → channel-mean squared energies in
   ``hop``-buckets, the multiband detector's input;
@@ -14,9 +13,13 @@ Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
   again → recombination with the control-rate gains, plus the mono
   downmix.
 
-``front_chain`` (one filter), ``band_energies`` and ``band_gain_apply``
-(the two crossover filters) compute their product on the tensor cores in
-3xTF32, through the one product tile of ``csrc/tf32_product.cuh``.
+All four compute their product on the tensor cores in 3xTF32, through the
+one product tile of ``csrc/tf32_product.cuh``: ``front_chain`` and
+``kweight_cells`` with one filter, ``band_energies`` and
+``band_gain_apply`` with the two crossover filters.  ``kweight_cells``
+adds its states term ``s_in @ Wᵀ`` in fp32 on the CUDA cores (the
+K-weighting's state operator is ~70 times the signal, and 3xTF32 would
+put ~1.3e-5 of the max on it).
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU,
 and launches its kernel for a CUDA tensor or raises: there is no fallback
@@ -47,11 +50,11 @@ __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
            "band_gain_apply", "band_gain_apply_ref", "launch_counts",
            "reset_launch_counts"]
 
-# the template instantiations and tile height of csrc/blocked_iir.cuh (the
-# tensor-core kernels take these too)
-_KERNEL_BLOCK_SIZES = (128, 256, 384, 512)
-_KERNEL_MAX_CHANNELS = 32
-# csrc/tf32_product.cuh: its states tile holds filters·S <= 16 columns
+# csrc/tf32_product.cuh: a tile holds 128 rows, every channel of a block
+# among them, and 128 columns of one filter (64 of each of two), and its
+# states tile filters·S <= 16 columns
+_TF32_TILE_ROWS = 128
+_TF32_TILE_COLS = 128
 _TF32_STATE_DEPTH = 16
 
 
@@ -86,10 +89,10 @@ def _check_operands(name, xrows, s_in, t, w):
                          f"(C, nb, S)")
     c, nb, L = xrows.shape
     s = s_in.shape[2]
-    if L not in _KERNEL_BLOCK_SIZES or not 1 <= c <= _KERNEL_MAX_CHANNELS:
-        raise ValueError(f"{name}: the kernel takes L in "
-                         f"{_KERNEL_BLOCK_SIZES} and 1..."
-                         f"{_KERNEL_MAX_CHANNELS} channels, got L={L}, C={c}")
+    if L % _TF32_TILE_COLS or L == 0 or not 1 <= c <= _TF32_TILE_ROWS:
+        raise ValueError(f"{name}: the kernel takes L a positive multiple "
+                         f"of {_TF32_TILE_COLS} and 1...{_TF32_TILE_ROWS} "
+                         f"channels, got L={L}, C={c}")
     want = {"rows": ((c, nb, L), xrows), "states": ((c, nb, s), s_in),
             "T": ((L, L), t), "W": ((L, s), w)}
     for what, (shape, ten) in want.items():
@@ -165,6 +168,22 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
     return (y, mono) if emit_mono else y
 
 
+_TICKETS = {}
+
+
+def _tickets(device, stream, groups):
+    """``kweight_cells``' row-group tickets on ``(device, stream)``: int32
+    zeros, at least ``groups`` of them.  The kernel's last CTA of a group
+    sets its ticket back to 0, so one buffer serves every launch on the
+    stream; it is allocated again only to grow."""
+    key = (device, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < groups:
+        buf = _TICKETS[key] = torch.zeros(groups, dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
 def kweight_cells(xrows, s_in, t_kw, w_kw, hop):
     """Hop-bucketed K-weighted energy sums ``(C, nb·L/hop)``.
 
@@ -179,18 +198,29 @@ def kweight_cells(xrows, s_in, t_kw, w_kw, hop):
     if xrows.device.type == "cpu":
         return kweight_cells_ref(xrows, s_in, t_kw, w_kw, hop)
     c, nb, L, s = _check_operands("kweight_cells", xrows, s_in, t_kw, w_kw)
-    if L % hop != 0:
-        raise ValueError(f"hop {hop} must divide block size {L}")
+    _check_hop(L, hop)
+    t_kw = t_kw.contiguous()
+    _check_tf32_operands("kweight_cells", xrows, t_kw, s, filters=1)
     out = torch.empty((c, nb * (L // hop)), dtype=xrows.dtype,
                       device=xrows.device)
     wt = w_kw.T.contiguous()
-    t_kw = t_kw.contiguous()
+    part = tickets = None
     lib = _kernels.library().lib
     with torch.cuda.device(xrows.device):
         stream = torch.cuda.current_stream(xrows.device).cuda_stream
+        if _TF32_TILE_COLS % hop:
+            # buckets cross column tiles: the tiles' pieces of them, and a
+            # ticket a row group that finds the last tile to finish
+            groups = -(-nb // (_TF32_TILE_ROWS // c))
+            part = torch.empty((groups, L // _TF32_TILE_COLS,
+                                _TF32_TILE_ROWS, 2), dtype=torch.float32,
+                               device=xrows.device)
+            tickets = _tickets(xrows.device, stream, groups)
         err = lib.pam_kweight_cells(_ptr(xrows), _ptr(t_kw), _ptr(wt),
-                                    _ptr(s_in), _ptr(out), c, nb, L, s,
-                                    int(hop), stream)
+                                    _ptr(s_in), _ptr(out),
+                                    None if part is None else _ptr(part),
+                                    None if tickets is None else _ptr(tickets),
+                                    c, nb, L, s, int(hop), stream)
     _raise_on("kweight_cells", err)
     kweight_cells.launches += 1
     return out

@@ -268,3 +268,62 @@ def test_single_band_nonzero_att0_and_ragged_length():
                                atol=2e-4)
     with pytest.raises(ValueError, match="mode"):
         bal.ballistics_rates_bt(torch.from_numpy(m), ca, cr, mode="scan")
+
+
+@pytest.mark.parametrize("rounds", [3, bal.FIXPOINT_ITERS])
+@pytest.mark.parametrize("name", CASES + ADVERSARIAL)
+def test_rounds_equal_one_round_calls(name, rounds):
+    """``replay_bnd_ref(..., rounds=k)`` (K7's plain twin, and the wrapper
+    on the CPU) equals k one-round calls in a row, states and ``ctrl``
+    bitwise, whether the loop runs all k rounds or stops before."""
+    m, ca, cr, att0 = _padded(name)
+    idx = bal._frozen_index(m)
+    s0 = torch.zeros((m.shape[0], m.shape[1] // bal.BLOCK))
+    ctrls = [bal.new_ctrl("cpu") for _ in range(3)]
+    got = bal.replay_bnd_ref(m, ca, cr, att0, idx, s0, ctrls[0],
+                             rounds=rounds)
+    wrapped = bal.replay_bnd(m, ca, cr, att0, idx, s0, ctrls[1],
+                             rounds=rounds)
+    s = s0
+    for _ in range(rounds):
+        s = bal.replay_bnd_ref(m, ca, cr, att0, idx, s, ctrls[2])
+    assert torch.equal(got, s) and torch.equal(wrapped, s), name
+    assert torch.equal(ctrls[0], ctrls[2]), name
+    assert torch.equal(ctrls[1], ctrls[2]), name
+    assert 1 <= int(ctrls[0][bal.ROUND]) <= rounds
+    assert int(ctrls[0][bal.CHANGED_EVEN]) == 0
+    assert int(ctrls[0][bal.CHANGED_ODD]) == 0
+
+
+def test_rounds_stop_where_the_loop_stops():
+    """A loop that stops before the rounds asked for: sustained material
+    certifies, and the rounds after it carry the states through."""
+    m, ca, cr, att0 = _padded("sustained")
+    idx = bal._frozen_index(m)
+    s0 = torch.zeros((3, m.shape[1] // bal.BLOCK))
+    ctrl = bal.new_ctrl("cpu")
+    s = bal.replay_bnd_ref(m, ca, cr, att0, idx, s0, ctrl,
+                           rounds=bal.FIXPOINT_ITERS)
+    ran = int(ctrl[bal.ROUND])
+    assert ran < bal.FIXPOINT_ITERS and int(ctrl[bal.ACTIVE]) == 0
+    assert int(ctrl[bal.CNT]) == 0
+    ctrl2 = bal.new_ctrl("cpu")
+    assert torch.equal(bal.replay_bnd_ref(m, ca, cr, att0, idx, s0, ctrl2,
+                                          rounds=ran), s)
+    assert torch.equal(ctrl2, ctrl)
+
+
+@pytest.mark.parametrize("counter", [bal.CHANGED_EVEN, bal.CHANGED_ODD])
+def test_rounds_refuse_a_ctrl_with_counters_set(counter):
+    """K7 reads its counters as 0 on entry (other CTAs add to them before
+    the first grid barrier); the plain twin refuses a ``ctrl`` that breaks
+    this, and leaves it as it was."""
+    m, ca, cr, att0 = _padded("sustained")
+    idx = bal._frozen_index(m)
+    s0 = torch.zeros((3, m.shape[1] // bal.BLOCK))
+    ctrl = bal.new_ctrl("cpu")
+    ctrl[counter] = 7
+    kept = ctrl.clone()
+    with pytest.raises(ValueError, match="counters must be 0"):
+        bal.replay_bnd(m, ca, cr, att0, idx, s0, ctrl, rounds=3)
+    assert torch.equal(ctrl, kept)

@@ -8,9 +8,10 @@ so the card's machine, which has no jax, runs it:
 Tests marked ``cuda`` need an NVIDIA GPU and skip without one; the
 others check the wrappers' device dispatch on the CPU.  Kernel vs plain
 on the card: fp32 sums in another order, max abs ≤ 1e-4 (K2, K4:
-relative to the largest value; K1, K2 and K3 run their products in
-3xTF32 on the tensor cores, close to fp32); the ballistics kernels K5-K7 run the plain
-version's float operations in its order, so they agree bitwise.
+relative to the largest value; K1-K4 run their products in 3xTF32 on the
+tensor cores, close to fp32, K4 its states term in fp32); the ballistics
+kernels K5-K7 run the plain version's float operations in its order, so
+they agree bitwise.
 The multiband chain on the card vs the CPU path: max abs < 5e-3, rms <
 5e-5, |ΔLUFS| < 1e-3 (the JAX package's on-chip kernels-vs-XLA residual,
 1.2e-3 max / 1.3e-5 rms, comes from detector threshold flips,
@@ -66,12 +67,12 @@ def _front_operands(channels, nb, device, fs=44100, block=L):
     return (xrows, s_in, ops.t, ops.w, params.saturation, params.width)
 
 
-def _kweight_operands(channels, nb, device, fs):
-    xrows = torch.as_tensor(_signal(nb * L, channels, fs, 7 + channels),
-                            device=device).reshape(channels, nb, L)
+def _kweight_operands(channels, nb, device, fs, block=L):
+    xrows = torch.as_tensor(_signal(nb * block, channels, fs, 7 + channels),
+                            device=device).reshape(channels, nb, block)
     s_in, _, ops = iir.sosfilt_states_rows(loud.kweight_sos(fs), xrows)
     return (xrows, s_in, ops.t, ops.w,
-            math.gcd(loud._gating_geometry(fs)[0], L))
+            math.gcd(loud._gating_geometry(fs)[0], block))
 
 
 def _band_operands(channels, nb, device, hop=8, fs=44100, block=L):
@@ -193,17 +194,27 @@ def test_front_chain_kernel_matches_plain(cuda_device, block, channels,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("channels", [1, 2, 3])
 @pytest.mark.parametrize("fs", [44100, 48000])
-def test_kweight_cells_kernel_matches_plain(cuda_device, fs, channels):
-    """h = 6 at 44.1 kHz, 192 at 48 kHz; nb = 99 leaves a ragged group."""
-    args = _kweight_operands(channels, 99, cuda_device, fs)
+@pytest.mark.parametrize("block", [128, 256, 384, 512])
+def test_kweight_cells_kernel_matches_plain(cuda_device, block, fs,
+                                            channels):
+    """K4 (x @ T in 3xTF32, the states term in fp32) at every block size:
+    h = 6 at 44.1 kHz and 192 at 48 kHz with block 384 (buckets that cross
+    the 128-column tiles, joined by the row group's last CTA), 2 and 64 at
+    the other sizes; nb = 99 leaves a ragged last row tile, and 3 channels
+    a tile of 126 rows.  Limit: the chip smoke's, 1e-4 of the max.  A
+    second launch gives the same bits: the last CTA of each row group set
+    its ticket back to 0."""
+    args = _kweight_operands(channels, 99, cuda_device, fs, block)
     before = cmb.kweight_cells.launches
     got = cmb.kweight_cells(*args)
     torch.cuda.synchronize()
     assert cmb.kweight_cells.launches == before + 1
     ref = cmb.kweight_cells_ref(*args)
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    assert torch.equal(cmb.kweight_cells(*args), got)
+    assert all(int(t.abs().sum()) == 0 for t in cmb._TICKETS.values())
 
 
 @pytest.mark.parametrize("case", ["states_f1", "states_f2", "rows", "T"])
@@ -238,6 +249,14 @@ def test_kernel_wrappers_validate_operands(cuda_device):
     shifted = torch.empty(xrows.numel() + 1, device=cuda_device)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         cmb.front_chain(shifted.view(xrows.shape), s_in, t, w, sat, width)
+    # K4: at most 128 channels (a tile's rows), L a multiple of 128
+    t128, w128 = (torch.zeros(shape, device=cuda_device)
+                  for shape in ((128, 128), (128, 4)))
+    for c, L_ in ((129, 128), (1, 192)):
+        x_ = torch.zeros((c, 2, L_), device=cuda_device)
+        s_ = torch.zeros((c, 2, 4), device=cuda_device)
+        with pytest.raises(ValueError, match="channels"):
+            cmb.kweight_cells(x_, s_, t128[:L_, :L_], w128[:L_], 2)
 
 
 @pytest.mark.cuda
@@ -321,6 +340,32 @@ def test_ballistics_kernels_match_plain_bitwise(cuda_device, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [1, 3, bal.FIXPOINT_ITERS])
+@pytest.mark.parametrize("t", [128, 70 * 128, 300 * 128, 1 << 23])
+def test_replay_bnd_rounds_in_one_launch_match_plain(cuda_device, t, rounds):
+    """K7 running up to ``rounds`` fixed-point rounds in one cooperative
+    launch against the plain loop of one-round calls, states and ctrl
+    bitwise; T = 2^23 steps a band (3 x 65 536 blocks) is more than the
+    grid's shared memory holds, so its rounds read m from device memory."""
+    m, ca, cr, att0 = _ballistics_operands(t, cuda_device)
+    idx = bal._frozen_index(m)
+    s0 = torch.zeros((3, t // bal.BLOCK), device=cuda_device)
+    ck, cp = bal.new_ctrl(cuda_device), bal.new_ctrl(cuda_device)
+    before = bal.replay_bnd.launches
+    got = bal.replay_bnd(m, ca, cr, att0, idx, s0, ck, rounds=rounds)
+    torch.cuda.synchronize()
+    assert bal.replay_bnd.launches == before + 1
+    ref = bal.replay_bnd_ref(m, ca, cr, att0, idx, s0, cp, rounds=rounds)
+    assert torch.equal(got, ref)
+    assert torch.equal(ck, cp), (ck.tolist(), cp.tolist())
+    # a launch on the stopped loop carries its input through
+    if int(cp[bal.ACTIVE]) == 0:
+        assert torch.equal(bal.replay_bnd(m, ca, cr, att0, idx, got, ck,
+                                          rounds=rounds), got)
+        assert torch.equal(ck, cp)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("block", [128, 256, 512])
 def test_band_gain_apply_kernel_matches_plain_at_every_block_size(
         cuda_device, block):
@@ -360,7 +405,8 @@ def test_band_energies_kernel_matches_plain_at_every_block_and_hop(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("source", ["ballistics.cu", "band_gain_apply.cu",
-                                    "front_chain.cu", "band_energies.cu"])
+                                    "front_chain.cu", "band_energies.cu",
+                                    "kweight_cells.cu"])
 def test_kernel_sources_do_not_spill(cuda_device, source):
     """ptxas -v on the rewritten sources: every kernel in them reports 0
     bytes of spill stores and loads."""
