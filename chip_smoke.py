@@ -6,9 +6,10 @@
 Drives the port (``python_audio_mastering_tpu_torch``, never jax) through
 its entry points, called without a ``device`` argument (they run on the
 card by default), on a seeded 180 s 44.1 kHz stereo track with the bench
-settings, multiband off (phases 2-6) and on (phases 7-12), after building
-its CUDA kernels from the sources in the checkout and checking each
-against its plain PyTorch version at the shapes the chain gives it.
+settings, multiband off (phases 2-6) and on (phases 7-12), and in quality
+mode through every single-file and cloud engine (phases 14-17), after
+building its CUDA kernels from the sources in the checkout and checking
+each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
 
   0  device, torch/CUDA versions, TF32 flags (refuses without a GPU)
@@ -51,9 +52,9 @@ Phases:
  10  multiband master(): finite, |y| <= 1, oracle loudness within 0.15 LU
      of -14, every kernel of the path launched (replay_bnd once: the
      whole fixed point is one launch), host synchronisations
-     counted, and within 5e-3 max abs / 5e-5 rms / 1e-3 LU of the port's
-     plain path on the CPU (the JAX package's on-chip kernels-vs-XLA
-     residual from detector threshold flips is 1.2e-3 / 1.3e-5)
+     counted, and within 1.2e-3 max abs / 1.3e-5 rms / 1e-3 LU of the
+     port's plain path on the CPU (the JAX package's on-chip
+     kernels-vs-XLA residual from detector threshold flips)
  11  multiband engine.process_audio (no device argument): equals one-shot
      master() within 2e-4
  12  multiband timings: master(), process_audio, the ballistics in serial
@@ -63,6 +64,34 @@ Phases:
  13  where the time goes: torch.profiler over 5 calls of master(),
      multiband on and off: device time per call, the kernels that take
      it, and the share of the wall the device is idle
+ 14  quality-mode ops on the track made hot (x2) and on a 48 kHz track:
+     true_peak_linear (both exclude_pad settings), _peak_env,
+     lookahead_limiter and lookahead_limiter_chunk over 30 s chunks and a
+     flush, resample 44.1 -> 48 kHz and 48 -> 44.1 kHz, each in float32
+     on the card against the port's float64 run on the CPU: <= 5e-5 max
+     abs (limiter), <= 1e-5 (resampler), <= 1e-5 of the max (true peak);
+     the limiter's sample peak <= the ceiling x (1 + 1e-6) and its true
+     peak <= -0.8 dBTP; then everything again with the global
+     torch.backends.cudnn.allow_tf32 = True: bitwise the same results
+ 15  quality master() (no device argument) at -14 and -8 LUFS, multiband
+     off and on: finite, sample peak <= the ceiling x (1 + 1e-6), true
+     peak <= -0.8 dBTP, oracle loudness printed, every kernel of the path
+     launched, within 2e-4 max abs (multiband off) or phase 10's limits
+     (on) of the port's CPU quality path; quality master_streamed equals
+     one-shot within 2e-4
+ 16  engines without a device argument: process_audio with quality and
+     output_sample_rate 48000 (a 48 kHz WAV of ceil(N*160/147) frames,
+     oracle loudness within 0.1 LU of the 44.1 kHz quality master()'s),
+     batch_process_audio over a folder of a 44.1 kHz and a 48 kHz WAV,
+     process_audio_from_uri on a local:// store (output blob, .complete
+     flag, .meters.json with the target loudness within 1e-2 and the
+     written audio's true peak within 0.05 dB)
+ 17  timings (CUDA events, warm, median of 5): quality vs soft-limiter
+     master() with multiband, the limiter alone on the 180 s track,
+     master_streamed with and without return_meters, resample 44.1 ->
+     48 kHz of 180 s; device time (torch.profiler) of the quality
+     master() and of the limiter alone; host synchronisations per quality
+     master()
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
@@ -119,6 +148,12 @@ K7_LONG_T = 8388608        # steps a band: more than the grid's shared memory
 FP32_FLOPS = 67e12    # H100 SXM, fp32 on the CUDA cores, dense
 TF32_FLOPS = 495e12   # H100 SXM, TF32 on the tensor cores, dense
 HBM_BYTES = 3.35e12   # H100 SXM, HBM3 bytes/s
+# multiband card vs CPU path: the JAX package's on-chip kernels-vs-XLA
+# residual from detector threshold flips (DESIGN.md:126-129)
+MB_MAX, MB_RMS = 1.2e-3, 1.3e-5
+FS48 = 48000
+CEILING = 10.0 ** (-1.0 / 20.0)   # the lookahead limiter's -1 dBTP
+QUALITY_LUFS = (-14.0, -8.0)
 _PMB = "python_audio_mastering_tpu/ops/pallas_multiband.py"
 _PK = "python_audio_mastering_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -444,7 +479,7 @@ def kernel_times():
 
 def main():
     # phase 0 ---------------------------------------------------------------
-    setup_card()
+    card = setup_card()
     print(f"phase 0 ok: torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()} allow_tf32="
@@ -633,6 +668,7 @@ def main():
     print("phase 6 ok", flush=True)
 
     multiband_phases(o, kernels)
+    quality_phases(o, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
@@ -814,8 +850,8 @@ def multiband_phases(o, kernels):
     print(f"phase 10 card vs CPU plain path ({time.perf_counter() - t0:.1f} s"
           f" on the CPU): max abs {d_max:.3e}, rms {d_rms:.3e}, |dLUFS| "
           f"{d_lufs:.3e}; elements over 2e-4: {int((d > 2e-4).sum())}")
-    check(d_max < 5e-3, f"card vs CPU max abs {d_max} >= 5e-3")
-    check(d_rms < 5e-5, f"card vs CPU rms {d_rms} >= 5e-5")
+    check(d_max < MB_MAX, f"card vs CPU max abs {d_max} >= {MB_MAX}")
+    check(d_rms < MB_RMS, f"card vs CPU rms {d_rms} >= {MB_RMS}")
     check(d_lufs < 1e-3, f"card vs CPU |dLUFS| {d_lufs} >= 1e-3")
     print("phase 10 ok", flush=True)
 
@@ -956,6 +992,255 @@ def multiband_phases(o, kernels):
     print(f"phase 13 kernel timings: {WINDOWS['profiled']} profiler windows, "
           f"{len(WINDOWS['empty'])} without the kernel {WINDOWS['empty']}")
     print("phase 13 ok", flush=True)
+
+
+def quality_ops(x44, x48):
+    """Phase 14's ops on a 44.1 kHz and a 48 kHz ``(N, 2)`` track: ``{name:
+    (result, limit, relative)}``."""
+    from python_audio_mastering_tpu_torch.ops import limiter as lim
+    from python_audio_mastering_tpu_torch.ops import meters as met
+    from python_audio_mastering_tpu_torch.ops import resample as rs
+
+    out = {}
+    for ex in ((False, False), (True, True)):
+        out[f"true_peak_linear exclude_pad={ex}"] = (
+            met.true_peak_linear(x44, exclude_pad=ex), 1e-5, True)
+    out["_peak_env"] = (lim._peak_env(x44, True), 1e-5, True)
+    out["lookahead_limiter"] = (lim.lookahead_limiter(x44, FS), 5e-5, False)
+    state = lim.lookahead_limiter_init(2, x44.dtype, x44.device)
+    pieces, step = [], 30 * FS
+    for start in range(0, x44.shape[0], step):
+        y, state = lim.lookahead_limiter_chunk(x44[start:start + step],
+                                               state, FS)
+        pieces.append(y)
+    pieces.append(lim.lookahead_limiter_chunk(None, state, FS,
+                                              flush=True)[0])
+    out["lookahead_limiter_chunk"] = (torch.cat(pieces), 5e-5, False)
+    out["resample 44100->48000"] = (rs.resample(x44, FS, FS48), 1e-5, False)
+    out["resample 48000->44100"] = (rs.resample(x48, FS48, FS), 1e-5, False)
+    return out
+
+
+def quality_phases(o, card):
+    """Phases 14-17: quality mode, the resampler, the meters and the
+    engines around them, on the same track (``o`` from
+    :func:`main_path_operands`)."""
+    import dataclasses
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    from python_audio_mastering_tpu_torch import (
+        MasteringChain,
+        MasteringParams,
+        engine,
+        master,
+    )
+    from python_audio_mastering_tpu_torch.io import wavio
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops import limiter as lim
+    from python_audio_mastering_tpu_torch.ops import meters as met
+    from python_audio_mastering_tpu_torch.ops import resample as rs
+    from python_audio_mastering_tpu_torch.parallel.streaming import (
+        master_streamed,
+    )
+    from python_audio_mastering_tpu_torch.serving.store import (
+        LocalFSBlobStore,
+    )
+
+    dev = o.xrows.device
+    x = o.x
+    qcfg = dataclasses.replace(o.chain.config,
+                               limiter_mode="lookahead_truepeak")
+
+    # phase 14 --------------------------------------------------------------
+    hot = x * 2.0
+    hot48 = make_signal(SECONDS * FS48, FS48, seed=1) * 2.0
+    t0 = time.perf_counter()
+    ref = quality_ops(*(torch.from_numpy(a.astype(np.float64))
+                        for a in (hot, hot48)))
+    print(f"phase 14 the CPU float64 references took "
+          f"{time.perf_counter() - t0:.1f} s")
+    hot_dev, hot48_dev = (torch.from_numpy(a).to(dev) for a in (hot, hot48))
+    got = quality_ops(hot_dev, hot48_dev)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        again = quality_ops(hot_dev, hot48_dev)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for name, (g, limit, relative) in got.items():
+        r = ref[name][0]
+        check(g.dtype == torch.float32 and g.shape == r.shape,
+              f"{name}: {g.dtype} {tuple(g.shape)} vs {tuple(r.shape)}")
+        compare(f"phase 14 {name}", g.double().cpu(), r, limit, relative)
+        check_bitwise(f"phase 14 {name} with cudnn.allow_tf32 = True",
+                      again[name][0], g)
+    for name in ("lookahead_limiter", "lookahead_limiter_chunk"):
+        y = got[name][0]
+        peak = y.abs().max().item()
+        tp_db = met.true_peak_db(y).item()
+        print(f"phase 14 {name}: sample peak {peak:.8f} (ceiling "
+              f"{CEILING:.8f}), true peak {tp_db:.4f} dBTP")
+        check(peak <= CEILING * (1 + 1e-6), f"{name}: peak {peak} over the "
+                                            f"ceiling")
+        check(tp_db <= -0.8, f"{name}: true peak {tp_db} dBTP > -0.8")
+    del ref, again
+    print("phase 14 ok", flush=True)
+
+    # phase 15 --------------------------------------------------------------
+    one_shot = {}
+    for lufs in QUALITY_LUFS:
+        for mb in (False, True):
+            p = MasteringParams.from_settings({**SETTINGS, "lufs": lufs,
+                                               "multiband": mb})
+            cmb.reset_launch_counts()
+            res = master(x, p, qcfg, return_result=True)   # no device
+            torch.cuda.synchronize()
+            counts = cmb.launch_counts()
+            check(res.audio.device.type == "cuda",
+                  f"quality master() ran on {res.audio.device}")
+            y = res.audio.cpu().numpy()
+            one_shot[lufs, mb] = y
+            check(y.shape == x.shape and bool(np.isfinite(y).all()),
+                  f"quality master() output {y.shape}, finite "
+                  f"{bool(np.isfinite(y).all())}")
+            peak = float(np.abs(y).max())
+            tp_db = met.true_peak_db(res.audio).item()
+            lufs_out = oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
+            cpu = MasteringChain(qcfg)(x, p).numpy()
+            d = np.abs(y - cpu)
+            d_max, d_rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+            print(f"phase 15 quality master() {lufs} LUFS multiband {mb}: "
+                  f"peak {peak:.8f}, true peak {tp_db:.4f} dBTP, measured "
+                  f"{float(res.measured_lufs):.4f} LUFS, oracle output "
+                  f"loudness {lufs_out:.4f} LUFS (target {lufs}); launches "
+                  f"{counts}; vs CPU quality path max abs {d_max:.3e} rms "
+                  f"{d_rms:.3e}")
+            check(peak <= CEILING * (1 + 1e-6), f"peak {peak} over the "
+                                                f"ceiling")
+            check(tp_db <= -0.8, f"true peak {tp_db} dBTP > -0.8")
+            for name in NO_MB_KERNELS + (MB_COUNTED if mb else ()):
+                check(counts[name] > 0, f"kernel {name} was not launched by "
+                                        f"the quality master()")
+            limit, limit_rms = (MB_MAX, MB_RMS) if mb else (2e-4, None)
+            check(d_max < limit, f"card vs CPU max abs {d_max} >= {limit}")
+            check(limit_rms is None or d_rms < limit_rms,
+                  f"card vs CPU rms {d_rms} >= {limit_rms}")
+    for mb in (False, True):
+        p = MasteringParams.from_settings({**SETTINGS, "lufs": -8.0,
+                                           "multiband": mb})
+        cmb.reset_launch_counts()
+        out_s, _, _ = master_streamed(x, p, qcfg)   # no device argument
+        counts = cmb.launch_counts()
+        d_str = float(np.abs(out_s - one_shot[-8.0, mb]).max())
+        print(f"phase 15 quality master_streamed -8 LUFS multiband {mb}: "
+              f"launches {counts}; max abs vs one-shot {d_str:.3e}")
+        check(all(counts[k] > 0 for k in
+                  NO_MB_KERNELS + (MB_COUNTED if mb else ())),
+              "quality master_streamed did not launch every kernel")
+        check(d_str < 2e-4, f"streamed vs one-shot {d_str} >= 2e-4")
+    print("phase 15 ok", flush=True)
+
+    # phase 16 --------------------------------------------------------------
+    quality = {**SETTINGS, "quality": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "track.wav")
+        wavio.write_wav(src, x, FS, float_format=True)
+        dst = os.path.join(tmp, "out48.wav")
+        msgs = []
+        cmb.reset_launch_counts()
+        ok = engine.process_audio({**quality, "output_sample_rate": FS48,
+                                   "input_file": src, "output_file": dst},
+                                  msgs.append)   # no device argument
+        counts = cmb.launch_counts()
+        check(ok, f"process_audio failed: {msgs[-1] if msgs else ''}")
+        y48, fs_out = wavio.read_wav(dst)
+        want = -(-x.shape[0] * 160 // 147)
+        l48 = oracle_lufs(y48.astype(np.float64).mean(axis=1), FS48)
+        l44 = oracle_lufs(one_shot[-14.0, False].astype(np.float64).mean(
+            axis=1), FS)
+        print(f"phase 16 process_audio quality -> 48 kHz: {fs_out} Hz, "
+              f"{y48.shape[0]} frames (want {want}); oracle {l48:.4f} LUFS "
+              f"vs {l44:.4f} at 44.1 kHz; launches {counts}")
+        check(fs_out == FS48 and y48.shape == (want, 2),
+              "resampled output rate or length")
+        check(abs(l48 - l44) <= 0.1, f"48 kHz loudness {l48} vs {l44}")
+        check(all(counts[k] > 0 for k in NO_MB_KERNELS),
+              "process_audio did not launch every kernel")
+
+        folder, outdir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(folder)
+        wavio.write_wav(os.path.join(folder, "a.wav"), x[: 30 * FS], FS)
+        wavio.write_wav(os.path.join(folder, "b.wav"),
+                        hot48[: 30 * FS48] * 0.25, FS48)
+        msgs = []
+        cmb.reset_launch_counts()
+        done = engine.batch_process_audio(quality, folder, outdir,
+                                          msgs.append)   # no device
+        counts = cmb.launch_counts()
+        rates = {n: wavio.read_wav(os.path.join(outdir, n))[1]
+                 for n in sorted(os.listdir(outdir))}
+        print(f"phase 16 batch_process_audio: {done} mastered, {rates}; "
+              f"{msgs[-1]!r}; launches {counts}")
+        check(done == 2 and rates == {"a_mastered.wav": FS,
+                                      "b_mastered.wav": FS48},
+              "batch_process_audio outputs")
+        check(all(counts[k] > 0 for k in NO_MB_KERNELS),
+              "batch_process_audio did not launch every kernel")
+
+        store = LocalFSBlobStore(os.path.join(tmp, "blobs"), bucket="jobs")
+        with open(src, "rb") as f:
+            store.upload("uploads/track.wav", f.read())
+        cmb.reset_launch_counts()
+        key = engine.process_audio_from_uri(
+            "local://jobs/uploads/track.wav", quality, store=store,
+            progress_cb=lambda m: None)   # no device argument
+        counts = cmb.launch_counts()
+        side = json.loads(store.download(f"{key}.meters.json"))
+        y, _ = wavio.read_wav(store.download(key))
+        tp_db = met.true_peak_db(torch.from_numpy(y).to(dev)).item()
+        print(f"phase 16 process_audio_from_uri: {key}, complete "
+              f"{store.exists(key + '.complete')}, meters {side}, written "
+              f"audio's true peak {tp_db:.4f} dBTP; launches {counts}")
+        check(key == "processed/mastered_track.wav"
+              and store.exists(f"{key}.complete"), "output blob or flag")
+        check(abs(side["integrated_lufs"] - SETTINGS["lufs"]) <= 1e-2,
+              f"sidecar loudness {side['integrated_lufs']}")
+        check(abs(side["true_peak_dbtp"] - tp_db) <= 0.05,
+              f"sidecar true peak {side['true_peak_dbtp']} vs {tp_db}")
+        check(all(counts[k] > 0 for k in NO_MB_KERNELS),
+              "process_audio_from_uri did not launch every kernel")
+    print("phase 16 ok", flush=True)
+
+    # phase 17 --------------------------------------------------------------
+    params = o.mb_params
+    x_dev = torch.from_numpy(x).to(dev)
+    chain_q = MasteringChain(qcfg).to(dev)
+    timed = {
+        "quality master(), multiband": lambda: chain_q(x_dev, params),
+        "soft-limiter master(), multiband": lambda: o.chain(x_dev, params),
+        "lookahead_limiter alone, 180 s hot": lambda: lim.lookahead_limiter(
+            hot_dev, FS),
+        "quality master_streamed, multiband": lambda: master_streamed(
+            x, params, qcfg),
+        "quality master_streamed, multiband, return_meters":
+            lambda: master_streamed(x, params, qcfg, return_meters=True),
+        "resample 44.1 -> 48 kHz, 180 s": lambda: rs.resample(x_dev, FS,
+                                                               FS48),
+    }
+    for what, fn in timed.items():
+        ms = median_of(lambda: cuda_ms(fn, reps=1))
+        print(f"phase 17 {what}: {ms:.3f} ms ({card})")
+    _, syncs = count_syncs(lambda: chain_q(x_dev, params))
+    print(f"phase 17 host synchronisations per quality master(): {syncs}")
+    for what, fn in (("quality master(), multiband",
+                      timed["quality master(), multiband"]),
+                     ("lookahead_limiter alone",
+                      timed["lookahead_limiter alone, 180 s hot"])):
+        print(f"phase 17 profile of {what}, 180 s, input on the card:")
+        profile_calls(fn, top=8)
+    print("phase 17 ok", flush=True)
 
 
 if __name__ == "__main__":

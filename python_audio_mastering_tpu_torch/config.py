@@ -114,7 +114,7 @@ class ChainConfig:
     comp_ballistics: str = "auto"
     measure_downmix: str = "reference_mono_mean"   # | "bs1770"
     limiter_threshold: float = 0.98
-    limiter_mode: str = "reference"  # | "lookahead_truepeak" (not ported yet)
+    limiter_mode: str = "reference"  # | "lookahead_truepeak" (quality)
 
     def torch_dtype(self):
         return getattr(torch, self.dtype)

@@ -14,9 +14,11 @@ import numpy as np
 import torch
 
 from python_audio_mastering_tpu_torch.config import ChainConfig, MasteringParams
+from python_audio_mastering_tpu_torch.ops.limiter import LookaheadLimiterState
 from python_audio_mastering_tpu_torch.parallel.streaming import StreamState
 
-__all__ = ["params_from_jax", "config_from_jax", "stream_state_from_jax"]
+__all__ = ["params_from_jax", "config_from_jax", "stream_state_from_jax",
+           "limiter_state_from_jax"]
 
 _BOOL_PARAMS = ("multiband", "lufs_enabled")
 
@@ -54,3 +56,13 @@ def stream_state_from_jax(state, device="cpu") -> StreamState:
 
     return StreamState(eq_zi=conv(state.eq_zi), mb=conv(state.mb),
                        kw_zi=conv(state.kw_zi))
+
+
+def limiter_state_from_jax(state, device="cpu") -> LookaheadLimiterState:
+    """A port ``LookaheadLimiterState`` from the JAX one (a quality stream
+    begun in JAX goes on in the port): ``buf`` and ``g`` become tensors on
+    ``device`` in their own dtype, ``pend`` stays an int."""
+    return LookaheadLimiterState(
+        buf=torch.tensor(np.asarray(state.buf), device=device),
+        g=torch.tensor(np.asarray(state.g), device=device),
+        pend=int(state.pend))

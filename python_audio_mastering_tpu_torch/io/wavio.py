@@ -1,22 +1,25 @@
-"""Host-side WAV I/O: dependency-free RIFF/WAVE reader and writer.
+"""Host-side audio I/O: a dependency-free RIFF/WAVE reader and writer.
 
-Counterpart of ``python_audio_mastering_tpu.io.wavio`` for WAV files (PCM
-8/16/24/32-bit and IEEE float32/64), pure numpy.  Audio is ``float32
-(N, C)`` in [-1, 1].  Other containers (through ffmpeg) and the native C++
-PCM encoder are not ported yet: :func:`read_audio` / :func:`write_audio`
-raise ``NotImplementedError`` for non-WAV paths.
+Counterpart of ``python_audio_mastering_tpu.io.wavio``: WAV files (PCM
+8/16/24/32-bit and IEEE float32/64) in pure numpy, other containers
+through ``ffmpeg`` when it is on PATH.  Audio is ``float32 (N, C)`` in
+[-1, 1].  The native C++ PCM encoder is not ported: WAV is always written
+by numpy.
 """
 
 from __future__ import annotations
 
 import io
 import os
+import shutil
 import struct
+import subprocess
+import tempfile
 
 import numpy as np
 
 __all__ = ["read_wav", "write_wav", "pcm_to_float", "float_to_pcm",
-           "read_audio", "write_audio"]
+           "read_audio", "write_audio", "decode_audio_bytes"]
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -200,23 +203,78 @@ def write_wav(path_or_file, audio, sample_rate, sample_width=2,
 _WAV_EXTS = {".wav", ".wave"}
 
 
+def _ffmpeg():
+    return shutil.which("ffmpeg")
+
+
 def read_audio(path):
-    """Decode a WAV file → ``(float32 (N, C), rate)``."""
+    """Decode any audio file → ``(float32 (N, C), rate)``: WAV natively,
+    other containers through ffmpeg when it is on PATH."""
     ext = os.path.splitext(str(path))[1].lower()
-    if ext not in _WAV_EXTS:
-        raise NotImplementedError(
-            f"cannot decode {ext!r}: only WAV is ported (the ffmpeg path is "
-            "ROADMAP queue 1 item 4)")
-    return read_wav(path)
+    if ext in _WAV_EXTS:
+        return read_wav(path)
+    ff = _ffmpeg()
+    if not ff:
+        raise RuntimeError(
+            f"cannot decode {ext!r} without ffmpeg on PATH (WAV is native)")
+    out = subprocess.run(
+        [ff, "-v", "error", "-i", str(path), "-f", "wav", "-acodec",
+         "pcm_f32le", "-"],
+        check=True, capture_output=True).stdout
+    return read_wav(out)
 
 
 def write_audio(path, audio, sample_rate, sample_width=2, float_format=False,
                 dither=False):
-    """Encode a WAV file (``.wav``, ``.wave`` or no extension)."""
+    """Encode to ``path`` by extension: WAV natively (``.wav``, ``.wave`` or
+    none), other containers through ffmpeg from a float32 WAV (the codec
+    picks its own sample format; ``sample_width``/``float_format``/
+    ``dither`` apply to WAV)."""
     ext = os.path.splitext(str(path))[1].lower()
-    if ext not in _WAV_EXTS and ext != "":
-        raise NotImplementedError(
-            f"cannot encode {ext!r}: only WAV is ported (the ffmpeg path is "
-            "ROADMAP queue 1 item 4)")
-    write_wav(path, audio, sample_rate, sample_width=sample_width,
-              float_format=float_format, dither=dither)
+    if ext in _WAV_EXTS or ext == "":
+        write_wav(path, audio, sample_rate, sample_width=sample_width,
+                  float_format=float_format, dither=dither)
+        return
+    ff = _ffmpeg()
+    if not ff:
+        raise RuntimeError(
+            f"cannot encode {ext!r} without ffmpeg on PATH (WAV is native)")
+    buf = io.BytesIO()
+    write_wav(buf, audio, sample_rate, float_format=True)
+    subprocess.run([ff, "-v", "error", "-y", "-f", "wav", "-i", "-", str(path)],
+                   input=buf.getvalue(), check=True, capture_output=True)
+
+
+def decode_audio_bytes(data, name_hint: str = ""):
+    """Decode an in-memory audio blob → ``(float32 (N, C), rate)``.
+
+    RIFF/WAVE decodes natively; anything else goes through an ffmpeg stdin
+    pipe, and through a temporary file (its extension from ``name_hint``,
+    for ffmpeg's demuxer choice) for containers that cannot be demuxed
+    from a pipe.
+    """
+    if not isinstance(data, (bytes, bytearray)):
+        data = data.read()
+    data = bytes(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WAVE":
+        return read_wav(data)
+    ff = _ffmpeg()
+    if not ff:
+        raise RuntimeError(
+            "cannot decode non-WAV audio without ffmpeg on PATH "
+            "(WAV is native)")
+    try:
+        out = subprocess.run(
+            [ff, "-v", "error", "-i", "-", "-f", "wav", "-acodec",
+             "pcm_f32le", "-"],
+            input=data, check=True, capture_output=True).stdout
+        return read_wav(out)
+    except (subprocess.CalledProcessError, ValueError):
+        ext = os.path.splitext(str(name_hint))[1] or ".bin"
+        fd, tmp = tempfile.mkstemp(suffix=ext)
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(data)
+            return read_audio(tmp)
+        finally:
+            os.unlink(tmp)

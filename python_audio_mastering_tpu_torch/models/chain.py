@@ -4,7 +4,8 @@ Counterpart of ``python_audio_mastering_tpu.models.chain`` (the
 rows-resident body ``_master_cm``):
 
     saturate → 4-band EQ → stereo width → [3-band multiband compressor] →
-    BS.1770 gated loudness → gain → soft limiter
+    BS.1770 gated loudness → gain → soft limiter (or, in quality mode,
+    the lookahead true-peak limiter of ``ops.limiter``)
 
 The signal is folded into rows ``(C, nb, L)`` of ``L = block_size``
 samples, zero-padded to a block multiple.  Kernels carry the path:
@@ -44,6 +45,7 @@ from python_audio_mastering_tpu_torch.ops.biquad import (
     reference_shelf_sos,
 )
 from python_audio_mastering_tpu_torch.ops.cuda_multiband import front_chain
+from python_audio_mastering_tpu_torch.ops.limiter import lookahead_limiter
 from python_audio_mastering_tpu_torch.ops.loudness import (
     gain_for_target,
     integrated_loudness_rows,
@@ -62,6 +64,7 @@ __all__ = ["master", "MasterResult", "MasteringChain", "eq_sos",
            "check_supported", "check_fp32_matmul", "require_device"]
 
 _EQ_CACHE_SIZE = 16
+_LIMITER_MODES = ("reference", "lookahead_truepeak")
 
 
 @dataclasses.dataclass
@@ -88,15 +91,15 @@ def eq_sos(params: MasteringParams, sample_rate: int):
 
 
 def check_supported(params: MasteringParams, config: ChainConfig):
-    """Raise ``NotImplementedError`` for what this port does not run yet."""
+    """Raise ``NotImplementedError`` for what this port does not run yet,
+    and ``ValueError`` for a limiter mode that does not exist."""
     if config.variant != "worker":
         raise NotImplementedError(
             f"variant={config.variant!r}: the legacy chain is ROADMAP "
-            "queue 1 item 5")
-    if config.limiter_mode != "reference":
-        raise NotImplementedError(
-            f"limiter_mode={config.limiter_mode!r} (the 'quality' key): the "
-            "lookahead true-peak limiter is ROADMAP queue 1 item 5")
+            "queue 1 item 4")
+    if config.limiter_mode not in _LIMITER_MODES:
+        raise ValueError(f"unknown limiter_mode {config.limiter_mode!r}: "
+                         f"one of {_LIMITER_MODES}")
 
 
 def require_device(device, what: str):
@@ -113,9 +116,10 @@ def require_device(device, what: str):
 
 
 def check_fp32_matmul(device):
-    """The loudness gating and the kernels' plain twins multiply in
-    float32 on the card and must do so in full precision: refuse to run
-    with TF32 matmuls enabled (TF32 keeps ~3 decimal digits)."""
+    """The loudness gating, the kernels' plain twins, the true-peak
+    interpolator and the resampler multiply in float32 on the card and
+    must do so in full precision: refuse to run with TF32 matmuls enabled
+    (TF32 keeps ~3 decimal digits)."""
     if torch.device(device).type != "cuda":
         return
     if (torch.backends.cuda.matmul.allow_tf32
@@ -279,8 +283,11 @@ class MasteringChain(nn.Module):
                                     device=xr.device)
             gain_db = torch.zeros((), dtype=xr.dtype, device=xr.device)
 
-        y = soft_limiter(xr, threshold=cfg.limiter_threshold)
-        y = y.reshape(c, nb * L).T[:n]
+        if cfg.limiter_mode == "lookahead_truepeak":
+            y = lookahead_limiter(xr.reshape(c, nb * L).T[:n], cfg.sample_rate)
+        else:
+            y = soft_limiter(xr, threshold=cfg.limiter_threshold)
+            y = y.reshape(c, nb * L).T[:n]
         if squeeze:
             y = y[:, 0]
         if return_result:

@@ -5,14 +5,17 @@ rows-form chunk body).  The audio is cut into chunks of
 :func:`default_chunk_frames`; each chunk runs the chain front (and the
 multiband compressor) with the EQ (and multiband) state carried from the
 last one (pass A) and adds its 100 ms loudness cells, measured with the
-K-weighting state carried too.  The gated loudness
-of all cells sets one gain, and pass B applies gain and soft limiter chunk
-by chunk, so the streamed result matches the one-shot :func:`master` up to
-float reassociation.
+K-weighting state carried too.  The gated loudness of all cells sets one
+gain, and pass B applies gain and limiter chunk by chunk: the soft
+limiter, or in quality mode the lookahead true-peak limiter with its
+delay line and release gain carried (``ops.limiter``).  The streamed
+result matches the one-shot :func:`master` up to float reassociation.
+``return_meters`` adds the R128 meter family, from the same cells and a
+true-peak meter run over pass B's output with a carried boundary tail.
 
 What this port covers: float32 transfer with every chunk resident on the
-device.  The pcm16 wire, the device-memory budget with spills,
-checkpoint/resume and the meters are ROADMAP queue 1 items 4 and 5.
+device.  The pcm16 wire, the device-memory budget with spills and
+checkpoint/resume are ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from python_audio_mastering_tpu_torch.models.chain import (
     check_supported,
     require_device,
 )
+from python_audio_mastering_tpu_torch.ops import limiter as lim
 from python_audio_mastering_tpu_torch.ops import loudness as loud
+from python_audio_mastering_tpu_torch.ops import meters as met
 from python_audio_mastering_tpu_torch.ops.waveshaper import soft_limiter
 
 __all__ = ["master_streamed", "StreamState", "default_chunk_frames"]
@@ -102,6 +107,57 @@ def _finalize_chunk(chunk, gain, config: ChainConfig):
     return soft_limiter(chunk * gain, threshold=config.limiter_threshold)
 
 
+def _finalize_lookahead(processed, gain, n, config: ChainConfig,
+                        progress_cb=None):
+    """Pass B of quality mode: gain, then the streamed lookahead limiter
+    with its state carried across chunks.  The last chunk's padded tail is
+    cut *before* the limiter, so the right edge is the one-shot one; a
+    flush call drains the pending samples.  Returns the emissions, ``(E,
+    C)`` tensors that concatenate to ``(n, C)``."""
+    c = processed[0].shape[0]
+    state = lim.lookahead_limiter_init(c, gain.dtype, gain.device)
+    out, start = [], 0
+    for i, y in enumerate(processed):
+        y = y.reshape(c, -1)[:, : n - start]
+        start += y.shape[1]
+        o, state = lim.lookahead_limiter_chunk((y * gain).T, state,
+                                               config.sample_rate)
+        out.append(o)
+        if progress_cb:
+            progress_cb(f"Finalizing chunk {i + 1}/{len(processed)}...")
+    out.append(lim.lookahead_limiter_chunk(None, state, config.sample_rate,
+                                           flush=True)[0])
+    return [o for o in out if o.shape[0]]
+
+
+def _tp_chunk(tail, x, last: bool = False):
+    """Streaming true-peak step: ``(M, C)`` output ``x`` after the carried
+    ``tail`` (its last samples before) → ``(max true peak, next tail)``.
+    Interpolation windows touching the zero padding are left out
+    (``exclude_pad``): an edge evaluated against zeros here is evaluated
+    again with its real neighbours in the next call.  The head exclusion
+    holds on the first chunk too, whose zero tail is the signal's leading
+    silence; ``last`` keeps the windows of the signal's real end."""
+    ext = torch.cat([tail, x])
+    return (met.true_peak_linear(ext, exclude_pad=(True, not last)),
+            ext[-tail.shape[0]:])
+
+
+def _meters(all_cells, n_cells, gain, tp_max, measured, gain_db):
+    """The R128 meter dict.  The series are those of the *normalized*
+    signal (cell energies scale by gain², before the limiter: the usual
+    metering point)."""
+    valid = all_cells[:n_cells] * gain ** 2
+    st = met._sliding_loudness(valid, 30)
+    return {
+        "momentary_lufs": met._sliding_loudness(valid, 4).cpu().numpy(),
+        "short_term_lufs": st.cpu().numpy(),
+        "lra_lu": float(met.lra_from_shortterm(st)),
+        "true_peak_dbtp": 20.0 * math.log10(max(float(tp_max), 1e-12)),
+        "integrated_lufs": float(measured) + gain_db,
+    }
+
+
 def master_streamed(audio, params: MasteringParams, config: ChainConfig,
                     chunk_seconds: float = 30.0, progress_cb=None,
                     checkpoint_dir=None,
@@ -114,20 +170,22 @@ def master_streamed(audio, params: MasteringParams, config: ChainConfig,
     Args:
       audio: numpy array.
       progress_cb: optional ``cb(message: str)``.
-      checkpoint_dir / transfer="pcm16" / return_meters: not ported yet,
-        raise ``NotImplementedError``.
+      return_meters: also return the R128 meter family: momentary and
+        short-term series and LRA from the accumulated 100 ms cells, the
+        output's true peak from pass B's chunks, and the integrated
+        loudness after the gain (no second pass over the audio).
+      checkpoint_dir / transfer="pcm16": not ported yet, raise
+        ``NotImplementedError``.
 
-    Returns ``(audio_out (N, C) float32 numpy, measured_lufs, gain_db)``.
+    Returns ``(audio_out (N, C) float32 numpy, measured_lufs, gain_db)``,
+    and the meters dict after them with ``return_meters``.
     """
     if transfer != "float32":
         raise NotImplementedError(
-            f"transfer={transfer!r}: the pcm16 wire is ROADMAP queue 1 item 4")
+            f"transfer={transfer!r}: the pcm16 wire is ROADMAP queue 1 item 3")
     if checkpoint_dir:
         raise NotImplementedError(
-            "checkpoint_dir: checkpoint/resume is ROADMAP queue 1 item 4")
-    if return_meters:
-        raise NotImplementedError(
-            "return_meters: the R128 meters are ROADMAP queue 1 item 5")
+            "checkpoint_dir: checkpoint/resume is ROADMAP queue 1 item 3")
     device = require_device(device, "master_streamed")
     check_supported(params, config)
     check_fp32_matmul(device)
@@ -151,7 +209,7 @@ def master_streamed(audio, params: MasteringParams, config: ChainConfig,
         whole.T.reshape(c, num_chunks, cpb, L).transpose(1, 0, 2, 3))
     x_dev = torch.from_numpy(wire).to(device=device, dtype=dtype)
 
-    need_cells = params.lufs_enabled
+    need_cells = params.lufs_enabled or return_meters
     state = StreamState()
     processed, cell_list = [], []
     for i in range(num_chunks):
@@ -163,9 +221,9 @@ def master_streamed(audio, params: MasteringParams, config: ChainConfig,
             progress_cb(f"Processed chunk {i + 1}/{num_chunks}...")
 
     cell_len = loud._gating_geometry(config.sample_rate)[0]
+    all_cells = torch.cat(cell_list, dim=0) if need_cells else None
     if params.lufs_enabled:
         # only cells wholly inside the real n samples count
-        all_cells = torch.cat(cell_list, dim=0)
         mask = (torch.arange(all_cells.shape[0], device=all_cells.device)
                 < (n // cell_len))
         measured = loud.loudness_from_cells(all_cells, cell_mask=mask)
@@ -174,14 +232,30 @@ def master_streamed(audio, params: MasteringParams, config: ChainConfig,
         measured = torch.tensor(float("nan"))
         gain = torch.ones((), dtype=dtype, device=device)
 
-    finalized = []
-    for i, y in enumerate(processed):
-        finalized.append(_finalize_chunk(y, gain, config))
-        if progress_cb:
-            progress_cb(f"Finalizing chunk {i + 1}/{num_chunks}...")
-    out = torch.cat(finalized, dim=1).reshape(c, -1)[:, :n]
-    out = np.ascontiguousarray(out.T.cpu().numpy(), dtype=np.float32)
+    if config.limiter_mode == "lookahead_truepeak":
+        finalized = _finalize_lookahead(processed, gain, n, config,
+                                        progress_cb)
+    else:
+        finalized, start = [], 0
+        for i, y in enumerate(processed):
+            f = _finalize_chunk(y, gain, config).reshape(c, -1)
+            f = f[:, : n - start]
+            start += f.shape[1]
+            finalized.append(f.T)
+            if progress_cb:
+                progress_cb(f"Finalizing chunk {i + 1}/{num_chunks}...")
+    out = np.asarray(torch.cat(finalized, dim=0).cpu().numpy(), np.float32)
     if squeeze:
         out = out[:, 0]
     gain_db = 20.0 * math.log10(float(gain))
-    return out, float(measured), gain_db
+    if not return_meters:
+        return out, float(measured), gain_db
+
+    k = met._oversample_taps(4).shape[0] // 4   # the interpolator's taps
+    tail = torch.zeros((k, c), dtype=dtype, device=device)
+    tp_max = None
+    for i, f in enumerate(finalized):
+        tp, tail = _tp_chunk(tail, f, last=i == len(finalized) - 1)
+        tp_max = tp if tp_max is None else torch.maximum(tp_max, tp)
+    return out, float(measured), gain_db, _meters(
+        all_cells, n // cell_len, gain, tp_max, measured, gain_db)

@@ -72,16 +72,57 @@ def test_master_no_lufs_and_1d_input():
     np.testing.assert_array_equal(flat.numpy(), res.audio[:, 0].numpy())
 
 
-@pytest.mark.parametrize("params,config,match", [
+@pytest.mark.parametrize("params,config,error,match", [
     pytest.param({"multiband": True}, {"comp_ballistics": "blocked"},
-                 "blocked", id="params0-config0-multiband"),
-    pytest.param({}, {"variant": "legacy"}, "legacy",
-                 id="params1-config1-legacy"),
-    pytest.param({}, {"limiter_mode": "lookahead_truepeak"}, "lookahead",
+                 NotImplementedError, "(?s)blocked.*ROADMAP",
+                 id="params0-config0-multiband"),
+    pytest.param({}, {"variant": "legacy"}, NotImplementedError,
+                 "(?s)legacy.*ROADMAP", id="params1-config1-legacy"),
+    pytest.param({}, {"limiter_mode": "lookahead_truepeak"}, None, None,
                  id="params2-config2-lookahead"),
+    pytest.param({}, {"limiter_mode": "brickwall"}, ValueError,
+                 "unknown limiter_mode 'brickwall'",
+                 id="params3-config3-unknown-limiter"),
 ])
-def test_outside_the_slice_raises(params, config, match):
-    x = np.zeros((4096, 2), np.float32)
+def test_outside_the_slice_raises(params, config, error, match):
+    """What the chain refuses: the legacy variant and the blocked
+    ballistics are not ported (``NotImplementedError`` naming their ROADMAP
+    item), and a limiter mode that does not exist is a ``ValueError``.
+    Quality mode (the lookahead limiter) runs: a hot input comes out under
+    the ceiling."""
+    x = (make_signal(4096, seed=3) * 2.0).astype(np.float32)
     cfg = dataclasses.replace(ChainConfig.gpu_default(FS), **config)
-    with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP"):
-        master(x, MasteringParams.from_settings(params), cfg, device="cpu")
+    p = MasteringParams.from_settings(params)
+    if error is None:
+        y = master(x, p, cfg, device="cpu").numpy()
+        assert y.shape == x.shape and np.isfinite(y).all()
+        assert np.abs(y).max() <= 10.0 ** (-1.0 / 20.0) * (1 + 1e-6)
+        return
+    with pytest.raises(error, match=match):
+        master(x, p, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("multiband", [False, True])
+def test_quality_master_matches_jax(multiband):
+    """Quality mode (``limiter_mode="lookahead_truepeak"``) against the JAX
+    quality chain at -8 LUFS, the limiter working: JAX in float64 (its XLA
+    rows body; its float32 attack sum drifts, see test_torch_limiter.py),
+    the port in float32, within the 2e-4 chain budget, and the port's
+    sample peak within the ceiling."""
+    x = (make_signal(int(FS * 1.5), seed=7) * 0.5).astype(np.float32)
+    settings = {**BENCH_NO_MB, "lufs": -8.0, "multiband": multiband}
+    jcfg = dataclasses.replace(JConfig.tpu_default(FS), dtype="float64",
+                               mb_kernel="xla",
+                               limiter_mode="lookahead_truepeak")
+    ref = jax_master(jnp.asarray(x), JParams.from_settings(settings), jcfg,
+                     return_result=True)
+    cfg = dataclasses.replace(ChainConfig.gpu_default(FS),
+                              limiter_mode="lookahead_truepeak")
+    got = master(x, MasteringParams.from_settings(settings), cfg,
+                 return_result=True, device="cpu")
+    y = got.audio.numpy()
+    err = np.max(np.abs(y - np.asarray(ref.audio)))
+    print(f"quality master, multiband {multiband}: max abs {err:.3e}")
+    assert err < 2e-4, err
+    assert abs(float(got.measured_lufs) - float(ref.measured_lufs)) < 1e-3
+    assert np.abs(y).max() <= 10.0 ** (-1.0 / 20.0) * (1 + 1e-6)
