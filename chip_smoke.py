@@ -6,8 +6,10 @@
 Drives the port (``python_audio_mastering_tpu_torch``, never jax) through
 its entry points, called without a ``device`` argument (they run on the
 card by default), on a seeded 180 s 44.1 kHz stereo track with the bench
-settings, multiband off (phases 2-6) and on (phases 7-12), and in quality
-mode through every single-file and cloud engine (phases 14-17), after
+settings, multiband off (phases 2-6) and on (phases 7-12), in quality
+mode through every single-file and cloud engine (phases 14-17), and on
+the bench's 12-track album through the album path, the album engine and
+the job worker (phases 18-21), after
 building its CUDA kernels from the sources in the checkout and checking
 each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
@@ -93,6 +95,46 @@ Phases:
      master() and of the limiter alone; host synchronisations per quality
      master()
 
+The album path (``parallel.batch``), on the JAX bench's album: 12 seeded
+300 s 44.1 kHz stereo tracks (seeds 10-21, its ``_mk_audio``), the bench
+settings with multiband on, the pcm16 wire:
+
+ 18  master_album_streamed (no device argument), resident on the card:
+     every track finite, |y| <= 1, its own length, oracle loudness within
+     0.15 LU of -14; launch counts: K1-K4, K6 and K7 once a chunk for all
+     12 tracks together, K5's two launches at most once; tracks 0, 6, 11
+     against the port's own master_streamed of the track, pcm16 and
+     float32, within 2e-4 (bitwise printed); pcm16 vs float32 < 3e-3; a
+     30 s track on the card against the port's CPU path (phase 10's
+     limits); K1-K4 against their plain twins at the album chunk's
+     shapes, (2, 35280, 384) and K4's (1, 35280, 384), K3 with the
+     chunk's own detector gains (phases 2, 3, 7 and 8's limits); K5-K7
+     bitwise against their plain twins on the album's own targets (36,
+     141184) and on 20 tracks' (60 rows), with the K7 staging each takes
+     by its wrapper's rule (shared memory, then device memory)
+ 19  the same album under a 1 GiB device budget (spills, equal to the
+     resident run within 1e-6); checkpointed every 4 chunks, interrupted
+     after chunk 6 and resumed: bitwise the uninterrupted run; quality
+     mode on tracks 0, 6, 11 at -9 LUFS: each within 2e-4 of its quality
+     master(), under the ceiling; tracks 0, 6, 11 with settings of their
+     own (two front groups): front_chain launched once per group and
+     chunk, each track within 2e-4 / 1e-3 LU of its own master_streamed;
+     master_streamed of the 180 s track with
+     the pcm16 wire (< 3e-3 from float32) and interrupted and resumed
+     (bitwise)
+ 20  engines without a device argument on a local:// store of 4 WAVs (44.1
+     kHz stereo, 48 kHz stereo, mono, 16-bit): process_album_from_uris
+     (its decode path printed) and serving.worker.run_job with an album
+     and a single payload under the default job_options() (pcm16): blobs,
+     .meters.json and .complete flags, no .failed, each output within 2e-4
+     of master_streamed of its conformed track
+ 21  timings with the card's name and power limit: the album's wall and
+     realtime factor (median of 3), its timings split for float32 and
+     pcm16 (median of 3), torch.profiler of one album chunk's pass A
+     (device time, idle share), host synchronisations per chunk and per
+     album, and each kernel's device time at the album chunk beside phase
+     6 and 12's single-track times
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -104,7 +146,10 @@ this run's collapsed blocks; for K7, the rounds this run's fixed point
 ran).
 
 Exits non-zero at the first failed phase.  The last two lines of output
-are the kernel record and ``{"ok": true, "device": {...}}``.
+are the kernel record (each kernel's ``launches`` from phases 4 and 10,
+and ``album_launches`` / ``album_max_abs_err`` / ``album_ms`` from phases
+18 and 21) and
+``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
 prints, as one JSON line, the device time of K1-K4 at the main path's
@@ -138,6 +183,7 @@ NO_MB_KERNELS = ("front_chain", "kweight_cells")
 MB_KERNELS = ("band_energies", "band_gain_apply", "pass1_bnd", "replay",
               "replay_bnd")
 K5_LAUNCHES = ("pass1_hull", "pass1_runs")   # K5's two kernels
+BALLISTICS = ("pass1_bnd", "replay", "replay_bnd")
 # the multiband kernels by the names of their launch counts
 MB_COUNTED = ("band_energies", "band_gain_apply", *K5_LAUNCHES, "replay",
               "replay_bnd")
@@ -154,6 +200,21 @@ MB_MAX, MB_RMS = 1.2e-3, 1.3e-5
 FS48 = 48000
 CEILING = 10.0 ** (-1.0 / 20.0)   # the lookahead limiter's -1 dBTP
 QUALITY_LUFS = (-14.0, -8.0)
+# the JAX bench's album (bench.py, album_12x5min_streamed): 12 x 300 s
+ALBUM_SECONDS = 300
+ALBUM_SEEDS = tuple(range(10, 22))
+ALBUM_KERNELS = ("front_chain", "kweight_cells", "band_energies",
+                 "band_gain_apply", "replay", "replay_bnd")
+CHECK_TRACKS = (0, 6, 11)  # the first, a middle and the last track
+# phase 19's album of CHECK_TRACKS with settings of their own: two front
+# groups (tracks 0 and 11 share one), per-track detector and loudness
+MIXED_SETTINGS = ({}, {"preset": "pop", "width": 1.0, "lufs": -12.0,
+                       "low_thresh": -30.0, "high_ratio": 6.0}, {})
+K7_TRACKS = 20            # rows past the grid's shared memory
+ALBUM_STOP_AFTER = 6      # phase 19 interrupts the album after this chunk
+ALBUM_CKPT_EVERY = 4      # and checkpoints it every this many chunks
+ALBUM_BUDGET = 1 << 30    # phase 19's device budget, under the album's need
+ENGINE_SECONDS = 30       # phase 20's uploads
 _PMB = "python_audio_mastering_tpu/ops/pallas_multiband.py"
 _PK = "python_audio_mastering_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -284,13 +345,14 @@ def kweight_bounds(rows, L, S, n_bytes):
 
 def detector_targets(xb, params, hop, dev):
     """The multiband detector's per-step targets of the band energies
-    ``xb`` as the chain forms them, padded to whole 128-step blocks, with
-    the bands' rate factors and zero incoming states: ``(m, ca, cr,
-    att0)``."""
+    ``xb`` (``(3, t)``, or an album's ``(3·T, t)``) as the chain forms
+    them, padded to whole 128-step blocks, with the bands' rate factors
+    and zero incoming states: ``(m, ca, cr, att0)``."""
     from python_audio_mastering_tpu_torch.ops import ballistics as bal
     from python_audio_mastering_tpu_torch.ops import multiband as mb
 
-    t = xb.shape[1]
+    rows, t = xb.shape
+    tracks = rows // 3
     stats, _ = mb._fused_stats_from_ctrl(
         xb, t, FS, (params.low_thresh, params.mid_thresh, params.high_thresh),
         (params.low_ratio, params.mid_ratio, params.high_ratio), hop, None,
@@ -298,10 +360,12 @@ def detector_targets(xb, params, hop, dev):
     # whole 128-step blocks (992256 = 7752 blocks at 180 s: no padding)
     m = torch.nn.functional.pad(stats["max_att"], (0, -t % bal.BLOCK))
     ca = torch.tensor([hop / max(a * FS / 1000.0, 1.0)
-                       for a, _ in mb.BAND_BALLISTICS_MS], device=dev)
+                       for a, _ in mb.BAND_BALLISTICS_MS
+                       for _ in range(tracks)], device=dev)
     cr = torch.tensor([hop / max(r * FS / 1000.0, 1.0)
-                       for _, r in mb.BAND_BALLISTICS_MS], device=dev)
-    return m.contiguous(), ca, cr, torch.zeros(3, device=dev)
+                       for _, r in mb.BAND_BALLISTICS_MS
+                       for _ in range(tracks)], device=dev)
+    return m.contiguous(), ca, cr, torch.zeros(rows, device=dev)
 
 
 def yardstick(a, b):
@@ -309,9 +373,10 @@ def yardstick(a, b):
     return median_of(lambda: cuda_ms(lambda: torch.matmul(a, b)))
 
 
-def device_profile(fn, calls):
+def device_profile(fn, calls, counts=None):
     """``fn`` run ``calls`` times (after a warm call) under torch.profiler
-    (CUPTI): ``({device activity name: ms per call}, wall ms per call)``."""
+    (CUPTI): ``({device activity name: ms per call}, wall ms per call)``.
+    ``counts``, a dict, receives the number of events of each name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -329,33 +394,51 @@ def device_profile(fn, calls):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / calls)
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     return by_name, wall
 
 
-# kernel_ms' profiler windows: how many, and those that showed none of
-# the kernels asked for (see PERF.md, open questions)
-WINDOWS = {"profiled": 0, "empty": []}
+# kernel_ms' profiler windows: how many, those that showed no launch of
+# a kernel asked for, and (kernel, launches seen, made) where it saw
+# fewer than were made (PERF.md, open questions)
+WINDOWS = {"profiled": 0, "empty": [], "short": []}
 
 
 def kernel_ms(fn, name, calls=10):
     """Device time per call of the port's kernels ``pam::<name>_kernel``
     (each name of a tuple) launched by ``fn``: the kernels alone, without
-    the wrapper's host work or allocations."""
+    the wrapper's host work or allocations.  Each kernel's time is the
+    mean of the launches the profiler recorded times the launches a call
+    makes (its launch counter's count)."""
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+
     names = (name,) if isinstance(name, str) else name
-    # now and then the profiler hands back a window with no device
-    # activity at all, twice in a row at worst so far (an open question):
-    # such a window is printed and profiled again
+    # the profiler now and then hands back a window with none, or only
+    # some, of the launches (an open question): a window with none of a
+    # kernel's is printed and profiled again, a short one is counted
     for attempt in range(5):
-        by_name, _ = device_profile(fn, calls)
+        before, counts = cmb.launch_counts(), {}
+        by_name, _ = device_profile(fn, calls, counts)
+        after = cmb.launch_counts()
         WINDOWS["profiled"] += 1
-        got = [v for k, v in by_name.items()
-               if any(f"pam::{n}_kernel" in k for n in names)]
-        if got:
-            return sum(got)
-        WINDOWS["empty"].append(names)
-        print(f"  the profiler saw no kernel of {names} (try {attempt + 1}; "
+        total, missing = 0.0, []
+        for n in names:
+            per_call = (after[n] - before[n]) / (calls + 1)  # + the warm call
+            hits = [k for k in by_name if f"pam::{n}_kernel" in k]
+            seen = sum(counts[k] for k in hits)
+            if not seen:
+                missing.append(n)
+                continue
+            if seen != per_call * calls:
+                WINDOWS["short"].append((n, seen, int(per_call * calls)))
+            total += sum(by_name[k] for k in hits) * calls / seen * per_call
+        if not missing:
+            return total
+        WINDOWS["empty"].append(tuple(missing))
+        print(f"  the profiler saw no launch of {missing} (try {attempt + 1}; "
               f"{len(by_name)} device activities: {sorted(by_name)})")
-    raise PhaseFailed(f"the profiler saw no kernel of {names}")
+    raise PhaseFailed(f"the profiler saw no launch of {names}")
 
 
 def profile_calls(fn, calls=5, top=12):
@@ -669,6 +752,7 @@ def main():
 
     multiband_phases(o, kernels)
     quality_phases(o, card)
+    album_phases(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
@@ -990,7 +1074,8 @@ def multiband_phases(o, kernels):
         profile_calls(lambda: bal.ballistics_rates_bt(m, ca, cr, att0,
                                                       mode=mode), top=6)
     print(f"phase 13 kernel timings: {WINDOWS['profiled']} profiler windows, "
-          f"{len(WINDOWS['empty'])} without the kernel {WINDOWS['empty']}")
+          f"{len(WINDOWS['empty'])} without a kernel {WINDOWS['empty']}, "
+          f"short of launches (kernel, seen, made) {WINDOWS['short']}")
     print("phase 13 ok", flush=True)
 
 
@@ -1241,6 +1326,533 @@ def quality_phases(o, card):
         print(f"phase 17 profile of {what}, 180 s, input on the card:")
         profile_calls(fn, top=8)
     print("phase 17 ok", flush=True)
+
+
+def bench_audio(seconds, fs=FS, seed=0):
+    """The JAX bench's synthetic track (``bench.py`` ``_mk_audio``): three
+    tones and noise under a slow envelope, the right channel a 29-sample
+    roll of the left."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * fs)) / fs
+    sig = (0.4 * np.sin(2 * np.pi * 55 * t)
+           + 0.2 * np.sin(2 * np.pi * 880 * t)
+           + 0.1 * np.sin(2 * np.pi * 4200 * t)
+           + 0.05 * rng.standard_normal(t.shape[0]))
+    sig = sig * (0.4 + 0.6 * (0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * t)) ** 2)
+    return np.stack([sig, np.roll(sig, 29)], axis=1).astype(np.float32)
+
+
+def album_chunk(tracks, chunk_frames, dev):
+    """The album's first chunk as the runner folds it, ``(C, T, nb, L)``
+    float32 on the card."""
+    x = np.stack([t[:chunk_frames].T for t in tracks], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev).view(
+        x.shape[0], len(tracks), chunk_frames // L, L)
+
+
+def album_operands(chain, params, x4):
+    """What one album chunk ``x4 (C, T, nb, L)`` gives its kernels, built
+    as the chain builds them (tracks folded into the block axis): K1's and
+    K4's arguments, the band kernels' arguments and the detector's targets
+    ``(m, ca, cr, att0)`` at ``(3·T, t)``."""
+    from types import SimpleNamespace
+
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops import iir
+    from python_audio_mastering_tpu_torch.ops import multiband as mb
+    from python_audio_mastering_tpu_torch.ops.waveshaper import saturate
+
+    c, tracks, nb, _ = x4.shape
+    hop = chain.config.comp_hop
+    eq = chain.eq_ops(params)
+    s_eq, _, _ = iir.sosfilt_states_rows(
+        None, saturate(x4, params.saturation).reshape(c * tracks, nb, L),
+        ops=eq)
+    rows = x4.reshape(c, tracks * nb, L)
+    k1_args = (rows, s_eq.reshape(c, tracks * nb, -1), eq.t, eq.w,
+               params.saturation, params.width)
+    y, mono = cmb.front_chain(*k1_args, emit_mono=True)
+    kw = chain.kweight_ops()
+    s_kw, _, _ = iir.sosfilt_states_rows(None, mono.reshape(tracks, nb, L),
+                                         ops=kw)
+    sos = mb._crossover_sos(FS, 250.0, 4000.0)
+    (s_lp, s_hp), _ = iir.sosfilt_states_multi_rows(
+        sos, y.reshape(c * tracks, nb, L), ops_list=chain.crossover_ops())
+    band_args = (y, s_lp.reshape(c, tracks * nb, -1),
+                 s_hp.reshape(c, tracks * nb, -1), *sos)
+    xb = cmb.band_energies(*band_args, hop=hop)
+    m, ca, cr, att0 = detector_targets(xb.reshape(3 * tracks, -1), params,
+                                       hop, x4.device)
+    return SimpleNamespace(
+        k1_args=k1_args, k4_args=(mono.reshape(1, tracks * nb, L),
+                                  s_kw.reshape(1, tracks * nb, -1), kw.t,
+                                  kw.w),
+        band_args=band_args, sos=sos, hop=hop, m=m, ca=ca, cr=cr, att0=att0)
+
+
+def check_ballistics(what, m, ca, cr, att0, serial_steps=16384):
+    """K5's two launches against their plain twins at full T and against
+    the serial walk on the first ``serial_steps``, K6 and K7 (all rounds
+    in one launch) against theirs, and collapse == serial, all bitwise.
+    Returns the fixed point's ``ctrl``."""
+    from python_audio_mastering_tpu_torch.ops import ballistics as bal
+
+    dev = m.device
+    hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
+    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
+    lo_p, hi_p = bal.pass1_hull_ref(m, ca, cr, hmax)
+    check_bitwise(f"{what} K5 pass1_hull lo", lo, lo_p)
+    check_bitwise(f"{what} K5 pass1_hull hi", hi, hi_p)
+    bnd = bal.pass1_runs(m, ca, cr, att0, lo, hi)
+    check_bitwise(f"{what} K5 pass1_runs", bnd,
+                  bal.pass1_runs_ref(m, ca, cr, att0, lo_p, hi_p))
+    cut = m[:, :serial_steps].contiguous()
+    check_bitwise(f"{what} K5 pass1_bnd vs the serial walk (first "
+                  f"{serial_steps} steps)", bal.pass1_bnd(cut, ca, cr, att0),
+                  bal.pass1_bnd_ref(cut, ca, cr, att0))
+    incomes = torch.cat([att0[:, None], bnd[:, :-1]], dim=1).contiguous()
+    check_bitwise(f"{what} K6 replay", bal.replay(m, ca, cr, incomes),
+                  bal.replay_ref(m, ca, cr, incomes))
+    idx = bal._frozen_index(m)
+    s0 = torch.zeros_like(bnd)
+    ck, cp = bal.new_ctrl(dev), bal.new_ctrl(dev)
+    check_bitwise(f"{what} K7 replay_bnd, {bal.FIXPOINT_ITERS} rounds in "
+                  f"one launch", bal.replay_bnd(m, ca, cr, att0, idx, s0, ck,
+                                                rounds=bal.FIXPOINT_ITERS),
+                  bal.replay_bnd_ref(m, ca, cr, att0, idx, s0, cp,
+                                     rounds=bal.FIXPOINT_ITERS))
+    check(torch.equal(ck, cp), f"replay_bnd ctrl {ck.tolist()} != plain "
+                               f"{cp.tolist()}")
+    collapse, ctrl = bal._run_collapse(m, ca, cr, att0)
+    check_bitwise(f"{what} serial == collapse", bal._run(m, ca, cr, att0),
+                  collapse)
+    n_coll = int((lo == hi).sum())
+    print(f"  {what} {tuple(m.shape)}: {m.shape[0] * m.shape[1] // bal.BLOCK}"
+          f" blocks, {n_coll} collapsed in the hull pass; fixed point ctrl "
+          f"{ctrl.tolist()}")
+    return ctrl
+
+
+def k7_staging(rows, t):
+    """Where K7 holds a ``(rows, t)`` timeline, by its wrapper's own rule
+    (``csrc/ballistics.cu``, ``pam_replay_bnd``): in shared memory when
+    ``ceil(blocks / SMs)`` padded block rows of 129 floats fit one CTA's
+    opt-in shared memory, else read from device memory every round."""
+    from python_audio_mastering_tpu_torch.ops import ballistics as bal
+
+    props = torch.cuda.get_device_properties(0)
+    per_sm = -(-rows * (t // bal.BLOCK) // props.multi_processor_count)
+    fits = per_sm * 4 * (bal.BLOCK + 1) <= props.shared_memory_per_block_optin
+    return "shared memory" if fits else "device memory"
+
+
+class Interrupt(Exception):
+    pass
+
+
+def album_phases(o, kernels, card):
+    """Phases 18-21: the album path (``parallel.batch``), the rest of the
+    streamed runner, the album engine and the job worker, on the bench's
+    12 x 300 s album (``o`` from :func:`main_path_operands`)."""
+    import dataclasses
+    import shutil
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    from python_audio_mastering_tpu_torch import (
+        ChainConfig,
+        MasteringChain,
+        MasteringParams,
+        engine,
+        master,
+    )
+    from python_audio_mastering_tpu_torch.io import wavio
+    from python_audio_mastering_tpu_torch.ops import ballistics as bal
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.parallel import batch, streaming
+    from python_audio_mastering_tpu_torch.serving import worker
+    from python_audio_mastering_tpu_torch.serving.store import (
+        LocalFSBlobStore,
+    )
+
+    dev = o.xrows.device
+    cfg = ChainConfig.gpu_default(FS)
+    params = MasteringParams.from_settings(MB_SETTINGS)
+    t0 = time.perf_counter()
+    tracks = [bench_audio(ALBUM_SECONDS, seed=s) for s in ALBUM_SEEDS]
+    n = tracks[0].shape[0]
+    cf = streaming.default_chunk_frames(cfg)
+    chunks = -(-n // cf)
+    n_tr = len(tracks)
+    print(f"phase 18 album: {n_tr} tracks x {ALBUM_SECONDS} s, seeds "
+          f"{ALBUM_SEEDS[0]}-{ALBUM_SEEDS[-1]} ({time.perf_counter() - t0:.1f}"
+          f" s to make), {chunks} chunks of {cf} frames, pcm16 wire")
+
+    def album(trs=tracks, p=params, c=cfg, **kw):
+        return batch.master_album_streamed(trs, p, c, **kw)
+
+    # phase 18 --------------------------------------------------------------
+    album(transfer="pcm16")                    # warm: operators, pinned pool
+    torch.cuda.synchronize()
+    cmb.reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    outs, measured, meters = album(transfer="pcm16", return_meters=True,
+                                   timings=stats)
+    wall = time.perf_counter() - t0
+    counts = cmb.launch_counts()
+    per_chunk = {k: v / chunks for k, v in counts.items()}
+    print(f"phase 18 master_album_streamed (no device argument): wall "
+          f"{wall:.3f} s; device resident {stats['device_resident']}, wire in"
+          f" {stats['wire_bytes_in'] / 1e6:.1f} MB, retained "
+          f"{stats['max_retained_bytes'] / 1e9:.3f} GB; launches {counts}, "
+          f"per chunk for all {n_tr} tracks {per_chunk}")
+    check(stats["device_resident"], "the bench album did not stay resident")
+    for name in ALBUM_KERNELS:
+        check(counts[name] == chunks, f"{name} launched {counts[name]} times "
+                                      f"in {chunks} chunks, not once a chunk")
+    for name in K5_LAUNCHES:
+        check(counts[name] <= chunks, f"{name} launched {counts[name]} times "
+                                      f"in {chunks} chunks")
+    for name in ALBUM_KERNELS:
+        kernels[name]["album_launches"] = counts[name]
+    kernels["pass1_bnd"]["album_launches"] = sum(counts[k]
+                                                 for k in K5_LAUNCHES)
+    for i, (x, y) in enumerate(zip(tracks, outs)):
+        check(y.shape == x.shape and bool(np.isfinite(y).all()),
+              f"track {i}: output {y.shape}")
+        peak = float(np.abs(y).max())
+        lufs = oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
+        print(f"phase 18 track {i}: peak {peak:.4f}, measured "
+              f"{measured[i]:.4f} LUFS, oracle output {lufs:.4f} LUFS, "
+              f"meters integrated {meters[i]['integrated_lufs']:.4f} LUFS, "
+              f"true peak {meters[i]['true_peak_dbtp']:.4f} dBTP, LRA "
+              f"{meters[i]['lra_lu']:.4f} LU")
+        check(peak <= 1.0, f"track {i}: |y| max {peak} > 1")
+        check(abs(lufs - MB_SETTINGS["lufs"]) <= 0.15,
+              f"track {i}: output loudness {lufs} not within 0.15 LU")
+    outs_f, measured_f = album()
+    for i in CHECK_TRACKS:
+        for what, got, transfer in (("pcm16", outs[i], "pcm16"),
+                                    ("float32", outs_f[i], "float32")):
+            ref, m_ref, _ = streaming.master_streamed(tracks[i], params, cfg,
+                                                      transfer=transfer)
+            d = float(np.abs(got - ref).max())
+            ms = measured if transfer == "pcm16" else measured_f
+            print(f"phase 18 track {i} {what}: album vs its own "
+                  f"master_streamed max abs {d:.3e}, bitwise "
+                  f"{np.array_equal(got, ref)}, |dLUFS| "
+                  f"{abs(ms[i] - m_ref):.3e}")
+            check(d <= 2e-4, f"track {i} {what}: album vs master_streamed {d}")
+            check(abs(ms[i] - m_ref) <= 1e-3, f"track {i}: LUFS")
+    d_wire = max(float(np.abs(a - b).max()) for a, b in zip(outs, outs_f))
+    print(f"phase 18 pcm16 vs float32 album, every track: max abs "
+          f"{d_wire:.3e}")
+    check(d_wire < 3e-3, f"pcm16 vs float32 {d_wire} >= 3e-3")
+    x30 = tracks[0][: 30 * FS]
+    card30 = album([x30])[0][0]
+    t0 = time.perf_counter()
+    cpu30 = album([x30], device="cpu")[0][0]
+    d = np.abs(card30 - cpu30)
+    d_max, d_rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+    print(f"phase 18 30 s track, album on the card vs the port's CPU path "
+          f"({time.perf_counter() - t0:.1f} s on the CPU): max abs "
+          f"{d_max:.3e}, rms {d_rms:.3e}")
+    check(d_max < MB_MAX and d_rms < MB_RMS, "30 s track vs the CPU path")
+    chain = MasteringChain(cfg).to(dev)
+    x4 = album_chunk(tracks, cf, dev)
+    ao = album_operands(chain, params, x4)
+    hop = ao.hop
+    # K1-K4 against their plain twins at the album chunk's shapes, K3 with
+    # the chunk's own detector gains (phases 2, 3, 7 and 8's limits)
+    t_tr = ao.band_args[0].shape[1] * (L // hop) // n_tr   # steps a track
+    att, _ = bal.ballistics_rates_bt(ao.m, ao.ca, ao.cr, ao.att0)
+    g = (10.0 ** (-att[:, :t_tr] / 20.0)).reshape(3, n_tr * t_tr)
+    cols = torch.stack([g[1], g[0] - g[1], g[2] - g[1]]).contiguous()
+    pairs = {
+        "front_chain": (cmb.front_chain, cmb.front_chain_ref, ao.k1_args,
+                        {"emit_mono": True}, False),
+        "kweight_cells": (cmb.kweight_cells, cmb.kweight_cells_ref,
+                          (*ao.k4_args, K4_HOPS[0]), {}, True),
+        "band_energies": (cmb.band_energies, cmb.band_energies_ref,
+                          ao.band_args, {"hop": hop}, True),
+        "band_gain_apply": (cmb.band_gain_apply, cmb.band_gain_apply_ref,
+                            (*ao.band_args[:3], cols, *ao.sos),
+                            {"hop": hop, "emit_mono": True}, True)}
+    for name, (kern, plain, args, kw, rel) in pairs.items():
+        got, ref = kern(*args, **kw), plain(*args, **kw)
+        gots = (got,) if torch.is_tensor(got) else got
+        refs = (ref,) if torch.is_tensor(ref) else ref
+        err = max(compare(f"phase 18 {name} at the album chunk, out {k}", a,
+                          b, 1e-4, relative=rel)
+                  for k, (a, b) in enumerate(zip(gots, refs)))
+        kernels[name]["album_max_abs_err"] = err
+    m20 = torch.cat([ao.m, ao.m[: 3 * (K7_TRACKS - n_tr)]]).contiguous()
+    rep = lambda v: torch.cat([v, v[: 3 * (K7_TRACKS - n_tr)]])  # noqa: E731
+    # which of K7's two stagings each case takes, by its wrapper's rule
+    stagings = [k7_staging(*v.shape) for v in (ao.m, m20)]
+    print(f"phase 18 K7 staging: {tuple(ao.m.shape)} {stagings[0]}, "
+          f"{tuple(m20.shape)} {stagings[1]}")
+    check(stagings == ["shared memory", "device memory"],
+          f"K7 stagings {stagings}: the two cases do not cover both")
+    ctrl = check_ballistics(f"phase 18 album targets ({n_tr} tracks)", ao.m,
+                            ao.ca, ao.cr, ao.att0)
+    check_ballistics(f"phase 18 {K7_TRACKS}-track targets (K7 reads them "
+                     f"from device memory)", m20, rep(ao.ca), rep(ao.cr),
+                     rep(ao.att0))
+    print("phase 18 ok", flush=True)
+
+    # phase 19 --------------------------------------------------------------
+    tm = {}
+    outs_b, _ = album(c=dataclasses.replace(
+        cfg, device_budget_bytes=ALBUM_BUDGET), transfer="pcm16", timings=tm)
+    d_b = max(float(np.abs(a - b).max()) for a, b in zip(outs_b, outs))
+    print(f"phase 19 bounded ({ALBUM_BUDGET / 2 ** 30:.3f} GiB budget): "
+          f"resident {tm['device_resident']},"
+          f" spilled {tm['spilled_chunks']} chunks, retained at most "
+          f"{tm['max_retained_bytes'] / 1e9:.3f} GB; vs resident max abs "
+          f"{d_b:.3e}")
+    check(not tm["device_resident"] and tm["spilled_chunks"] > 0,
+          "the budget did not spill")
+    check(d_b <= 1e-6, f"bounded vs resident {d_b}")
+    ckpt = tempfile.mkdtemp(prefix="pam_album_ckpt_")
+    try:
+        def stop(msg):
+            if msg.startswith(f"Processed chunk {ALBUM_STOP_AFTER}/"):
+                raise Interrupt()
+
+        try:
+            album(transfer="pcm16", checkpoint_dir=ckpt,
+                  checkpoint_every=ALBUM_CKPT_EVERY, progress_cb=stop)
+            check(False, "the interrupting progress_cb did not stop the run")
+        except Interrupt:
+            pass
+        saved = sorted(os.listdir(ckpt))
+        msgs = []
+        outs_r, _ = album(transfer="pcm16", checkpoint_dir=ckpt,
+                          checkpoint_every=ALBUM_CKPT_EVERY,
+                          progress_cb=msgs.append)
+        same = all(np.array_equal(a, b) for a, b in zip(outs_r, outs))
+        durable = ALBUM_STOP_AFTER // ALBUM_CKPT_EVERY * ALBUM_CKPT_EVERY
+        print(f"phase 19 checkpoint every {ALBUM_CKPT_EVERY} chunks, "
+              f"interrupted after chunk {ALBUM_STOP_AFTER}: saved {saved}; "
+              f"{[m for m in msgs if m.startswith('Resuming')]}; resumed vs "
+              f"uninterrupted bitwise {same}")
+        check(saved == [f"chunk_{k - 1:05d}.npz" for k in range(
+            ALBUM_CKPT_EVERY, durable + 1, ALBUM_CKPT_EVERY)],
+              f"checkpoint files {saved}")
+        check(same, "resumed album differs from the uninterrupted run")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    qcfg = dataclasses.replace(cfg, limiter_mode="lookahead_truepeak")
+    qparams = MasteringParams.from_settings({**MB_SETTINGS, "lufs": -9.0})
+    q_tracks = [tracks[i] for i in CHECK_TRACKS]
+    q_outs, _ = album(q_tracks, qparams, qcfg)
+    for i, x, y in zip(CHECK_TRACKS, q_tracks, q_outs):
+        one = master(x, qparams, qcfg).cpu().numpy()
+        d = float(np.abs(y - one).max())
+        peak = float(np.abs(y).max())
+        print(f"phase 19 quality album -9 LUFS, track {i}: vs its quality "
+              f"master() max abs {d:.3e}, peak {peak:.8f} (ceiling "
+              f"{CEILING:.8f})")
+        check(d <= 2e-4, f"quality track {i} vs master() {d}")
+        check(peak <= CEILING * (1 + 1e-6), f"quality track {i} peak {peak}")
+    # tracks with their own front settings: K1 once per group and chunk
+    mix = [MasteringParams.from_settings({**MB_SETTINGS, **s})
+           for s in MIXED_SETTINGS]
+    n_groups = len(chain.front_groups(mix))
+    cmb.reset_launch_counts()
+    mix_outs, mix_meas = album(q_tracks, mix)
+    counts = cmb.launch_counts()
+    print(f"phase 19 album of tracks {CHECK_TRACKS} with settings "
+          f"{MIXED_SETTINGS}: {n_groups} front groups, launches {counts}")
+    check(n_groups == 2, f"{n_groups} front groups, not 2")
+    check(counts["front_chain"] == n_groups * chunks,
+          f"front_chain launched {counts['front_chain']} times, not "
+          f"{n_groups} groups x {chunks} chunks")
+    for name in ALBUM_KERNELS[1:]:
+        check(counts[name] == chunks, f"{name} launched {counts[name]} times "
+                                      f"in {chunks} chunks")
+    for i, x, p, y, m_i in zip(CHECK_TRACKS, q_tracks, mix, mix_outs,
+                               mix_meas):
+        ref, m_ref, _ = streaming.master_streamed(x, p, cfg)
+        d = float(np.abs(y - ref).max())
+        print(f"phase 19 mixed-settings album, track {i}: vs its own "
+              f"master_streamed max abs {d:.3e}, bitwise "
+              f"{np.array_equal(y, ref)}, |dLUFS| {abs(m_i - m_ref):.3e}")
+        check(d <= 2e-4, f"mixed-settings track {i} vs master_streamed {d}")
+        check(abs(m_i - m_ref) <= 1e-3, f"mixed-settings track {i}: LUFS")
+    x180 = o.x
+    plain, _, _ = streaming.master_streamed(x180, params, cfg)
+    pcm, _, _ = streaming.master_streamed(x180, params, cfg,
+                                          transfer="pcm16")
+    d_pcm = float(np.abs(pcm - plain).max())
+    ckpt = tempfile.mkdtemp(prefix="pam_stream_ckpt_")
+    try:
+        def stop3(msg):
+            if msg.startswith("Processed chunk 3/"):
+                raise Interrupt()
+
+        try:
+            streaming.master_streamed(x180, params, cfg, checkpoint_dir=ckpt,
+                                      progress_cb=stop3)
+        except Interrupt:
+            pass
+        resumed, _, _ = streaming.master_streamed(x180, params, cfg,
+                                                  checkpoint_dir=ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same = np.array_equal(resumed, plain)
+    print(f"phase 19 master_streamed 180 s: pcm16 vs float32 max abs "
+          f"{d_pcm:.3e}; interrupted after chunk 3 and resumed, bitwise "
+          f"{same}")
+    check(d_pcm < 3e-3, f"master_streamed pcm16 vs float32 {d_pcm}")
+    check(same, "resumed master_streamed differs")
+    print("phase 19 ok", flush=True)
+
+    # phase 20 --------------------------------------------------------------
+    sec = ENGINE_SECONDS
+    files = (("a44k.wav", FS, bench_audio(sec, FS, 30), True),
+             ("b48k.wav", FS48, make_signal(sec * FS48, FS48, 31), True),
+             ("c_mono.wav", FS, bench_audio(sec, FS, 32)[:, :1], True),
+             ("d16.wav", FS48, make_signal(sec * FS48 * 5 // 6, FS48, 33),
+              False))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = LocalFSBlobStore(os.path.join(tmp, "blobs"), bucket="jobs")
+        loaded = []
+        for name, fs, x, flt in files:
+            path = os.path.join(tmp, name)
+            wavio.write_wav(path, x, fs, float_format=flt)
+            with open(path, "rb") as f:
+                store.upload(f"uploads/{name}", f.read())
+            loaded.append(wavio.read_wav(path))
+        uris = [f"local://jobs/uploads/{f[0]}" for f in files]
+        conformed, fs_album = engine.conform_album_tracks(
+            loaded, progress_cb=lambda m: None)
+
+        def check_job(what, keys, transfer, which=range(len(files))):
+            for key, i in zip(keys, which):
+                uri, x = uris[i], conformed[i]
+                ref, _, _ = streaming.master_streamed(
+                    x, params, engine.default_config(fs_album),
+                    transfer=transfer)
+                y, fs_out = wavio.read_wav(store.download(key))
+                side = json.loads(store.download(f"{key}.meters.json"))
+                d = float(np.abs(y - ref).max())
+                print(f"phase 20 {what} {uri}: {key}, {fs_out} Hz "
+                      f"{y.shape}, complete {store.exists(key + '.complete')},"
+                      f" meters {side}; vs master_streamed of the conformed "
+                      f"track max abs {d:.3e}")
+                check(store.exists(f"{key}.complete")
+                      and not store.exists(f"{key}.failed"), f"{key} flags")
+                check(fs_out == fs_album and y.shape == x.shape, "shape")
+                check(abs(side["integrated_lufs"] - MB_SETTINGS["lufs"])
+                      <= 1e-2, f"{key} sidecar loudness")
+                check(d <= 2e-4, f"{key} vs master_streamed {d}")
+
+        msgs = []
+        cmb.reset_launch_counts()
+        keys = engine.process_album_from_uris(uris, MB_SETTINGS, store=store,
+                                              progress_cb=msgs.append)
+        counts = cmb.launch_counts()
+        print(f"phase 20 process_album_from_uris (no device argument): "
+              f"{[m for m in msgs if m.startswith(('Decod', 'Resampl', 'Upmix'))]}"
+              f"; launches {counts}")
+        check(all(counts[k] > 0 for k in ALBUM_KERNELS),
+              "process_album_from_uris did not launch every kernel")
+        check_job("process_album_from_uris", keys, "float32")
+        for k in keys:
+            store.delete(k)
+            store.delete(f"{k}.complete")
+        for var in ("PAM_TRANSFER", "PAM_CHECKPOINT", "PAM_METERS"):
+            os.environ.pop(var, None)
+        opts = worker.job_options()
+        print(f"phase 20 worker job_options() {opts}")
+        keys = worker.run_job({"gcs_uris": uris, "settings": MB_SETTINGS},
+                              store)                  # no device argument
+        check_job("run_job album", keys, opts["transfer"])
+        store.delete(f"{keys[1]}.complete")
+        key = worker.run_job({"gcs_uri": uris[1], "settings": MB_SETTINGS},
+                             store)
+        check(key == keys[1] and store.exists(f"{key}.complete")
+              and not store.exists(f"{key}.failed"), "single job")
+        check_job("run_job single", [key], opts["transfer"], [1])
+    print("phase 20 ok", flush=True)
+
+    # phase 21 --------------------------------------------------------------
+    def album_wall():
+        t0 = time.perf_counter()
+        album(transfer="pcm16")
+        return time.perf_counter() - t0
+
+    walls = [album_wall() for _ in range(3)]
+    w = statistics.median(walls)
+    print(f"phase 21 album wall, pcm16, {n_tr} x {ALBUM_SECONDS} s, median "
+          f"of 3 warm runs: "
+          f"{w:.3f} s (runs {[round(v, 3) for v in walls]}), x"
+          f"{n_tr * ALBUM_SECONDS / w:.0f} realtime ({card})")
+    for transfer in ("float32", "pcm16"):
+        runs = []
+        for _ in range(3):
+            tm = {}
+            album(transfer=transfer, timings=tm)
+            runs.append(tm)
+        med = {k: statistics.median(r[k] for r in runs)
+               for k in ("h2d_s", "compute_s", "d2h_s")}
+        print(f"phase 21 timings split {transfer} (median of 3, device "
+              f"barriers between phases): h2d {med['h2d_s']:.3f} s, compute "
+              f"{med['compute_s']:.3f} s, d2h {med['d2h_s']:.3f} s; wire in "
+              f"{runs[0]['wire_bytes_in'] / 1e6:.1f} MB, out "
+              f"{runs[0]['wire_bytes_out'] / 1e6:.1f} MB ({card})")
+    state = streaming.StreamState()
+    groups = chain.front_groups([params] * n_tr)
+    tp = [params] * n_tr
+
+    def one_chunk():
+        return streaming._fx_chunk(x4, tp, cfg, state, chain, True, groups)
+
+    print(f"phase 21 profile of one album chunk (pass A, {n_tr} tracks x "
+          f"{cf / FS:.1f} s, input on the card):")
+    profile_calls(one_chunk, calls=3)
+    _, syncs = count_syncs(one_chunk)
+    _, syncs_album = count_syncs(lambda: album(transfer="pcm16"))
+    print(f"phase 21 host synchronisations: {syncs} per album chunk (pass "
+          f"A), {syncs_album} per album run of {chunks} chunks")
+    hmax =torch.maximum(ao.att0, ao.m.amax(dim=1)).contiguous()
+    bnd = bal.pass1_bnd(ao.m, ao.ca, ao.cr, ao.att0)
+    incomes = torch.cat([ao.att0[:, None], bnd[:, :-1]], 1).contiguous()
+    timed = {
+        "front_chain": (lambda: cmb.front_chain(*ao.k1_args, True),
+                        "front_chain"),
+        "kweight_cells": (lambda: cmb.kweight_cells(*ao.k4_args, 6),
+                          "kweight_cells"),
+        "band_energies": (lambda: cmb.band_energies(*ao.band_args, hop=hop),
+                          "band_energies"),
+        "band_gain_apply": (lambda: cmb.band_gain_apply(
+            *ao.band_args[:3], cols, *ao.sos, hop=hop, emit_mono=True),
+            "band_gain_apply"),
+        "pass1_bnd": (lambda: bal.pass1_runs(
+            ao.m, ao.ca, ao.cr, ao.att0,
+            *bal.pass1_hull(ao.m, ao.ca, ao.cr, hmax)), K5_LAUNCHES),
+        "replay": (lambda: bal.replay(ao.m, ao.ca, ao.cr, incomes), "replay"),
+        "replay_bnd": (lambda: bal._run_collapse(ao.m, ao.ca, ao.cr,
+                                                 ao.att0), "replay_bnd"),
+    }
+    for name, (fn, names) in timed.items():
+        ms = kernel_ms(fn, names)
+        kernels[name]["album_ms"] = ms
+        shape = tuple({"front_chain": ao.k1_args[0],
+                       "kweight_cells": ao.k4_args[0]}.get(
+            name, ao.m if name in BALLISTICS else ao.band_args[0]).shape)
+        print(f"phase 21 {name} at the album chunk {shape}: {ms:.4f} ms; "
+              f"the single 180 s track (phases 6, 12) "
+              f"{kernels[name]['ms']:.4f} ms ({card})")
+    print(f"phase 21 fixed point on the album targets: ctrl {ctrl.tolist()};"
+          f" {WINDOWS['profiled']} profiler windows in all, "
+          f"{len(WINDOWS['empty'])} without a kernel {WINDOWS['empty']}, "
+          f"short of launches (kernel, seen, made) {WINDOWS['short']}")
+    print("phase 21 ok", flush=True)
 
 
 if __name__ == "__main__":

@@ -115,6 +115,9 @@ class ChainConfig:
     measure_downmix: str = "reference_mono_mean"   # | "bs1770"
     limiter_threshold: float = 0.98
     limiter_mode: str = "reference"  # | "lookahead_truepeak" (quality)
+    # the streamed runners keep input, pass-A chunks and outputs on the
+    # device while they fit; past it they stream and spill to the host
+    device_budget_bytes: int = 6 << 30
 
     def torch_dtype(self):
         return getattr(torch, self.dtype)

@@ -17,8 +17,8 @@ from python_audio_mastering_tpu_torch.config import ChainConfig, MasteringParams
 from python_audio_mastering_tpu_torch.ops.limiter import LookaheadLimiterState
 from python_audio_mastering_tpu_torch.parallel.streaming import StreamState
 
-__all__ = ["params_from_jax", "config_from_jax", "stream_state_from_jax",
-           "limiter_state_from_jax"]
+__all__ = ["params_from_jax", "album_params_from_jax", "config_from_jax",
+           "stream_state_from_jax", "limiter_state_from_jax"]
 
 _BOOL_PARAMS = ("multiband", "lufs_enabled")
 
@@ -32,10 +32,17 @@ def params_from_jax(p) -> MasteringParams:
     return MasteringParams(**kwargs)
 
 
+def album_params_from_jax(params) -> list:
+    """The port's per-track album params (a list, as
+    ``parallel.batch.master_album_streamed`` takes it) from a sequence of
+    JAX ``MasteringParams``, one per track."""
+    return [params_from_jax(p) for p in params]
+
+
 def config_from_jax(cfg) -> ChainConfig:
     """A port ``ChainConfig`` from the JAX one: the fields the port has
-    (``mb_kernel``, ``layout``, ``filter_method`` and the device budget are
-    execution knobs of the JAX package and are dropped)."""
+    (``mb_kernel``, ``layout`` and ``filter_method`` are execution knobs of
+    the JAX package and are dropped)."""
     return ChainConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(ChainConfig)})
 

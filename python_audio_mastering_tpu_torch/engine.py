@@ -14,12 +14,17 @@ engines:
 * ``process_audio_from_uri(uri, settings)`` (and its reference name
   ``process_audio_from_gcs``), the cloud worker engine: download from a
   blob store, master, upload the WAV, an R128 meter summary
-  ``{output}.meters.json`` and a ``.complete`` flag.
+  ``{output}.meters.json`` and a ``.complete`` flag;
+* ``process_album_from_uris(uris, settings)``, the cloud album engine:
+  every file of an album decoded (the native batch decoder when it can),
+  conformed to one rate and channel count, mastered in one batched
+  chunked run (``parallel.batch.master_album_streamed``), and each
+  track's blob, sidecar and flag uploaded as its readback lands.
 
 The settings keys beyond the chain's: ``quality`` (truthy: the lookahead
 true-peak limiter), ``output_sample_rate`` and ``dither``.  Every entry
-runs on the card unless the caller passes ``device="cpu"``.  The album
-and automaster engines are ROADMAP queue 1 items 5 and 6.
+runs on the card unless the caller passes ``device="cpu"``.  The
+automaster engine is ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import json
 import math
 import os
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,12 +45,16 @@ from python_audio_mastering_tpu_torch.io import wavio
 from python_audio_mastering_tpu_torch.models.chain import require_device
 from python_audio_mastering_tpu_torch.models.presets import EQ_PRESETS  # noqa: F401  (GUI re-export contract)
 from python_audio_mastering_tpu_torch.ops import resample as rs
+from python_audio_mastering_tpu_torch.parallel.batch import (
+    master_album_streamed,
+)
 from python_audio_mastering_tpu_torch.parallel.streaming import master_streamed
 from python_audio_mastering_tpu_torch.serving import store as store_mod
 
 __all__ = ["EQ_PRESETS", "default_config", "process_audio",
            "batch_process_audio", "process_audio_from_gcs",
-           "process_audio_from_uri", "meters_summary", "AUDIO_EXTENSIONS"]
+           "process_audio_from_uri", "process_album_from_uris",
+           "conform_album_tracks", "meters_summary", "AUDIO_EXTENSIONS"]
 
 AUDIO_EXTENSIONS = (".wav", ".mp3", ".flac", ".aiff")
 
@@ -236,3 +246,145 @@ def process_audio_from_uri(uri: str, settings: dict,
 def process_audio_from_gcs(gcs_uri: str, settings: dict, **kwargs) -> str:
     """The reference worker's name; takes ``local://`` URIs too."""
     return process_audio_from_uri(gcs_uri, settings, **kwargs)
+
+
+def conform_album_tracks(loaded, names=None, progress_cb=None, device="cuda"):
+    """Conform decoded tracks into one batchable album.
+
+    ``loaded``: list of ``(audio (N, C), fs)``.  The album takes the
+    highest rate present (a 48 kHz track is never downsampled because a
+    lower-rate file sorted first); tracks at other rates are upsampled to
+    it on ``device`` (``ops.resample``).  Mono tracks are upmixed by
+    duplication to the album's channel count.  An explicit
+    ``settings["output_sample_rate"]`` still converts each mastered output
+    afterwards.  Returns ``(tracks, fs_album)``.
+    """
+    device = require_device(device, "conform_album_tracks")
+    cb = progress_cb or print
+    names = names or [f"track {i}" for i in range(len(loaded))]
+    fs_album = max(fs for _, fs in loaded)
+    channels = max(a.shape[1] if a.ndim == 2 else 1 for a, _ in loaded)
+    tracks = []
+    for (audio, fs), name in zip(loaded, names):
+        if audio.ndim == 1:
+            audio = audio[:, None]
+        if fs != fs_album:
+            cb(f"Resampling {name} {fs} -> {fs_album} Hz to batch the album")
+            x = torch.from_numpy(np.ascontiguousarray(audio)).to(device)
+            audio = rs.resample(x, fs, fs_album).cpu().numpy()
+        if audio.shape[1] < channels:
+            cb(f"Upmixing {name} {audio.shape[1]} -> {channels} channels")
+            audio = np.concatenate(
+                [audio] + [audio[:, -1:]] * (channels - audio.shape[1]),
+                axis=1)
+        tracks.append(audio)
+    return tracks, fs_album
+
+
+def _decode_album_blobs(blobs: list, keys: list, cb):
+    """Decode album uploads, the multithreaded C++ loader first.
+
+    * every blob a RIFF/WAVE of one (channels, rate): one
+      ``io.native.decode_batch`` call;
+    * every blob a RIFF/WAVE, formats mixed: per-track native decodes on
+      a thread pool (``conform_album_tracks`` reconciles them);
+    * anything else, or any native failure: ``wavio.decode_audio_bytes``
+      per track (ffmpeg for non-WAV containers), threaded.
+
+    Returns ``(loaded [(audio, fs)], used)``, ``used`` naming the path
+    taken: ``"native_batch"``, ``"native"`` or ``"numpy"``.
+    """
+    from python_audio_mastering_tpu_torch.io import native
+
+    workers = min(len(blobs), os.cpu_count() or 1)
+    # RIFF alone is not WAV (AVI and WEBP share the container): gate on the
+    # WAVE form type too
+    is_wav = all(b[:4] == b"RIFF" and b[8:12] == b"WAVE" for b in blobs)
+    if is_wav and native.available():
+        try:
+            infos = [native.probe(b) for b in blobs]
+            if len({(i[0], i[1]) for i in infos}) == 1:
+                cb(f"Decoding {len(blobs)} tracks via the native batch "
+                   "decoder...")
+                batch, lengths, rate = native.decode_batch(blobs)
+                return [(batch[i, :int(lengths[i])], rate)
+                        for i in range(len(blobs))], "native_batch"
+            cb(f"Decoding {len(blobs)} mixed-format tracks via the native "
+               "decoder (threaded)...")
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                return list(ex.map(native.decode_wav, blobs)), "native"
+        except Exception as e:  # noqa: BLE001 — fall back per contract
+            cb(f"Native decode failed ({e}); falling back to ffmpeg/numpy.")
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(
+            lambda bk: wavio.decode_audio_bytes(bk[0], name_hint=bk[1]),
+            zip(blobs, keys))), "numpy"
+
+
+def process_album_from_uris(uris: list, settings: dict,
+                            store: store_mod.BlobStore | None = None,
+                            config: ChainConfig | None = None,
+                            progress_cb=None, transfer: str = "float32",
+                            checkpoint_dir: str | None = None,
+                            checkpoint_every: int = 1,
+                            emit_meters: bool = True, device="cuda") -> list:
+    """Cloud album engine: every URI of one bucket mastered as one
+    batched, chunked run on ``device`` (the card unless the caller passes
+    ``device="cpu"``; raises before any download when that card is not
+    there).
+
+    Mixed-rate and mixed-channel uploads are conformed into one album
+    (:func:`conform_album_tracks`).  ``transfer``: ``"float32"`` or
+    ``"pcm16"``.  ``checkpoint_dir`` / ``checkpoint_every``: chunk-granular
+    resume (``master_album_streamed``).  Each track's WAV, its
+    ``.meters.json`` sidecar (``emit_meters``) and its ``.complete`` flag
+    are uploaded from a pool as that track's readback lands.  Returns the
+    output keys, in the order of ``uris``.
+    """
+    device = require_device(device, "process_album_from_uris")
+    if not uris:
+        raise ValueError("empty album job")
+    cb = progress_cb or print
+    buckets = {store_mod.parse_uri(u)[:2] for u in uris}
+    if len(buckets) > 1:
+        raise ValueError(f"album URIs span multiple buckets: {sorted(buckets)}")
+    scheme, bucket = next(iter(buckets))
+    store = store or store_mod.get_store(f"{scheme}://{bucket}")
+    keys = [store_mod.parse_uri(uri)[2] for uri in uris]
+    cb(f"Downloading {len(uris)} files from {scheme}://{bucket}...")
+    with ThreadPoolExecutor(max_workers=min(len(keys), 8)) as ex:
+        blobs = list(ex.map(store.download, keys))
+    loaded, used = _decode_album_blobs(blobs, keys, cb)
+    cb(f"Decoded {len(blobs)} files ({used}).")
+    tracks, fs_album = conform_album_tracks(loaded, keys, cb, device)
+
+    params = MasteringParams.from_settings(settings)
+    cfg = _config_for(settings, fs_album, config)
+    cb(f"Processing album of {len(tracks)} tracks in chunks...")
+
+    def export(i, out, meters):
+        out_arr, fs_out = _maybe_resample(out, fs_album, settings, cb, device)
+        output_key = store_mod.output_key_for(uris[i])
+        cb(f"Exporting and uploading processed audio to {output_key}...")
+        buf = io.BytesIO()
+        wavio.write_wav(buf, out_arr, fs_out,
+                        dither=bool(settings.get("dither")))
+        store.upload(output_key, buf.getvalue(), content_type="audio/wav")
+        _upload_meters(store, output_key, meters)
+        store.upload(f"{output_key}.complete", b"")
+        return output_key
+
+    with ThreadPoolExecutor(max_workers=min(len(uris), 8)) as export_pool:
+        futs = {}
+
+        def on_track_done(i, out, meters):
+            futs[i] = export_pool.submit(export, i, out, meters)
+
+        master_album_streamed(
+            tracks, params, cfg, progress_cb=cb, transfer=transfer,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            return_meters=emit_meters, on_track_done=on_track_done,
+            device=device)
+        out_keys = [futs[i].result() for i in range(len(uris))]
+    cb(f"Album complete: {len(out_keys)} files.")
+    return out_keys

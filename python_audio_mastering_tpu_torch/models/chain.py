@@ -19,6 +19,12 @@ come from plain-torch states passes (``ops.iir``).  On a CUDA tensor the
 kernels launch; on a CPU tensor their plain versions run.  Nothing in the
 chain is random.
 
+An album chunk ``(C, T, nb, L)`` takes the same body with T sequences of
+params (:meth:`MasteringChain.front`, :meth:`MasteringChain.multiband`):
+the kernels compute each block from that block and its incoming state,
+so the tracks fold into their block axis and each launches once for all
+of them (``parallel.batch``).
+
 Signals shorter than ``4 · block_size`` take the same rows body, padded to
 a block multiple (the JAX package sends them to a separate row-major
 body); the result is the same filter, cut back to the input length.
@@ -40,6 +46,7 @@ from torch import nn
 
 from python_audio_mastering_tpu_torch.config import ChainConfig, MasteringParams
 from python_audio_mastering_tpu_torch.ops import iir
+from python_audio_mastering_tpu_torch.ops._kernels import upload
 from python_audio_mastering_tpu_torch.ops.biquad import (
     reference_peak_sos,
     reference_shelf_sos,
@@ -192,24 +199,58 @@ class MasteringChain(nn.Module):
             self._xover[self.device] = ops
         return ops
 
-    def multiband(self, xrows, params: MasteringParams, state=None,
+    def multiband(self, xrows, params, state=None,
                   return_state: bool = False, emit_mono: bool = False):
         """The 3-band compressor over rows
         (``ops.multiband.multiband_compress_rows``) with this chain's
-        config and crossover operators.  ``state``/``return_state``: the
-        carried multiband state dict of streaming."""
+        config and crossover operators; an album's ``(C, T, nb, L)`` takes
+        a sequence of T params.  ``state``/``return_state``: the carried
+        multiband state dict of streaming."""
         cfg = self.config
+        tp = params if xrows.ndim == 4 else [params]
+
+        def sliders(*names):
+            return tuple([float(getattr(p, k)) for p in tp] for k in names)
+
         return multiband_compress_rows(
             xrows, cfg.sample_rate,
-            thresholds_db=(params.low_thresh, params.mid_thresh,
-                           params.high_thresh),
-            ratios=(params.low_ratio, params.mid_ratio, params.high_ratio),
+            thresholds_db=sliders("low_thresh", "mid_thresh", "high_thresh"),
+            ratios=sliders("low_ratio", "mid_ratio", "high_ratio"),
             hop=cfg.comp_hop, ballistics=cfg.comp_ballistics, state=state,
             return_state=return_state, emit_mono=emit_mono,
             ops=self.crossover_ops())
 
-    def front(self, xrows, params: MasteringParams, state=None,
-              return_state: bool = False, emit_mono: bool = False):
+    def front_groups(self, tracks_params):
+        """The tracks of an album grouped by their front settings (EQ
+        coefficients, saturation, width), which ``front_chain`` takes one
+        of per launch: ``[(params, track indices, EQ operators), ...]``.
+        A run computes them once and holds the operators to its end."""
+        groups = {}
+        for i, p in enumerate(tracks_params):
+            sos = eq_sos(p, self.config.sample_rate).astype(self.config.dtype)
+            key = (sos.tobytes(), float(p.saturation), float(p.width))
+            groups.setdefault(key, (p, []))[1].append(i)
+        return [(p, idx, self.eq_ops(p)) for p, idx in groups.values()]
+
+    def _front_group(self, x4, params, ops, zi, return_state, emit):
+        """:meth:`front` of ``(C, T, nb, L)`` tracks that share ``params``:
+        one states pass over the ``C·T`` sequences, one kernel launch over
+        ``(C, T·nb, L)``.  Returns ``(y, mono (T, nb, L) or None, zf)``."""
+        c, tracks, nb, L = x4.shape
+        xs = saturate(x4, params.saturation).reshape(c * tracks, nb, L)
+        s_in, zf, _ = iir.sosfilt_states_rows(
+            None, xs, zi=zi, return_state=return_state, ops=ops)
+        y = front_chain(x4.reshape(c, tracks * nb, L),
+                        s_in.reshape(c, tracks * nb, -1), ops.t, ops.w,
+                        params.saturation, params.width, emit_mono=emit)
+        ym = None
+        if emit:
+            y, ym = y
+            ym = ym.reshape(tracks, nb, L)
+        return y.reshape(x4.shape), ym, zf
+
+    def front(self, xrows, params, state=None, return_state: bool = False,
+              emit_mono: bool = False, groups=None):
         """saturate → EQ → width over rows (``chain._front``).
 
         The EQ states come from the SATURATED signal; the kernel reads the
@@ -217,21 +258,46 @@ class MasteringChain(nn.Module):
         the carried EQ ``zi`` (scipy layout ``(K, 2, C)``) of streaming.
         ``emit_mono``: also return the channel-mean rows ``(nb, L)``.
 
+        An album's ``(C, T, nb, L)`` takes a sequence of T params (``zi``
+        ``(K, 2, C·T)``, mono ``(T, nb, L)``) and launches the kernel once
+        per group of :meth:`front_groups` (pass ``groups`` to reuse them),
+        on a gathered copy of the group's tracks when there are several.
+
         Returns ``y``, ``(y, ym)`` with ``emit_mono``, and ``eq_zf``
         appended with ``return_state``.
         """
-        c = xrows.shape[0]
-        ops = self.eq_ops(params)
-        xs = saturate(xrows, params.saturation)
-        s_in, eq_zf, _ = iir.sosfilt_states_rows(
-            None, xs, zi=state, return_state=return_state, ops=ops)
+        album = xrows.ndim == 4
+        x4 = xrows if album else xrows[:, None]
+        c, tracks, nb, L = x4.shape
+        groups = groups or self.front_groups(params if album else [params])
         emit = emit_mono and c > 1
-        y = front_chain(xrows, s_in, ops.t, ops.w, params.saturation,
-                        params.width, emit_mono=emit)
-        if emit:
-            y, ym = y
-        elif emit_mono:
+        if len(groups) == 1:
+            p, _, ops = groups[0]
+            y, ym, eq_zf = self._front_group(x4, p, ops, state, return_state,
+                                             emit)
+        else:
+            y = torch.empty_like(x4)
+            ym = x4.new_empty((tracks, nb, L)) if emit else None
+            k = groups[0][2].k
+            zi4 = None if state is None else state.reshape(k, 2, c, tracks)
+            zf4 = x4.new_empty((k, 2, c, tracks)) if return_state else None
+            for p, idx, ops in groups:
+                sel = upload(idx, torch.int64, x4.device)
+                zi = (None if zi4 is None else
+                      zi4[:, :, :, sel].reshape(k, 2, c * len(idx)))
+                yg, ymg, zfg = self._front_group(
+                    x4[:, sel].contiguous(), p, ops, zi, return_state, emit)
+                y[:, sel] = yg
+                if emit:
+                    ym[sel] = ymg
+                if return_state:
+                    zf4[:, :, :, sel] = zfg.reshape(k, 2, c, len(idx))
+            eq_zf = zf4.reshape(k, 2, c * tracks) if return_state else state
+        if emit_mono and not emit:
             ym = y[0]  # mono input: the signal is its own downmix
+        y = y.reshape(xrows.shape)
+        if emit_mono and not album:
+            ym = ym[0]
         if emit_mono:
             return (y, ym, eq_zf) if return_state else (y, ym)
         return (y, eq_zf) if return_state else y

@@ -68,30 +68,41 @@ def _gating_geometry(sample_rate):
 
 def block_cell_energies_rows(xrows, sample_rate, zi=None, valid_frames=None,
                              return_state=False, ops=None):
-    """Per-cell mean-square K-weighted energies of rows ``(C, nb, L)``.
+    """Per-cell mean-square K-weighted energies of rows ``(C, nb, L)``, or
+    of an album's ``(C, T, nb, L)`` (T tracks, each its own signal).
 
     The ``kweight_cells`` kernel emits sums over buckets of
     ``h = gcd(cell, L)`` samples (6 at 44.1 kHz with L = 384, 192 at
-    48 kHz); a cell is then an exact sum of ``cell / h`` buckets.  ``ops``
-    are the K-filter's blocked operators (``iir.blocked_ops``), looked up
-    when not given.  ``zi``/``return_state``: the carried K-filter state of
-    chunked streaming.  ``valid_frames``: cells that reach past it are
-    masked out of the gating (zero-padded tails).
+    48 kHz); a cell is then an exact sum of ``cell / h`` buckets.  A
+    bucket lies inside a block, so the album's tracks fold into the
+    kernel's block axis, one launch for all of them; the states pass
+    runs the ``C·T`` signals as independent sequences.  ``ops`` are the
+    K-filter's blocked operators (``iir.blocked_ops``), looked up when not
+    given.  ``zi``/``return_state``: the carried K-filter state of chunked
+    streaming, ``(K, 2, C·T)`` for an album.  ``valid_frames``: cells that
+    reach past it are masked out of the gating (zero-padded tails).
 
-    Returns ``(cell_ms (num_cells, C), cell_mask or None, zf)``.
+    Returns ``(cell_ms (num_cells, C), cell_mask or None, zf)``; for an
+    album ``cell_ms`` is ``(T, num_cells, C)``.
     """
-    c, nb, L = xrows.shape
+    album = xrows.ndim == 4
+    x4 = xrows if album else xrows[:, None]
+    c, tracks, nb, L = x4.shape
     n = nb * L
     cell, _ = _gating_geometry(sample_rate)
     h = math.gcd(cell, L)
     n_cells = n // cell
     s_in, zf, ops = iir.sosfilt_states_rows(
-        kweight_sos(sample_rate), xrows, zi=zi, return_state=return_state,
-        ops=ops)
-    buck = kweight_cells(xrows, s_in, ops.t, ops.w, h)  # (C, n // h)
+        kweight_sos(sample_rate), x4.reshape(c * tracks, nb, L), zi=zi,
+        return_state=return_state, ops=ops)
+    buck = kweight_cells(x4.reshape(c, tracks * nb, L),
+                         s_in.reshape(c, tracks * nb, -1), ops.t, ops.w, h)
     per_cell = cell // h
-    cells = buck[:, : n_cells * per_cell]
-    cell_ms = cells.reshape(c, n_cells, per_cell).sum(dim=2).T / cell
+    cells = buck.reshape(c, tracks, n // h)[:, :, : n_cells * per_cell]
+    cell_ms = cells.reshape(c, tracks, n_cells, per_cell).sum(dim=3).permute(
+        1, 2, 0) / cell
+    if not album:
+        cell_ms = cell_ms[0]
     cell_mask = None
     if valid_frames is not None:
         cell_mask = (torch.arange(n_cells, device=xrows.device)
@@ -110,38 +121,44 @@ def integrated_loudness_rows(xrows, sample_rate, downmix="bs1770",
 
 
 def loudness_from_cells(cell_ms, weights=None, cell_mask=None):
-    """Gated integrated loudness from 100 ms cell energies ``(cells, C)``.
+    """Gated integrated loudness from 100 ms cell energies ``(cells, C)``,
+    or per track from an album's ``(T, cells, C)``.
 
-    ``cell_mask``: optional ``(cells,)`` validity mask.  Returns a 0-d
-    tensor, −inf when no gating block survives (pyloudnorm's contract).
-    No host synchronisation: the gates are masked reductions.
+    ``cell_mask``: optional ``(cells,)`` (``(T, cells)``) validity mask.
+    Returns a 0-d tensor (``(T,)``), −inf when no gating block survives
+    (pyloudnorm's contract).  No host synchronisation: the gates are
+    masked reductions.
     """
-    n_cells, c = cell_ms.shape
+    n_cells, c = cell_ms.shape[-2:]
+    lead = cell_ms.shape[:-2]
     dt, dev = cell_ms.dtype, cell_ms.device
     if n_cells < 4:
-        return torch.tensor(-math.inf, dtype=dt, device=dev)
+        return torch.full(lead, -math.inf, dtype=dt, device=dev)
     if weights is None:
         weights = channel_weights(c, dtype=dt, device=dev)
     if cell_mask is None:
-        cell_mask = torch.ones((n_cells,), dtype=torch.bool, device=dev)
+        cell_mask = torch.ones(cell_ms.shape[:-1], dtype=torch.bool,
+                               device=dev)
 
-    block_ms = (cell_ms[:-3] + cell_ms[1:-2] + cell_ms[2:-1] + cell_ms[3:]) / 4.0
-    block_ok = cell_mask[:-3] & cell_mask[1:-2] & cell_mask[2:-1] & cell_mask[3:]
+    block_ms = (cell_ms[..., :-3, :] + cell_ms[..., 1:-2, :]
+                + cell_ms[..., 2:-1, :] + cell_ms[..., 3:, :]) / 4.0
+    block_ok = (cell_mask[..., :-3] & cell_mask[..., 1:-2]
+                & cell_mask[..., 2:-1] & cell_mask[..., 3:])
     eps = float(np.finfo(np.float32).tiny)
 
     def lufs_of(ms):
         return _LOUDNESS_OFFSET + 10.0 * torch.log10(torch.clamp_min(ms, eps))
 
     def masked_mean(values, mask):
-        cnt = mask.sum()
-        s = torch.where(mask[:, None], values, 0.0).sum(dim=0)
-        return s / torch.clamp_min(cnt, 1), cnt
+        cnt = mask.sum(dim=-1)
+        s = torch.where(mask[..., None], values, 0.0).sum(dim=-2)
+        return s / torch.clamp_min(cnt, 1)[..., None], cnt
 
     l_blocks = lufs_of(block_ms @ weights)
     m_abs = block_ok & (l_blocks > _ABS_GATE_LUFS)
     ms_abs, _ = masked_mean(block_ms, m_abs)
     rel_gate = lufs_of(ms_abs @ weights) + _REL_GATE_LU
-    m_rel = m_abs & (l_blocks > rel_gate)
+    m_rel = m_abs & (l_blocks > rel_gate[..., None])
     ms_rel, cnt_rel = masked_mean(block_ms, m_rel)
     lufs = lufs_of(ms_rel @ weights)
     return torch.where(cnt_rel > 0, lufs, torch.full_like(lufs, -math.inf))

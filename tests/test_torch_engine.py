@@ -156,24 +156,35 @@ def test_process_audio_multiband_matches_jax_engine(tmp_path):
     assert np.max(np.abs(outs["port"] - one)) < 2e-4
 
 
-@pytest.mark.parametrize("kwargs,raises", [
-    pytest.param({"transfer": "pcm16"}, True, id="kwargs0"),
-    pytest.param({"checkpoint_dir": "ckpt"}, True, id="kwargs1"),
-    pytest.param({"return_meters": True}, False, id="kwargs2"),
+@pytest.mark.parametrize("kwargs", [
+    pytest.param({"transfer": "pcm16"}, id="kwargs0"),
+    pytest.param({"checkpoint_dir": "ckpt"}, id="kwargs1"),
+    pytest.param({"return_meters": True}, id="kwargs2"),
 ])
-def test_master_streamed_outside_the_slice_raises(kwargs, raises):
-    """The pcm16 wire and checkpoints still raise, naming their ROADMAP
-    item; ``return_meters`` returns the JAX runner's meters dict."""
+def test_master_streamed_outside_the_slice_raises(kwargs, tmp_path):
+    """The options that raised before this slice now run: the pcm16 wire
+    equals the float32 one within its 16-bit floor (3e-3, JAX
+    test_parallel.py:128), a checkpointed run writes its chunk file and
+    equals the plain run bitwise; ``return_meters`` returns the JAX
+    runner's meters dict."""
     x = (make_signal(28800, channels=2, fs=48000, seed=15) * 0.3
          ).astype(np.float32)
-    run = lambda: master_streamed(x, MasteringParams(),  # noqa: E731
-                                  ChainConfig.gpu_default(48000),
-                                  device="cpu", **kwargs)
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run()
+    if "checkpoint_dir" in kwargs:
+        kwargs = {"checkpoint_dir": str(tmp_path / kwargs["checkpoint_dir"])}
+    run = lambda **kw: master_streamed(  # noqa: E731
+        x, MasteringParams(), ChainConfig.gpu_default(48000), device="cpu",
+        **kw)
+    if "return_meters" not in kwargs:
+        plain, m_plain, _ = run()
+        out, measured, _ = run(**kwargs)
+        assert out.shape == x.shape and abs(measured - m_plain) < 1e-2
+        if "transfer" in kwargs:
+            assert 0 < np.max(np.abs(out - plain)) < 3e-3
+        else:
+            assert os.listdir(kwargs["checkpoint_dir"]) == ["chunk_00000.npz"]
+            np.testing.assert_array_equal(out, plain)
         return
-    out, measured, gain_db, meters = run()
+    out, measured, gain_db, meters = run(**kwargs)
     assert out.shape == x.shape and math.isfinite(measured)
     assert sorted(meters) == ["integrated_lufs", "lra_lu", "momentary_lufs",
                               "short_term_lufs", "true_peak_dbtp"]
@@ -350,15 +361,21 @@ def _skip_with_a_card():
         pytest.skip("a card is present: the default device runs")
 
 
-@pytest.mark.parametrize("entry", ["master", "master_streamed"])
+@pytest.mark.parametrize("entry", ["master", "master_streamed",
+                                   "master_album", "master_album_streamed"])
 def test_entry_points_default_to_the_card(entry):
     """Called without ``device``, the entry points run on the card; with
     none they raise, naming the missing device, and never fall back to
     the CPU."""
+    from python_audio_mastering_tpu_torch.parallel import batch
+
     _skip_with_a_card()
-    run = {"master": master, "master_streamed": master_streamed}[entry]
+    run = {"master": master, "master_streamed": master_streamed,
+           "master_album": batch.master_album,
+           "master_album_streamed": batch.master_album_streamed}[entry]
+    x = np.zeros((4800, 2), np.float32)
     with pytest.raises(RuntimeError, match=f"{entry}: device 'cuda'.*CUDA"):
-        run(np.zeros((4800, 2), np.float32), MasteringParams(),
+        run([x, x] if "album" in entry else x, MasteringParams(),
             ChainConfig.gpu_default(48000))
 
 
@@ -380,6 +397,10 @@ def test_new_engine_entries_default_to_the_card(tmp_path):
                        match="process_audio_from_uri: device 'cuda'.*CUDA"):
         engine.process_audio_from_uri("local://jobs/absent.wav", SETTINGS,
                                       store=LocalFSBlobStore(str(tmp_path)))
+    with pytest.raises(RuntimeError,
+                       match="process_album_from_uris: device 'cuda'.*CUDA"):
+        engine.process_album_from_uris(["local://jobs/absent.wav"], SETTINGS,
+                                       store=LocalFSBlobStore(str(tmp_path)))
 
 
 def test_process_audio_defaults_to_the_card(tmp_path):
@@ -407,12 +428,19 @@ def test_port_imports_without_jax():
         "from python_audio_mastering_tpu_torch.parallel import streaming\n"
         "from python_audio_mastering_tpu_torch.ops import limiter, meters,"
         " resample\n"
-        "from python_audio_mastering_tpu_torch.serving import store\n"
+        "from python_audio_mastering_tpu_torch.serving import store, http,"
+        " jobqueue, worker\n"
+        "from python_audio_mastering_tpu_torch.parallel import batch\n"
+        "from python_audio_mastering_tpu_torch.io import native\n"
         "cfg = dataclasses.replace(p.ChainConfig.gpu_default(),"
         " limiter_mode='lookahead_truepeak')\n"
         "y = p.master(np.full((2048, 2), 0.5, np.float32),"
         " p.MasteringParams(), cfg, device='cpu')\n"
         "assert float(abs(y).max()) <= 10 ** (-1 / 20) * (1 + 1e-6)\n"
+        "outs, _ = batch.master_album_streamed([np.full((2048, 2), 0.5,"
+        " np.float32)] * 2, p.MasteringParams(), cfg, transfer='pcm16',"
+        " device='cpu')\n"
+        "assert len(outs) == 2 and outs[0].shape == (2048, 2)\n"
         "assert not any(m == 'python_audio_mastering_tpu' or"
         " m.startswith('python_audio_mastering_tpu.') for m in sys.modules)\n"
         "print('ok', tuple(y.shape))\n")

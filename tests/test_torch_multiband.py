@@ -272,6 +272,6 @@ def test_two_chunks_resume_a_jax_state(channels):
 
 @pytest.mark.parametrize("ballistics", ["blocked", "scan"])
 def test_approximate_ballistics_are_not_ported(ballistics):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         mb.multiband_compress_rows(_t(_rows(1, nb=4)), FS, hop=8,
                                    ballistics=ballistics, **KW)
