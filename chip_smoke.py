@@ -135,6 +135,37 @@ settings with multiband on, the pcm16 wire:
      album, and each kernel's device time at the album chunk beside phase
      6 and 12's single-track times
 
+The legacy chain (the monolith service's engine), ``variant="legacy"``
+under ``serving.monolith.legacy_config`` (``gpu_default``), on the 180 s
+track with the bench settings:
+
+ 22  legacy master() (no device argument), multiband off and on: finite,
+     |y| <= 1, oracle loudness within 0.15 LU of -14; kweight_cells once,
+     with multiband K5's two launches, replay and replay_bnd (once), and
+     no front_chain, band_energies or band_gain_apply (the one-shot legacy
+     front and split are plain torch); against the port's CPU path within
+     2e-4 max abs / 1e-3 LU (multiband off) and phase 10's 1.2e-3 max /
+     1.3e-5 rms / 1e-3 LU (on)
+ 23  front_chain with the legacy exciter (0, 1/g, g) vs plain at
+     (2, 20672, 384), phase 2's 1e-4; legacy master_streamed (no device
+     argument), multiband off and on: front_chain once a chunk (the
+     worker EQ behind the legacy saturation, as the JAX streamed runner
+     runs it), no worker band kernel, against the port's CPU streamed run
+     within phase 22's limits, and its distance from the one-shot legacy
+     master() printed (the reference's quirk); run_legacy_job on a local
+     store (no device argument) with a 30 s WAV: processed/ key, "done"
+     flag, within 3.052e-5 of master_streamed
+ 24  the ballistics executions on the track's targets (3, 992256), the
+     worker chain's and the legacy chain's (its real mid band): K5's hull
+     statistics; comp_ballistics "scan" bitwise "auto"; "blocked"
+     (2048-step blocks, the 4410-step overlap) on its (1455, 6458)
+     windows, padded to 6528, bitwise its plain twins' result on the CPU;
+     blocked vs exact printed in dB (max, rms) and linear rms
+ 25  timings with the card's name and power limit: legacy master()
+     multiband off and on (CUDA events, median of 5) and its
+     torch.profiler device time and idle share; the device time of the
+     ballistics in "auto", "scan" and "blocked" on both chains' targets
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -147,8 +178,8 @@ ran).
 
 Exits non-zero at the first failed phase.  The last two lines of output
 are the kernel record (each kernel's ``launches`` from phases 4 and 10,
-and ``album_launches`` / ``album_max_abs_err`` / ``album_ms`` from phases
-18 and 21) and
+``album_launches`` / ``album_max_abs_err`` / ``album_ms`` from phases
+18 and 21, and ``legacy_launches`` from phases 22 and 23) and
 ``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
@@ -160,6 +191,7 @@ call, it compares two versions on one card.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import statistics
@@ -753,6 +785,7 @@ def main():
     multiband_phases(o, kernels)
     quality_phases(o, card)
     album_phases(o, kernels, card)
+    legacy_phases(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
@@ -1853,6 +1886,237 @@ def album_phases(o, kernels, card):
           f"{len(WINDOWS['empty'])} without a kernel {WINDOWS['empty']}, "
           f"short of launches (kernel, seen, made) {WINDOWS['short']}")
     print("phase 21 ok", flush=True)
+
+
+def legacy_phases(o, kernels, card):
+    """Phases 22-25: the legacy chain (the monolith service's engine) on
+    the 180 s track, one-shot and streamed, the monolith job, and the
+    ballistics executions (``o`` from :func:`main_path_operands`)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    from python_audio_mastering_tpu_torch import (
+        MasteringChain,
+        MasteringParams,
+        master,
+    )
+    from python_audio_mastering_tpu_torch.io import wavio
+    from python_audio_mastering_tpu_torch.ops import ballistics as bal
+    from python_audio_mastering_tpu_torch.ops import compressor as comp
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops import iir
+    from python_audio_mastering_tpu_torch.ops import multiband as mb
+    from python_audio_mastering_tpu_torch.ops import waveshaper as ws
+    from python_audio_mastering_tpu_torch.parallel import streaming
+    from python_audio_mastering_tpu_torch.serving import monolith
+    from python_audio_mastering_tpu_torch.serving.store import (
+        LocalFSBlobStore,
+    )
+
+    x, dev, hop = o.x, o.xrows.device, o.hop
+    cfg = monolith.legacy_config(FS)
+    settings = {False: SETTINGS, True: MB_SETTINGS}
+    limits = {False: (2e-4, None), True: (MB_MAX, MB_RMS)}
+
+    def check_run(what, y, measured, mbon, ref_y, ref_measured):
+        """Finite, |y| <= 1, oracle loudness, and against the CPU run
+        within the phase's limits; returns (max abs, rms, |dLUFS|)."""
+        check(bool(np.isfinite(y).all()), f"{what}: non-finite output")
+        peak = float(np.abs(y).max())
+        check(peak <= 1.0, f"{what}: |y| max {peak} > 1")
+        lufs_out = oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
+        d = np.abs(y - ref_y)
+        d_max, d_rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+        d_lufs = abs(float(measured) - float(ref_measured))
+        print(f"  {what}: peak {peak:.4f}, oracle loudness {lufs_out:.4f} "
+              f"LUFS; vs the port's CPU path max abs {d_max:.3e}, rms "
+              f"{d_rms:.3e}, |dLUFS| {d_lufs:.3e}")
+        check(abs(lufs_out - SETTINGS["lufs"]) <= 0.15,
+              f"{what}: output loudness {lufs_out} not within 0.15 LU")
+        lim_max, lim_rms = limits[mbon]
+        check(d_max < lim_max, f"{what}: max abs {d_max} >= {lim_max}")
+        check(lim_rms is None or d_rms < lim_rms,
+              f"{what}: rms {d_rms} >= {lim_rms}")
+        check(d_lufs < 1e-3, f"{what}: |dLUFS| {d_lufs} >= 1e-3")
+
+    # phase 22 --------------------------------------------------------------
+    legacy = {}
+    for mbon in (False, True):
+        params = MasteringParams.from_settings(settings[mbon])
+        cmb.reset_launch_counts()
+        res = master(x, params, cfg, return_result=True)  # no device argument
+        torch.cuda.synchronize()
+        counts = cmb.launch_counts()
+        check(res.audio.device.type == "cuda",
+              f"legacy master() without a device ran on {res.audio.device}")
+        y = res.audio.cpu().numpy()
+        check(y.shape == x.shape, f"legacy output shape {y.shape}")
+        print(f"phase 22 legacy master() multiband {mbon} (no device "
+              f"argument): launches {counts}")
+        check(counts["kweight_cells"] == 1, "kweight_cells not launched once")
+        for name in ("front_chain", "band_energies", "band_gain_apply"):
+            check(counts[name] == 0, f"{name} launched by the legacy chain")
+        if mbon:
+            for name in (*K5_LAUNCHES, "replay"):
+                check(counts[name] > 0, f"{name} not launched")
+            check(counts["replay_bnd"] == 1,
+                  f"replay_bnd launched {counts['replay_bnd']} times")
+            launched = {**counts,
+                        "pass1_bnd": sum(counts[k] for k in K5_LAUNCHES)}
+            for name in ("kweight_cells",) + BALLISTICS:
+                kernels[name]["legacy_launches"] = launched[name]
+        t0 = time.perf_counter()
+        cpu = MasteringChain(cfg)(x, params, return_result=True)
+        print(f"  the CPU run took {time.perf_counter() - t0:.1f} s")
+        check_run(f"phase 22 legacy master() multiband {mbon}", y,
+                  res.measured_lufs, mbon, cpu.audio.numpy(),
+                  cpu.measured_lufs)
+        legacy[mbon] = y
+    print("phase 22 ok", flush=True)
+
+    # phase 23 --------------------------------------------------------------
+    chain = MasteringChain(cfg).to(dev)
+    params = MasteringParams.from_settings(SETTINGS)
+    coefs = ws.exciter_coefs(params.saturation, "legacy")
+    eq = chain.eq_ops(params)
+    s_leg, _, _ = iir.sosfilt_states_rows(None, ws.exciter(o.xrows, coefs),
+                                          ops=eq)
+    err = 0.0
+    for emit in (False, True):
+        args = (o.xrows, s_leg, eq.t, eq.w, coefs, params.width)
+        got = cmb.front_chain(*args, emit_mono=emit)
+        ref = cmb.front_chain_ref(*args, emit_mono=emit)
+        for what, g, r in zip(("y", "mono"), got if emit else (got,),
+                              ref if emit else (ref,)):
+            err = max(err, compare(f"phase 23 front_chain, legacy exciter "
+                                   f"{tuple(round(c, 6) for c in coefs)}, "
+                                   f"emit_mono={emit} {what}", g, r, 1e-4,
+                                   relative=False))
+    kernels["front_chain"]["legacy_max_abs_err"] = err
+    chunks = -(-x.shape[0] // streaming.default_chunk_frames(cfg))
+    for mbon in (False, True):
+        params = MasteringParams.from_settings(settings[mbon])
+        cmb.reset_launch_counts()
+        out, measured, _ = streaming.master_streamed(x, params, cfg)
+        counts = cmb.launch_counts()
+        print(f"phase 23 legacy master_streamed multiband {mbon} (no device "
+              f"argument): {chunks} chunks, launches {counts}")
+        check(counts["front_chain"] == chunks,
+              f"front_chain launched {counts['front_chain']} times in "
+              f"{chunks} chunks")
+        check(counts["band_energies"] == counts["band_gain_apply"] == 0,
+              "the worker band kernels ran in the legacy chain")
+        if mbon:
+            check(counts["replay_bnd"] == chunks,
+                  "replay_bnd not launched once a chunk")
+            kernels["front_chain"]["legacy_launches"] = counts["front_chain"]
+        t0 = time.perf_counter()
+        ref, ref_measured, _ = streaming.master_streamed(x, params, cfg,
+                                                         device="cpu")
+        print(f"  the CPU run took {time.perf_counter() - t0:.1f} s")
+        check_run(f"phase 23 legacy master_streamed multiband {mbon}", out,
+                  measured, mbon, ref, ref_measured)
+        d_one = np.abs(out - legacy[mbon])
+        print(f"  streamed (worker EQ) vs one-shot (legacy EQ), the "
+              f"reference's quirk: max abs {d_one.max():.4f}, rms "
+              f"{np.sqrt(np.mean(d_one ** 2)):.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = LocalFSBlobStore(tmp, bucket="mono")
+        x30 = x[: ENGINE_SECONDS * FS]
+        buf = io.BytesIO()
+        wavio.write_wav(buf, x30, FS, float_format=True)
+        store.upload("uploads/song.wav", buf.getvalue())
+        job = {**SETTINGS, "use_multiband": True}
+        key = monolith.run_legacy_job(store, "uploads/song.wav", job)
+        out, fs_out = wavio.read_wav(store.download(key))
+        ref, _, _ = streaming.master_streamed(
+            x30, MasteringParams.from_settings(job), cfg)
+        d_job = float(np.abs(out - ref).max())
+        print(f"phase 23 run_legacy_job (no device argument): {key}, "
+              f"complete {store.download(key + '.complete')!r}; vs "
+              f"master_streamed max abs {d_job:.3e}")
+        check(key == "processed/song.wav" and fs_out == FS
+              and out.shape == x30.shape, "monolith output")
+        check(store.download(key + ".complete") == b"done", ".complete")
+        check(d_job <= 3.052e-5, f"monolith vs master_streamed {d_job}")
+    print("phase 23 ok", flush=True)
+
+    # phase 24 --------------------------------------------------------------
+    # the detector targets of both chains on the track: the worker's from
+    # K2's band energies, the legacy one's from its real bands
+    params = MasteringParams.from_settings(MB_SETTINGS)
+    xb = cmb.band_energies(*o.band_args, hop=hop)
+    front = chain.front(o.xrows, params, legacy_eq=True)
+    bands, _ = mb._legacy_bands(front[:, None], {}, chain.crossover_ops(),
+                                False, None)
+    xb_leg = torch.stack([comp.bucket_sums((b * b).mean(dim=0).reshape(-1),
+                                           hop) for b in bands])
+    t = xb.shape[1]
+    block = cfg.comp_block_ctrl
+    overlap = comp._default_overlap(FS, 200.0, hop)
+    nbk = -(-t // block)
+    span = -(-(overlap + block) // bal.BLOCK) * bal.BLOCK
+    print(f"phase 24 blocked ballistics: {nbk} blocks of {block} steps a "
+          f"band, overlap {overlap}: windows ({3 * nbk}, {overlap + block}) "
+          f"padded to ({3 * nbk}, {span})")
+    targets = {}
+    for chain_name, e in (("worker", xb), ("legacy", xb_leg)):
+        m, ca, cr, att0 = detector_targets(e, params, hop, dev)
+        m = m[:, :t].contiguous()
+        stats = {"max_att": m, "ca": ca, "cr": cr}
+        targets[chain_name] = (stats, att0)
+        what = f"the {chain_name} chain's targets"
+        lo, hi = bal.pass1_hull(m, ca, cr,
+                                torch.maximum(att0, m.amax(dim=1)))
+        for band, (n_coll, n_runs, longest) in zip(
+                ("low", "mid", "high"), bal.hull_runs(lo, hi)):
+            print(f"phase 24 {what}, {band} band: {n_coll} of {lo.shape[1]}"
+                  f" blocks collapsed, {n_runs} runs, the longest {longest}"
+                  f" blocks")
+        run = {b: mb._run_ballistics_bt(stats, FS, hop, b, att0, block)
+               for b in ("auto", "scan", "blocked")}
+        check_bitwise(f"phase 24 {what}: comp_ballistics scan == auto",
+                      run["scan"][0], run["auto"][0])
+        t0 = time.perf_counter()
+        plain, _ = comp.attenuation_blocked_bt(m.cpu(), ca.cpu(), cr.cpu(),
+                                               block, overlap, att0.cpu())
+        print(f"  the plain twins on the CPU took "
+              f"{time.perf_counter() - t0:.1f} s")
+        check_bitwise(f"phase 24 {what}: blocked on the kernels vs their "
+                      f"plain twins", run["blocked"][0].cpu(), plain)
+        d_db = (run["blocked"][0] - run["auto"][0]).abs()   # gains in dB
+        d_lin = 10.0 ** (-run["blocked"][0] / 20.0) - 10.0 ** (
+            -run["auto"][0] / 20.0)
+        print(f"phase 24 {what}: blocked vs exact, the gains: max "
+              f"{d_db.max().item():.3e} dB, rms "
+              f"{d_db.pow(2).mean().sqrt().item():.3e} dB; linear rms "
+              f"{d_lin.pow(2).mean().sqrt().item():.3e}")
+        # printed, not held to a limit: the block-parallel approximation is
+        # the JAX package's, and a band whose blocks never collapse (the
+        # legacy mid band here) keeps a memory its warm-up cannot rebuild
+    print("phase 24 ok", flush=True)
+
+    # phase 25 --------------------------------------------------------------
+    x_dev = torch.from_numpy(x).to(dev)
+    for mbon in (False, True):
+        params = MasteringParams.from_settings(settings[mbon])
+        t_ms = median_of(lambda: cuda_ms(lambda: chain(x_dev, params),
+                                         reps=1))
+        print(f"phase 25 legacy master() multiband {mbon}: {t_ms:.3f} ms for "
+              f"{SECONDS} s (x{SECONDS * 1e3 / t_ms:.0f} realtime, input on "
+              f"the card; CUDA events, median of 5) ({card})")
+        print(f"phase 25 profile of legacy master() multiband {mbon}:")
+        profile_calls(lambda: chain(x_dev, params), calls=5)
+    for chain_name, (stats, att0) in targets.items():
+        for b in ("auto", "scan", "blocked"):
+            by_name, wall = device_profile(
+                lambda: mb._run_ballistics_bt(stats, FS, hop, b, att0,
+                                              block), calls=5)
+            print(f"phase 25 comp_ballistics={b} on the {chain_name} chain's "
+                  f"targets {tuple(stats['max_att'].shape)}: device "
+                  f"{sum(by_name.values()):.4f} ms, wall {wall:.3f} ms per "
+                  f"call ({card})")
+    print("phase 25 ok", flush=True)
 
 
 if __name__ == "__main__":

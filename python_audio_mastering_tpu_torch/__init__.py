@@ -8,10 +8,13 @@ names.
 
 It runs the worker chain: saturate → 4-band EQ → stereo width →
 [3-band multiband compressor] → BS.1770 loudness → gain → soft limiter
-(or, in quality mode, the lookahead true-peak limiter), one-shot
-(:func:`master`) and streamed (``parallel.streaming.master_streamed``,
-with the R128 meters on request), and the single-file and cloud engines
-(``engine``), with output resampling.
+(or, in quality mode, the lookahead true-peak limiter), and the legacy
+chain of the monolith service (``ChainConfig(variant="legacy")``,
+``serving.monolith``), one-shot (:func:`master`), streamed
+(``parallel.streaming.master_streamed``, with the R128 meters on
+request) and by the album (``parallel.batch``), and the single-file,
+album and cloud engines (``engine``, ``serving``), with output
+resampling.
 
     >>> from python_audio_mastering_tpu_torch import master, MasteringParams, ChainConfig
     >>> y = master(x, MasteringParams.from_settings({"saturation": 20}),

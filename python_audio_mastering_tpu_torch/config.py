@@ -105,12 +105,14 @@ class ChainConfig:
     """Static chain configuration (the fields this port reads)."""
 
     sample_rate: int = 44100
-    variant: str = "worker"          # "worker" | "legacy" (not ported yet)
+    variant: str = "worker"          # "worker" | "legacy" (monolith service)
     dtype: str = "float32"
     block_size: int = 512
     comp_hop: int = 1
     comp_block_ctrl: int | None = None
     comp_overlap_ctrl: int | None = None
+    # "auto"/"pallas" exact (collapse), "scan" exact (serial), "blocked"
+    # the block-parallel approximation of comp_block_ctrl-step blocks
     comp_ballistics: str = "auto"
     measure_downmix: str = "reference_mono_mean"   # | "bs1770"
     limiter_threshold: float = 0.98

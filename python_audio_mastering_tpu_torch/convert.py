@@ -15,6 +15,7 @@ import torch
 
 from python_audio_mastering_tpu_torch.config import ChainConfig, MasteringParams
 from python_audio_mastering_tpu_torch.ops.limiter import LookaheadLimiterState
+from python_audio_mastering_tpu_torch.ops.multiband import ctrl_tail_from_tail
 from python_audio_mastering_tpu_torch.parallel.streaming import StreamState
 
 __all__ = ["params_from_jax", "album_params_from_jax", "config_from_jax",
@@ -40,18 +41,25 @@ def album_params_from_jax(params) -> list:
 
 
 def config_from_jax(cfg) -> ChainConfig:
-    """A port ``ChainConfig`` from the JAX one: the fields the port has
-    (``mb_kernel``, ``layout`` and ``filter_method`` are execution knobs of
-    the JAX package and are dropped)."""
+    """A port ``ChainConfig`` from the JAX one: the fields the port has,
+    the variant among them (``mb_kernel``, ``layout`` and
+    ``filter_method`` are execution knobs of the JAX package and are
+    dropped)."""
     return ChainConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(ChainConfig)})
 
 
-def stream_state_from_jax(state, device="cpu") -> StreamState:
+def stream_state_from_jax(state, device="cpu", hop=None) -> StreamState:
     """A port ``StreamState`` from the JAX one: its arrays (the
     scipy-layout ``(K, 2, C)`` ``eq_zi``/``kw_zi`` and every array of the
     multiband ``mb`` dict) become float32 tensors on ``device``, dicts
-    keeping their keys."""
+    keeping their keys.
+
+    A legacy stream's multiband state (the JAX general path: crossover
+    ``{lp, hp, mid_hp, mid_lp}``, ``att`` and the sample-rate detector
+    ``tail (3, look_pad, C)``) keeps its crossover states and ``att``; its
+    tail becomes the port's control-rate ``ctrl_tail`` at the detector's
+    ``hop`` (``config.comp_hop``, which must then be given)."""
 
     def conv(a):
         if a is None:
@@ -61,7 +69,13 @@ def stream_state_from_jax(state, device="cpu") -> StreamState:
         return torch.tensor(np.asarray(a), dtype=torch.float32,
                             device=device)
 
-    return StreamState(eq_zi=conv(state.eq_zi), mb=conv(state.mb),
+    mb = conv(state.mb)
+    if mb is not None and mb.get("tail") is not None:
+        if hop is None:
+            raise ValueError("a legacy multiband state carries a sample-rate "
+                             "tail: pass the detector's hop")
+        mb["ctrl_tail"] = ctrl_tail_from_tail(mb.pop("tail"), hop)
+    return StreamState(eq_zi=conv(state.eq_zi), mb=mb,
                        kw_zi=conv(state.kw_zi))
 
 

@@ -10,8 +10,8 @@
 // TB/s, just above its ~6.4 GFLOP of products, 0.039 ms at the 3xTF32 rate
 // (0.095 ms on the fp32 CUDA cores, where the first version's tile loop ran it).  The
 // design reads the raw rows from device memory once (the column
-// tiles of a row group re-read them from L2), applies the exciter (1-mix)·x
-// + mix·tanh(drive·x) in place to the A tiles as they land in shared memory
+// tiles of a row group re-read them from L2), applies the exciter dry·x +
+// wet·tanh(drive·x) in place to the A tiles as they land in shared memory
 // (the states are not shaped: they come from the saturated signal already),
 // and writes the widened output once from the result tile.  The width couples
 // the two channels of a block, which the tile layout keeps in one CTA.  Any
@@ -21,13 +21,15 @@
 
 namespace pam {
 
-// waveshaper.saturate's exciter in its order of operations, no contraction
-// (mix and drive stay kernel parameters, read where used: no registers)
+// waveshaper.exciter in its order of operations, no contraction (the
+// coefficients stay kernel parameters, read where used: no registers).
+// The worker's saturation passes dry = 1 - mix (rounded to float), wet =
+// mix; the legacy one tanh(g·x)/g as dry = 0, wet = 1/g, drive = g.
 struct Exciter {
-  float mix, drive;
+  float dry, wet, drive;
   __device__ __forceinline__ float operator()(float v) const {
-    return __fadd_rn(__fmul_rn(1.f - mix, v),
-                     __fmul_rn(mix, tanhf(__fmul_rn(v, drive))));
+    return __fadd_rn(__fmul_rn(dry, v),
+                     __fmul_rn(wet, tanhf(__fmul_rn(v, drive))));
   }
 };
 
@@ -37,7 +39,7 @@ front_chain_kernel(const float* __restrict__ x, const float* __restrict__ t,
                    const float* __restrict__ wt,
                    const float* __restrict__ s_in, float* __restrict__ y,
                    float* __restrict__ mono, int C, int nb, int L, int S,
-                   int br, float mix, float drive, float width) {
+                   int br, float dry, float wet, float drive, float width) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int kCols = 2 * kGN;
@@ -45,7 +47,7 @@ front_chain_kernel(const float* __restrict__ x, const float* __restrict__ t,
   // the column tiles with the most k-tiles first
   const int j0 = (gridDim.x - 1 - blockIdx.x) * kCols;
   product_tile_tf32<1>(x, t, wt, s_in, nullptr, C, nb, L, S, b0, br, j0,
-                       Exciter{mix, drive}, smem);
+                       Exciter{dry, wet, drive}, smem);
   const float inv_c = 1.f / (float)C;
   for (int e = threadIdx.x; e < br * kCols; e += kGThreads) {
     const int bl = e / kCols;
@@ -84,8 +86,8 @@ front_chain_kernel(const float* __restrict__ x, const float* __restrict__ t,
 extern "C" int pam_front_chain(const float* x, const float* t,
                                const float* wt, const float* s_in, float* y,
                                float* mono, int C, int nb, int L, int S,
-                               float mix, float drive, float width,
-                               void* stream) {
+                               float dry, float wet, float drive,
+                               float width, void* stream) {
   if (C < 1 || C > pam::kGM || nb < 1 || S < 1 || S > pam::kGStateDepth ||
       L < 2 * pam::kGN || L % (2 * pam::kGN) != 0 ||
       (long long)C * nb >= (1LL << 31))
@@ -98,6 +100,6 @@ extern "C" int pam_front_chain(const float* x, const float* t,
   if (err != cudaSuccess) return (int)err;
   pam::front_chain_kernel<<<grid, pam::kGThreads, pam::kGSmemBytes,
                             (cudaStream_t)stream>>>(
-      x, t, wt, s_in, y, mono, C, nb, L, S, br, mix, drive, width);
+      x, t, wt, s_in, y, mono, C, nb, L, S, br, dry, wet, drive, width);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,8 @@ import tempfile
 import numpy as np
 
 __all__ = ["read_wav", "write_wav", "pcm_to_float", "float_to_pcm",
-           "read_audio", "write_audio", "decode_audio_bytes"]
+           "read_audio", "write_audio", "decode_audio_bytes",
+           "encode_audio_bytes", "audio_content_type"]
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -278,3 +279,38 @@ def decode_audio_bytes(data, name_hint: str = ""):
             return read_audio(tmp)
         finally:
             os.unlink(tmp)
+
+
+def encode_audio_bytes(audio, sample_rate, fmt: str = "wav",
+                       sample_width: int = 2) -> bytes:
+    """Encode float audio to container bytes in format ``fmt`` (the
+    monolith service exports in the source's container, main.py:74-75):
+    WAV natively, other formats through ffmpeg by way of a temporary file
+    (the muxer chosen from its extension)."""
+    fmt = (fmt or "wav").lower().lstrip(".")
+    if fmt in ("wav", "wave"):
+        buf = io.BytesIO()
+        write_wav(buf, audio, sample_rate, sample_width=sample_width)
+        return buf.getvalue()
+    fd, tmp = tempfile.mkstemp(suffix="." + fmt)
+    os.close(fd)
+    try:
+        write_audio(tmp, audio, sample_rate, sample_width=sample_width)
+        with open(tmp, "rb") as f:
+            return f.read()
+    finally:
+        os.unlink(tmp)
+
+
+_CONTENT_TYPES = {
+    "wav": "audio/wav", "wave": "audio/wav", "mp3": "audio/mpeg",
+    "flac": "audio/flac", "aiff": "audio/aiff", "aif": "audio/aiff",
+    "ogg": "audio/ogg", "opus": "audio/opus", "m4a": "audio/mp4",
+    "mp4": "audio/mp4", "wma": "audio/x-ms-wma",
+}
+
+
+def audio_content_type(fmt: str) -> str:
+    """MIME type of an audio container name or extension."""
+    return _CONTENT_TYPES.get((fmt or "").lower().lstrip("."),
+                              "application/octet-stream")

@@ -1,11 +1,23 @@
-"""The worker-variant mastering chain over the rows form, in PyTorch.
+"""The mastering chain over the rows form, in PyTorch, both variants.
 
 Counterpart of ``python_audio_mastering_tpu.models.chain`` (the
-rows-resident body ``_master_cm``):
+rows-resident body ``_master_cm``, and for ``variant="legacy"`` the body
+of its ``master``):
 
     saturate → 4-band EQ → stereo width → [3-band multiband compressor] →
     BS.1770 gated loudness → gain → soft limiter (or, in quality mode,
     the lookahead true-peak limiter of ``ops.limiter``)
+
+The legacy chain (the reference's monolith service, main.py:94-192) has
+its own stages: ``tanh(g·x)/g`` saturation, an EQ of four serial blends
+of the signal with a Butterworth filter of it (:meth:`MasteringChain.
+legacy_eq`, plain torch: no TPU kernel computes it), the legacy
+multiband split and a tanh limiter.  One-shot (:func:`master`, and the
+album of ``parallel.batch.master_album``) it runs that EQ; the streamed
+runner runs the worker EQ cascade behind the legacy saturation instead,
+as the JAX streamed runner does (a quirk of the reference, ROADMAP queue
+3): there the front is one ``front_chain`` launch with the legacy
+exciter.
 
 The signal is folded into rows ``(C, nb, L)`` of ``L = block_size``
 samples, zero-padded to a block multiple.  Kernels carry the path:
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -48,6 +61,7 @@ from python_audio_mastering_tpu_torch.config import ChainConfig, MasteringParams
 from python_audio_mastering_tpu_torch.ops import iir
 from python_audio_mastering_tpu_torch.ops._kernels import upload
 from python_audio_mastering_tpu_torch.ops.biquad import (
+    butter_sos,
     reference_peak_sos,
     reference_shelf_sos,
 )
@@ -59,16 +73,23 @@ from python_audio_mastering_tpu_torch.ops.loudness import (
     kweight_sos,
 )
 from python_audio_mastering_tpu_torch.ops.multiband import (
+    BALLISTICS,
+    VARIANTS,
     crossover_ops,
     multiband_compress_rows,
 )
+from python_audio_mastering_tpu_torch.ops.stereo import stereo_width
 from python_audio_mastering_tpu_torch.ops.waveshaper import (
-    saturate,
+    exciter,
+    exciter_coefs,
+    saturate_legacy,
     soft_limiter,
+    soft_limiter_legacy,
 )
 
 __all__ = ["master", "MasterResult", "MasteringChain", "eq_sos",
-           "check_supported", "check_fp32_matmul", "require_device"]
+           "legacy_eq_sos", "check_supported", "check_fp32_matmul",
+           "require_device"]
 
 _EQ_CACHE_SIZE = 16
 _LIMITER_MODES = ("reference", "lookahead_truepeak")
@@ -97,13 +118,38 @@ def eq_sos(params: MasteringParams, sample_rate: int):
     ], axis=0)
 
 
+@functools.lru_cache(maxsize=8)
+def legacy_eq_sos(sample_rate: int):
+    """The legacy EQ's four static Butterworth filters, float64 (main.py:
+    118-154): the 250 Hz order-5 low-pass and 8 kHz order-5 high-pass of
+    the shelves, the order-2 band-passes around 1 kHz and 4 kHz (Q 1) of
+    the peaks.  The sliders set only the blends."""
+    def band(fc, q=1.0):
+        normal = fc / (0.5 * sample_rate)
+        e1, e2 = normal / np.sqrt(q), normal * np.sqrt(q)
+        return butter_sos(2, [min(e1, e2), min(max(e1, e2), 0.999999)],
+                          "bandpass")
+
+    return (butter_sos(5, 250.0 / (0.5 * sample_rate), "lowpass"),
+            band(1000.0), band(4000.0),
+            butter_sos(5, 8000.0 / (0.5 * sample_rate), "highpass"))
+
+
+def _db_gain(gain_db):
+    """``10^(gain_db/20)`` in float32, as the JAX chain computes it."""
+    return float(10.0 ** (torch.tensor(float(gain_db), dtype=torch.float32)
+                          / 20.0))
+
+
 def check_supported(params: MasteringParams, config: ChainConfig):
-    """Raise ``NotImplementedError`` for what this port does not run yet,
-    and ``ValueError`` for a limiter mode that does not exist."""
-    if config.variant != "worker":
-        raise NotImplementedError(
-            f"variant={config.variant!r}: the legacy chain is ROADMAP "
-            "queue 1 item 4")
+    """Raise ``ValueError`` for a variant, a ballistics execution or a
+    limiter mode that does not exist."""
+    if config.variant not in VARIANTS:
+        raise ValueError(f"unknown variant {config.variant!r}: one of "
+                         f"{VARIANTS}")
+    if config.comp_ballistics not in BALLISTICS:
+        raise ValueError(f"unknown comp_ballistics "
+                         f"{config.comp_ballistics!r}: one of {BALLISTICS}")
     if config.limiter_mode not in _LIMITER_MODES:
         raise ValueError(f"unknown limiter_mode {config.limiter_mode!r}: "
                          f"one of {_LIMITER_MODES}")
@@ -138,7 +184,7 @@ def check_fp32_matmul(device):
 
 
 class MasteringChain(nn.Module):
-    """The worker chain for one :class:`ChainConfig`.
+    """The mastering chain for one :class:`ChainConfig`.
 
     Buffers: the K-weighting blocked operators (float64-built; ``T``/``W``
     cast to the config dtype, ``G``/``A^L`` kept float64 for the states
@@ -162,6 +208,7 @@ class MasteringChain(nn.Module):
         self._kw_prefix = {}
         self._eq_cache = collections.OrderedDict()
         self._xover = {}
+        self._legacy_eq = {}
 
     @property
     def device(self):
@@ -191,13 +238,52 @@ class MasteringChain(nn.Module):
 
     def crossover_ops(self):
         """The multiband crossovers' blocked operators on this chain's
-        device (built at first use)."""
+        device (built at first use; the legacy split's three)."""
         ops = self._xover.get(self.device)
         if ops is None:
             ops = crossover_ops(self.config.sample_rate,
-                                self.config.block_size, self.device)
+                                self.config.block_size, self.device,
+                                variant=self.config.variant)
             self._xover[self.device] = ops
         return ops
+
+    def legacy_eq_ops(self):
+        """The legacy EQ's four filters' blocked operators on this chain's
+        device (float64-built; built at first use)."""
+        ops = self._legacy_eq.get(self.device)
+        if ops is None:
+            ops = tuple(iir.blocked_ops(s, self.config.block_size,
+                                        self.device, self.config.torch_dtype())
+                        for s in legacy_eq_sos(self.config.sample_rate))
+            self._legacy_eq[self.device] = ops
+        return ops
+
+    def legacy_eq(self, xrows, params):
+        """The legacy EQ (JAX ``_apply_eq_legacy``) over stereo rows ``(2,
+        nb, L)`` (or ``(2·T, nb, L)``, T tracks of one setting): four serial
+        stages, each a blend of its input with one blocked filter of it
+        (float64 states pass, float32 ``x @ T + s_in @ Wᵀ``).  The shelves
+        blend ``x + F·(g−1)`` for a boost and ``x·g + F·(1−g)`` for a cut
+        (a host branch on the slider), the peaks ``x + F·(g−1)``."""
+        shelf_lo, peak_1k, peak_4k, shelf_hi = self.legacy_eq_ops()
+
+        def filtered(x, ops):
+            return iir.sosfilt_blocked_rows(None, x, return_state=False,
+                                            ops=ops)[0]
+
+        def shelf(x, ops, gain_db):
+            g = _db_gain(gain_db)
+            if float(gain_db) > 0:
+                return x + filtered(x, ops) * (g - 1.0)
+            return x * g + filtered(x, ops) * (1.0 - g)
+
+        def peak(x, ops, gain_db):
+            return x + filtered(x, ops) * (_db_gain(gain_db) - 1.0)
+
+        x = shelf(xrows, shelf_lo, params.bass_boost)
+        x = peak(x, peak_1k, -float(params.mid_cut))
+        x = peak(x, peak_4k, params.presence_boost)
+        return shelf(x, shelf_hi, params.treble_boost)
 
     def multiband(self, xrows, params, state=None,
                   return_state: bool = False, emit_mono: bool = False):
@@ -218,50 +304,81 @@ class MasteringChain(nn.Module):
             ratios=sliders("low_ratio", "mid_ratio", "high_ratio"),
             hop=cfg.comp_hop, ballistics=cfg.comp_ballistics, state=state,
             return_state=return_state, emit_mono=emit_mono,
-            ops=self.crossover_ops())
+            ops=self.crossover_ops(), variant=cfg.variant,
+            block_ctrl=cfg.comp_block_ctrl,
+            overlap_ctrl=cfg.comp_overlap_ctrl)
 
-    def front_groups(self, tracks_params):
+    def front_groups(self, tracks_params, legacy_eq: bool = False):
         """The tracks of an album grouped by their front settings (EQ
-        coefficients, saturation, width), which ``front_chain`` takes one
-        of per launch: ``[(params, track indices, EQ operators), ...]``.
-        A run computes them once and holds the operators to its end."""
+        sliders, saturation, width), which ``front_chain`` takes one of per
+        launch: ``[(params, track indices, EQ operators), ...]``.  A run
+        computes them once and holds the operators to its end.
+        ``legacy_eq``: groups of the one-shot legacy front (no EQ
+        operators: its filters are static)."""
         groups = {}
         for i, p in enumerate(tracks_params):
-            sos = eq_sos(p, self.config.sample_rate).astype(self.config.dtype)
-            key = (sos.tobytes(), float(p.saturation), float(p.width))
+            if legacy_eq:
+                eq = (float(p.bass_boost), float(p.mid_cut),
+                      float(p.presence_boost), float(p.treble_boost))
+            else:
+                eq = eq_sos(p, self.config.sample_rate).astype(
+                    self.config.dtype).tobytes()
+            key = (eq, float(p.saturation), float(p.width))
             groups.setdefault(key, (p, []))[1].append(i)
-        return [(p, idx, self.eq_ops(p)) for p, idx in groups.values()]
+        return [(p, idx, None if legacy_eq else self.eq_ops(p))
+                for p, idx in groups.values()]
 
     def _front_group(self, x4, params, ops, zi, return_state, emit):
         """:meth:`front` of ``(C, T, nb, L)`` tracks that share ``params``:
         one states pass over the ``C·T`` sequences, one kernel launch over
-        ``(C, T·nb, L)``.  Returns ``(y, mono (T, nb, L) or None, zf)``."""
+        ``(C, T·nb, L)`` (the one-shot legacy front when ``ops`` is None).
+        Returns ``(y, mono (T, nb, L) or None, zf)``."""
         c, tracks, nb, L = x4.shape
-        xs = saturate(x4, params.saturation).reshape(c * tracks, nb, L)
+        if ops is None:
+            return self._legacy_front_group(x4, params, emit)
+        coefs = exciter_coefs(params.saturation, self.config.variant)
+        xs = exciter(x4, coefs).reshape(c * tracks, nb, L)
         s_in, zf, _ = iir.sosfilt_states_rows(
             None, xs, zi=zi, return_state=return_state, ops=ops)
         y = front_chain(x4.reshape(c, tracks * nb, L),
                         s_in.reshape(c, tracks * nb, -1), ops.t, ops.w,
-                        params.saturation, params.width, emit_mono=emit)
+                        coefs, params.width, emit_mono=emit)
         ym = None
         if emit:
             y, ym = y
             ym = ym.reshape(tracks, nb, L)
         return y.reshape(x4.shape), ym, zf
 
+    def _legacy_front_group(self, x4, params, emit):
+        """The one-shot legacy front of ``(C, T, nb, L)`` tracks that share
+        ``params`` (JAX ``master``, legacy): ``saturate_legacy`` → the
+        legacy EQ (stereo only; other inputs pass unprocessed) → width,
+        plain torch.  Returns ``(y, mono or None, None)``."""
+        c, tracks, nb, L = x4.shape
+        x = saturate_legacy(x4, params.saturation)
+        if c == 2:
+            x = self.legacy_eq(x.reshape(c * tracks, nb, L),
+                               params).reshape(x4.shape)
+        y = stereo_width(x, params.width, channel_axis=0)
+        return y, (y.mean(dim=0) if emit else None), None
+
     def front(self, xrows, params, state=None, return_state: bool = False,
-              emit_mono: bool = False, groups=None):
+              emit_mono: bool = False, groups=None, legacy_eq: bool = False):
         """saturate → EQ → width over rows (``chain._front``).
 
         The EQ states come from the SATURATED signal; the kernel reads the
-        raw one and saturates as it loads.  ``state``/``return_state``:
-        the carried EQ ``zi`` (scipy layout ``(K, 2, C)``) of streaming.
-        ``emit_mono``: also return the channel-mean rows ``(nb, L)``.
+        raw one and saturates as it loads (with the legacy chain's exciter
+        for a legacy config).  ``state``/``return_state``: the carried EQ
+        ``zi`` (scipy layout ``(K, 2, C)``) of streaming.  ``emit_mono``:
+        also return the channel-mean rows ``(nb, L)``.
 
         An album's ``(C, T, nb, L)`` takes a sequence of T params (``zi``
         ``(K, 2, C·T)``, mono ``(T, nb, L)``) and launches the kernel once
         per group of :meth:`front_groups` (pass ``groups`` to reuse them),
         on a gathered copy of the group's tracks when there are several.
+
+        ``legacy_eq``: the one-shot legacy front instead
+        (:meth:`_legacy_front_group`), which carries no state.
 
         Returns ``y``, ``(y, ym)`` with ``emit_mono``, and ``eq_zf``
         appended with ``return_state``.
@@ -269,7 +386,8 @@ class MasteringChain(nn.Module):
         album = xrows.ndim == 4
         x4 = xrows if album else xrows[:, None]
         c, tracks, nb, L = x4.shape
-        groups = groups or self.front_groups(params if album else [params])
+        groups = groups or self.front_groups(params if album else [params],
+                                             legacy_eq)
         emit = emit_mono and c > 1
         if len(groups) == 1:
             p, _, ops = groups[0]
@@ -278,9 +396,12 @@ class MasteringChain(nn.Module):
         else:
             y = torch.empty_like(x4)
             ym = x4.new_empty((tracks, nb, L)) if emit else None
-            k = groups[0][2].k
-            zi4 = None if state is None else state.reshape(k, 2, c, tracks)
-            zf4 = x4.new_empty((k, 2, c, tracks)) if return_state else None
+            stateless = groups[0][2] is None     # the one-shot legacy front
+            k = None if stateless else groups[0][2].k
+            zi4 = (None if state is None or stateless
+                   else state.reshape(k, 2, c, tracks))
+            zf4 = (x4.new_empty((k, 2, c, tracks))
+                   if return_state and not stateless else None)
             for p, idx, ops in groups:
                 sel = upload(idx, torch.int64, x4.device)
                 zi = (None if zi4 is None else
@@ -290,9 +411,9 @@ class MasteringChain(nn.Module):
                 y[:, sel] = yg
                 if emit:
                     ym[sel] = ymg
-                if return_state:
+                if zf4 is not None:
                     zf4[:, :, :, sel] = zfg.reshape(k, 2, c, len(idx))
-            eq_zf = zf4.reshape(k, 2, c * tracks) if return_state else state
+            eq_zf = state if zf4 is None else zf4.reshape(k, 2, c * tracks)
         if emit_mono and not emit:
             ym = y[0]  # mono input: the signal is its own downmix
         y = y.reshape(xrows.shape)
@@ -301,6 +422,12 @@ class MasteringChain(nn.Module):
         if emit_mono:
             return (y, ym, eq_zf) if return_state else (y, ym)
         return (y, eq_zf) if return_state else y
+
+    def limiter(self, x):
+        """The variant's soft limiter at the config's threshold."""
+        lim = soft_limiter_legacy if self.config.variant == "legacy" \
+            else soft_limiter
+        return lim(x, threshold=self.config.limiter_threshold)
 
     def forward(self, audio, params: MasteringParams,
                 return_result: bool = False):
@@ -325,16 +452,18 @@ class MasteringChain(nn.Module):
 
         want_mono = (params.lufs_enabled and c > 1
                      and cfg.measure_downmix == "reference_mono_mean")
+        legacy = cfg.variant == "legacy"
         meter_rows = None
         if params.multiband:
-            xr = self.multiband(self.front(xr, params), params,
-                                emit_mono=want_mono)
+            xr = self.multiband(self.front(xr, params, legacy_eq=legacy),
+                                params, emit_mono=want_mono)
             if want_mono:
                 xr, meter_rows = xr
         elif want_mono:
-            xr, meter_rows = self.front(xr, params, emit_mono=True)
+            xr, meter_rows = self.front(xr, params, emit_mono=True,
+                                        legacy_eq=legacy)
         else:
-            xr = self.front(xr, params)
+            xr = self.front(xr, params, legacy_eq=legacy)
 
         if params.lufs_enabled:
             measured = integrated_loudness_rows(
@@ -352,8 +481,7 @@ class MasteringChain(nn.Module):
         if cfg.limiter_mode == "lookahead_truepeak":
             y = lookahead_limiter(xr.reshape(c, nb * L).T[:n], cfg.sample_rate)
         else:
-            y = soft_limiter(xr, threshold=cfg.limiter_threshold)
-            y = y.reshape(c, nb * L).T[:n]
+            y = self.limiter(xr).reshape(c, nb * L).T[:n]
         if squeeze:
             y = y[:, 0]
         if return_result:
@@ -364,7 +492,8 @@ class MasteringChain(nn.Module):
 
 def master(audio, params: MasteringParams, config: ChainConfig,
            return_result: bool = False, device="cuda"):
-    """Run the mastering chain on ``(N, C)`` or ``(N,)`` float audio.
+    """Run the mastering chain of ``config.variant`` on ``(N, C)`` or
+    ``(N,)`` float audio.
 
     ``device``: where to run, the card unless the caller passes
     ``device="cpu"``; raises when no card is there (see

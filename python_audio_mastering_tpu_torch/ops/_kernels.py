@@ -36,9 +36,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, t, wt, s_in, y, mono, C, nb, L, S, mix, drive, width, stream
+    # x, t, wt, s_in, y, mono, C, nb, L, S, dry, wet, drive, width, stream
     "pam_front_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                        _P],
+                        _F, _P],
     # x, t, wt, s_in, out, part, tickets, C, nb, L, S, h, stream
     "pam_kweight_cells": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],

@@ -2,8 +2,9 @@
 
 Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
 
-* :func:`front_chain` (CUDA ``csrc/front_chain.cu``) — saturate → EQ from
-  per-block states → stereo width, plus the mono downmix;
+* :func:`front_chain` (CUDA ``csrc/front_chain.cu``) — the exciter of
+  either chain variant → EQ from per-block states → stereo width, plus
+  the mono downmix;
 * :func:`kweight_cells` (CUDA ``csrc/kweight_cells.cu``) — K-weighting
   from per-block states → square → ``h``-bucket sums;
 * :func:`band_energies` (CUDA ``csrc/band_energies.cu``) — the crossover
@@ -41,8 +42,8 @@ from python_audio_mastering_tpu_torch.ops._kernels import ptr as _ptr
 from python_audio_mastering_tpu_torch.ops._kernels import raise_on as _raise_on
 from python_audio_mastering_tpu_torch.ops.stereo import stereo_width
 from python_audio_mastering_tpu_torch.ops.waveshaper import (
-    saturate,
-    saturation_coefs,
+    exciter,
+    exciter_coefs,
 )
 
 __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
@@ -58,11 +59,11 @@ _TF32_TILE_COLS = 128
 _TF32_STATE_DEPTH = 16
 
 
-def front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
+def front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation, width,
                     emit_mono: bool = False):
     """Plain version of :func:`front_chain` (same algebra)."""
     c, nb, L = xrows.shape
-    xs = saturate(xrows, saturation_percent).reshape(c * nb, L)
+    xs = exciter(xrows, exciter_coefs(saturation)).reshape(c * nb, L)
     y = xs @ t_eq + s_in_eq.reshape(c * nb, -1) @ w_eq.T
     y = stereo_width(y.reshape(c, nb, L), width, channel_axis=0)
     if emit_mono:
@@ -131,7 +132,7 @@ def _check_tf32_operands(name, xrows, t, s, filters):
                              f"boundary (the kernel copies 16-byte chunks)")
 
 
-def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
+def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation, width,
                 emit_mono: bool = False):
     """Fused chain front over rows form: one signal read + one write.
 
@@ -140,14 +141,18 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
       s_in_eq: ``(C, nb, S)`` per-block EQ incoming states, computed from
         the SATURATED signal (``iir.sosfilt_states_rows``).
       t_eq / w_eq: the EQ's ``T (L, L)`` and ``W (L, S)`` operators.
-      saturation_percent / width: the slider values.
+      saturation: the exciter, ``dry·x + wet·tanh(drive·x)``: the worker's
+        saturation percent, or a ``(dry, wet, drive)`` triple
+        (``waveshaper.exciter_coefs``; the legacy chain's ``tanh(g·x)/g``
+        is ``(0, 1/g, g)``).
+      width: the width slider.
       emit_mono: also return the output's channel mean ``(nb, L)``.
 
     Returns ``y (C, nb, L)``, or ``(y, mono)`` with ``emit_mono``.
     """
     if xrows.device.type == "cpu":
-        return front_chain_ref(xrows, s_in_eq, t_eq, w_eq,
-                               saturation_percent, width, emit_mono)
+        return front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation,
+                               width, emit_mono)
     c, nb, L, s = _check_operands("front_chain", xrows, s_in_eq, t_eq, w_eq)
     t_eq = t_eq.contiguous()
     _check_tf32_operands("front_chain", xrows, t_eq, s, filters=1)
@@ -155,14 +160,14 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation_percent, width,
     mono = (torch.empty((nb, L), dtype=xrows.dtype, device=xrows.device)
             if emit_mono else None)
     wt = w_eq.T.contiguous()
-    mix, drive = saturation_coefs(saturation_percent)
+    dry, wet, drive = exciter_coefs(saturation)
     lib = _kernels.library().lib
     with torch.cuda.device(xrows.device):
         stream = torch.cuda.current_stream(xrows.device).cuda_stream
         err = lib.pam_front_chain(
             _ptr(xrows), _ptr(t_eq), _ptr(wt), _ptr(s_in_eq), _ptr(y),
-            None if mono is None else _ptr(mono), c, nb, L, s, mix, drive,
-            float(width), stream)
+            None if mono is None else _ptr(mono), c, nb, L, s, dry, wet,
+            drive, float(width), stream)
     _raise_on("front_chain", err)
     front_chain.launches += 1
     return (y, mono) if emit_mono else y

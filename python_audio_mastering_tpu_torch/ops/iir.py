@@ -43,6 +43,9 @@ __all__ = [
     "sosfilt_states_rows",
     "sosfilt_states_multi_rows",
     "sosfilt_blocked_rows",
+    "recompute_rows",
+    "to_rows",
+    "from_rows",
 ]
 
 
@@ -191,6 +194,7 @@ class BlockedOps:
     al64: np.ndarray
     k: int
     prefix: dict = dataclasses.field(default_factory=dict)
+    sos: np.ndarray | None = None
 
 
 def blocked_ops(sos, block_size, device="cpu", dtype=torch.float32):
@@ -206,7 +210,7 @@ def blocked_ops(sos, block_size, device="cpu", dtype=torch.float32):
 
     return BlockedOps(t=on(t, dtype), g=on(g, _STATES_DTYPE),
                       w=on(w, dtype), al=on(al, _STATES_DTYPE),
-                      al64=np.ascontiguousarray(al), k=sos.shape[0])
+                      al64=np.ascontiguousarray(al), k=sos.shape[0], sos=sos)
 
 
 def zi_to_state(zi):
@@ -230,24 +234,46 @@ def _initial_state(zi, k, c, like):
     return zi_to_state(zi).T.contiguous()
 
 
-def _states_from_summaries(t_vec, zi, ops, dtype, return_state):
+def _states_from_summaries(t_vec, zi, ops, dtype, return_state,
+                           rows64=None, n_valid=None):
     """Incoming states ``(C, nb, S)`` in ``dtype`` and the scipy-layout
-    final state from one cascade's float64 block summaries ``t_vec``."""
-    s0 = _initial_state(zi, ops.k, t_vec.shape[0], t_vec)
+    final state from one cascade's float64 block summaries ``t_vec``.
+
+    ``n_valid``: the final state is the one after the first ``n_valid``
+    samples (the rest is padding): the incoming state of the block it
+    falls in, carried over that block's first samples by the operators of
+    a block of their length (float64, host-built).  ``rows64`` ``(C, nb,
+    L)`` is the float64 signal, needed then."""
+    c, nb, _ = t_vec.shape
+    s0 = _initial_state(zi, ops.k, c, t_vec)
     s_in64 = _affine_prefix_static(t_vec, s0, ops.al64, cache=ops.prefix)
     s_in = s_in64.to(dtype).contiguous()
     if not return_state:
         return s_in, zi
-    s_last = s_in64[:, -1] @ ops.al.T + t_vec[:, -1]           # (C, S)
+    L = rows64.shape[2] if rows64 is not None else None
+    if n_valid is None or n_valid >= nb * L:
+        s_last = s_in64[:, -1] @ ops.al.T + t_vec[:, -1]           # (C, S)
+    else:
+        j, r = divmod(int(n_valid), L)
+        s_last = s_in64[:, j]
+        if r:
+            _, g_r, _, al_r = _blocked_operators_static(
+                ops.sos.tobytes(), ops.k, r)
+            s_last = (s_last @ torch.as_tensor(al_r.T, device=s_last.device)
+                      + rows64[:, j, :r] @ torch.as_tensor(
+                          g_r, device=s_last.device))
     return s_in, state_to_zi(s_last.T, ops.k).to(dtype)
 
 
-def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None):
+def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None,
+                        n_valid=None):
     """Per-block incoming states of one cascade over rows ``(C, nb, L)``.
 
     One ``rows @ G`` read of the signal plus the scan-free boundary
     prefix.  ``ops`` (from :func:`blocked_ops`) skips the operator lookup
-    when the caller holds them already.
+    when the caller holds them already.  ``n_valid``: the samples of the
+    signal before its zero padding, where ``zf`` is taken (all of them
+    when None).
 
     Returns ``(s_in (C, nb, S), zf, ops)`` with ``zf`` the final state in
     scipy layout ``(K, 2, C)`` (``zi`` unchanged when ``return_state`` is
@@ -259,12 +285,14 @@ def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None):
     rows = xrows.reshape(c * nb, L).to(_STATES_DTYPE)
     t_vec = (rows @ ops.g).reshape(c, nb, -1)
     s_in, zf = _states_from_summaries(t_vec, zi, ops, xrows.dtype,
-                                      return_state)
+                                      return_state, rows.view(c, nb, L),
+                                      n_valid)
     return s_in, zf, ops
 
 
 def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None,
-                              return_state=True, ops_list=None):
+                              return_state=True, ops_list=None,
+                              n_valid=None):
     """Per-block incoming states of F cascades over rows ``(C, nb, L)``,
     from ONE shared float64 ``rows @ [G_1 | … | G_F]`` read of the signal
     (the multiband crossovers: the band kernels recompute each block's
@@ -273,7 +301,8 @@ def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None,
 
     Returns ``(s_ins, zfs)``: per-filter ``(C, nb, S_f)`` incoming states
     and scipy-layout ``(K, 2, C)`` final states (the ``zi`` given, when
-    ``return_state`` is False).
+    ``return_state`` is False), taken after ``n_valid`` samples as in
+    :func:`sosfilt_states_rows`.
     """
     c, nb, L = xrows.shape
     if ops_list is None:
@@ -290,18 +319,46 @@ def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None,
         t_vec = tv_cat[:, col:col + s_dim].reshape(c, nb, s_dim)
         col += s_dim
         s_in, zf = _states_from_summaries(t_vec, zi, ops, xrows.dtype,
-                                          return_state)
+                                          return_state, rows.view(c, nb, L),
+                                          n_valid)
         s_ins.append(s_in)
         zfs.append(zf)
     return tuple(s_ins), tuple(zfs)
 
 
-def sosfilt_blocked_rows(sos, xrows, zi=None, return_state=True, ops=None):
+def sosfilt_blocked_rows(sos, xrows, zi=None, return_state=True, ops=None,
+                         n_valid=None):
     """Plain blocked filter over rows ``(C, nb, L)``: the states pass, then
     ``y = rows @ T + s_in @ Wᵀ``.  Returns ``(yrows, zf)``."""
     c, nb, L = xrows.shape
     s_in, zf, ops = sosfilt_states_rows(sos, xrows, zi=zi,
-                                        return_state=return_state, ops=ops)
+                                        return_state=return_state, ops=ops,
+                                        n_valid=n_valid)
+    return recompute_rows(xrows, s_in, ops), zf
+
+
+def recompute_rows(xrows, s_in, ops):
+    """A blocked filter's output from its incoming states:
+    ``rows @ T + s_in @ Wᵀ`` over ``(C, nb, L)``, in the rows' dtype."""
+    c, nb, L = xrows.shape
     y = xrows.reshape(c * nb, L) @ ops.t + \
         s_in.reshape(c * nb, -1) @ ops.w.T
-    return y.reshape(c, nb, L), zf
+    return y.reshape(c, nb, L)
+
+
+# the block of the (N, C) functions' rows: a multiple of the kernels' 128
+# columns that the gpu_default hops divide
+NC_BLOCK = 384
+
+
+def to_rows(x, block_size=NC_BLOCK):
+    """``(N, C)`` audio as zero-padded rows ``(C, nb, L)``."""
+    n, c = x.shape
+    nb = max(1, -(-n // block_size))
+    return torch.nn.functional.pad(x.T, (0, nb * block_size - n)).reshape(
+        c, nb, block_size)
+
+
+def from_rows(yrows, n):
+    """Rows ``(C, nb, L)`` back to ``(N, C)`` audio, cut at ``n``."""
+    return yrows.reshape(yrows.shape[0], -1)[:, :n].T

@@ -13,6 +13,10 @@ Counterpart of the rows-form half of
 Downmix modes: ``"reference_mono_mean"`` measures the channel mean as one
 mono signal (the reference engine's behaviour, the chain default);
 ``"bs1770"`` weights per-channel energies as the spec says.
+
+:func:`block_cell_energies`, :func:`integrated_loudness` and
+:func:`normalize_to_lufs` take ``(N, C)`` audio, folded into rows for
+the same kernel.
 """
 
 from __future__ import annotations
@@ -36,7 +40,11 @@ __all__ = [
     "integrated_loudness_rows",
     "loudness_from_cells",
     "gain_for_target",
+    "block_cell_energies",
+    "integrated_loudness",
+    "normalize_to_lufs",
 ]
+
 
 _ABS_GATE_LUFS = -70.0
 _REL_GATE_LU = -10.0
@@ -80,7 +88,8 @@ def block_cell_energies_rows(xrows, sample_rate, zi=None, valid_frames=None,
     K-filter's blocked operators (``iir.blocked_ops``), looked up when not
     given.  ``zi``/``return_state``: the carried K-filter state of chunked
     streaming, ``(K, 2, C·T)`` for an album.  ``valid_frames``: cells that
-    reach past it are masked out of the gating (zero-padded tails).
+    reach past it are masked out of the gating (zero-padded tails), and
+    ``zf`` is the state after it.
 
     Returns ``(cell_ms (num_cells, C), cell_mask or None, zf)``; for an
     album ``cell_ms`` is ``(T, num_cells, C)``.
@@ -94,7 +103,7 @@ def block_cell_energies_rows(xrows, sample_rate, zi=None, valid_frames=None,
     n_cells = n // cell
     s_in, zf, ops = iir.sosfilt_states_rows(
         kweight_sos(sample_rate), x4.reshape(c * tracks, nb, L), zi=zi,
-        return_state=return_state, ops=ops)
+        return_state=return_state, ops=ops, n_valid=valid_frames)
     buck = kweight_cells(x4.reshape(c, tracks * nb, L),
                          s_in.reshape(c, tracks * nb, -1), ops.t, ops.w, h)
     per_cell = cell // h
@@ -169,3 +178,44 @@ def gain_for_target(loudness, target_lufs):
     silent (−inf) measurement instead of an infinite gain."""
     gain = 10.0 ** ((target_lufs - loudness) / 20.0)
     return torch.where(torch.isfinite(loudness), gain, torch.ones_like(gain))
+
+
+def _as_audio(x):
+    x = torch.as_tensor(x)
+    return x[:, None] if x.ndim == 1 else x
+
+
+def block_cell_energies(x, sample_rate, zi=None):
+    """Per-cell mean-square K-weighted energies of ``(N, C)`` (or
+    ``(N,)``) audio, through the rows path and its kernel (JAX
+    ``block_cell_energies``).  Returns ``(cell_ms (N // cell, C), zf)``:
+    complete cells only, ``zf`` the K-filter state after the N samples."""
+    x = _as_audio(x)
+    n = x.shape[0]
+    cell_ms, _, zf = block_cell_energies_rows(
+        iir.to_rows(x), sample_rate, zi=zi, valid_frames=n,
+        return_state=True)
+    return cell_ms[: n // _gating_geometry(sample_rate)[0]], zf
+
+
+def integrated_loudness(x, sample_rate, downmix="bs1770", valid_frames=None):
+    """Gated integrated loudness (LUFS, 0-d tensor) of ``(N, C)`` or
+    ``(N,)`` audio; ``valid_frames``: only cells inside the first
+    ``valid_frames`` samples count."""
+    x = _as_audio(x)
+    n = x.shape[0]
+    vf = n if valid_frames is None else min(int(valid_frames), n)
+    return integrated_loudness_rows(iir.to_rows(x), sample_rate,
+                                    downmix=downmix, valid_frames=vf)
+
+
+def normalize_to_lufs(x, sample_rate, target_lufs=-14.0,
+                      downmix="reference_mono_mean", valid_frames=None):
+    """Measure, then one linear gain to ``target_lufs`` (no re-measure, no
+    clip guard: a limiter follows).  Returns ``(y, measured_lufs,
+    gain_linear)``."""
+    x = torch.as_tensor(x)
+    loudness = integrated_loudness(x, sample_rate, downmix=downmix,
+                                   valid_frames=valid_frames)
+    gain = gain_for_target(loudness, target_lufs)
+    return x * gain, loudness, gain

@@ -4,9 +4,9 @@ Counterpart of ``python_audio_mastering_tpu.ops.meters``:
 
 * momentary (400 ms) and short-term (3 s) loudness series, one value per
   100 ms step, from the same K-weighted cell energies the integrated meter
-  gates: the signal is folded into rows of :data:`METER_BLOCK` samples and
-  measured by ``loudness.block_cell_energies_rows`` (the ``kweight_cells``
-  kernel on a CUDA tensor, its plain version on the CPU);
+  gates, measured by ``loudness.block_cell_energies`` (the
+  ``kweight_cells`` kernel on a CUDA tensor, its plain version on the
+  CPU);
 * loudness range (EBU Tech 3342): the 10th → 95th percentile spread of
   the short-term series after a −70 LUFS absolute and a −20 LU relative
   gate;
@@ -31,15 +31,13 @@ import torch.nn.functional as F
 
 from python_audio_mastering_tpu_torch.ops.loudness import (
     _LOUDNESS_OFFSET,
-    _gating_geometry,
-    block_cell_energies_rows,
+    block_cell_energies,
     channel_weights,
 )
 
 __all__ = ["momentary_loudness", "shortterm_loudness", "loudness_range",
            "lra_from_shortterm", "true_peak_db", "true_peak_linear"]
 
-METER_BLOCK = 384   # rows of the series meters (the chain's gpu_default L)
 _ROW = 64           # interpolator outputs per product row
 
 
@@ -68,11 +66,7 @@ def _cells(x, sample_rate, downmix):
         x = x[:, None]
     if downmix == "reference_mono_mean":
         x = x.mean(dim=1, keepdim=True)
-    n, c = x.shape
-    nb = -(-n // METER_BLOCK)
-    xrows = F.pad(x.T, (0, nb * METER_BLOCK - n)).reshape(c, nb, METER_BLOCK)
-    cells, _, _ = block_cell_energies_rows(xrows, sample_rate)
-    return cells[: n // _gating_geometry(sample_rate)[0]]
+    return block_cell_energies(x, sample_rate)[0]
 
 
 def momentary_loudness(x, sample_rate, downmix="bs1770"):

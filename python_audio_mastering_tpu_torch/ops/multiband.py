@@ -1,29 +1,41 @@
-"""3-band multiband compressor over the rows form (the worker split).
+"""3-band multiband compressor over the rows form, both split variants.
 
-Counterpart of the rows path of ``python_audio_mastering_tpu.ops.
-multiband`` (``multiband_compress_rows`` through its fused-kernel body
-``_multiband_rows_pallas``).  Crossovers at 250 Hz / 4 kHz are 4th-order
-Butterworth filters designed on the host in float64;
-``low = LP4(x)``, ``high = HP4(x)``, ``mid = x − low − high``.  Each band
-runs pydub's compressor with the reference's fixed ballistics (low
-10/200 ms, mid 5/150 ms, high 1/50 ms attack/release), and the bands sum
-back as ``y = x·g_mid + low·(g_low − g_mid) + high·(g_high − g_mid)``.
+Counterpart of ``python_audio_mastering_tpu.ops.multiband``.  Crossovers
+at 250 Hz / 4 kHz are 4th-order Butterworth filters designed on the host
+in float64; ``low = LP4(x)``, ``high = HP4(x)``, and the mid band is
 
-The data path, in order:
+* ``"worker"``: ``mid = x − low − high`` (the subtraction split);
+* ``"legacy"``: ``mid = LP4_4k(HP4_250(x))``, a real band (the legacy
+  chain of the monolith service, reference main.py:165-168).
+
+Each band runs pydub's compressor with the reference's fixed ballistics
+(low 10/200 ms, mid 5/150 ms, high 1/50 ms attack/release).
+
+The worker data path, in order:
 
 1. crossover states: ``iir.sosfilt_states_multi_rows`` (plain torch,
    float64) — every block's incoming state of both filters;
 2. ``band_energies`` (kernel K2) — the bands recomputed per block from
    those states, squared, channel-averaged, bucketed to the control rate;
-3. the detector (plain torch, :func:`_fused_stats_from_ctrl`): windowed
-   means from a float64 running sum, then the dB gain computer;
-4. the exact ballistics (``ops.ballistics``, kernels K5–K7);
+3. the detector (plain torch, ``compressor.stats_from_buckets``):
+   windowed means from a float64 running sum, then the dB gain computer;
+4. the ballistics (:func:`_run_ballistics_bt`, kernels K5–K7);
 5. ``band_gain_apply`` (kernel K3) — the bands recomputed again, the
-   control-rate gains repeated to the sample rate, recombined (plus the
+   control-rate gains repeated to the sample rate, recombined as
+   ``y = x·g_mid + low·(g_low − g_mid) + high·(g_high − g_mid)`` (plus the
    loudness meter's mono downmix).
 
-The band signals never reach memory.  On a CUDA tensor the kernels
-launch; on a CPU tensor their plain versions run.
+The band signals never reach memory.  The legacy split has no kernel of
+its own (the JAX package runs it outside any Pallas kernel): its three
+bands are blocked filters in plain torch (one float64 states pass for
+all three, the mid band's two filters as one 4-section cascade, then
+``rows @ T + s_in @ Wᵀ`` in float32), its detector the same as the
+worker's over their squared channel means, the ballistics the same
+kernels, and ``y = low·g_low + mid·g_mid + high·g_high``.
+
+On a CUDA tensor the kernels launch; on a CPU tensor their plain versions
+run.  :func:`multiband_compress` and :func:`crossover_split` take
+``(N, C)`` audio.
 """
 
 from __future__ import annotations
@@ -37,19 +49,24 @@ from python_audio_mastering_tpu_torch.ops import iir
 from python_audio_mastering_tpu_torch.ops.ballistics import ballistics_rates_bt
 from python_audio_mastering_tpu_torch.ops.biquad import butter_sos
 from python_audio_mastering_tpu_torch.ops.compressor import (
-    cumsum_mxu,
-    gain_computer_stats_bt,
+    _default_overlap,
+    attenuation_blocked_bt,
+    bucket_sums,
+    stats_from_buckets,
 )
 from python_audio_mastering_tpu_torch.ops.cuda_multiband import (
     band_energies,
     band_gain_apply,
 )
 
-__all__ = ["multiband_compress_rows", "BAND_BALLISTICS_MS",
-           "detector_lookpad", "crossover_ops"]
+__all__ = ["multiband_compress_rows", "multiband_compress", "crossover_split",
+           "BAND_BALLISTICS_MS", "BALLISTICS", "VARIANTS", "detector_lookpad",
+           "crossover_ops", "ctrl_tail_from_tail"]
 
 # (attack_ms, release_ms) per band, fixed in the reference.
 BAND_BALLISTICS_MS = ((10.0, 200.0), (5.0, 150.0), (1.0, 50.0))
+BALLISTICS = ("auto", "pallas", "scan", "blocked")
+VARIANTS = ("worker", "legacy")
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,6 +74,16 @@ def _crossover_sos(sample_rate, low_crossover, high_crossover):
     lp = butter_sos(4, low_crossover, "lowpass", fs=sample_rate)
     hp = butter_sos(4, high_crossover, "highpass", fs=sample_rate)
     return np.asarray(lp), np.asarray(hp)
+
+
+@functools.lru_cache(maxsize=None)
+def _mid_sos(sample_rate, low_crossover, high_crossover):
+    """The legacy mid band's two filters, ``HP4 @ low`` then ``LP4 @
+    high``, as one 4-section cascade: its state is the two filters'
+    states stacked (scipy layout), ``mid_hp`` then ``mid_lp``."""
+    return np.concatenate([
+        butter_sos(4, low_crossover, "highpass", fs=sample_rate),
+        butter_sos(4, high_crossover, "lowpass", fs=sample_rate)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,110 +102,97 @@ def detector_lookpad(sample_rate, hop=1):
 
 
 def crossover_ops(sample_rate, block_size, device="cpu",
-                  low_crossover=250.0, high_crossover=4000.0):
-    """The crossover pair's :func:`iir.blocked_ops` ``(lp, hp)`` on
-    ``device``, for callers that keep them between calls."""
-    return tuple(iir.blocked_ops(s, block_size, device)
-                 for s in _crossover_sos(sample_rate, low_crossover,
-                                         high_crossover))
+                  low_crossover=250.0, high_crossover=4000.0,
+                  variant="worker", dtype=torch.float32):
+    """The crossovers' :func:`iir.blocked_ops` on ``device``, for callers
+    that keep them between calls: ``(lp, hp)``, and the legacy mid
+    cascade's third."""
+    sos = _crossover_sos(sample_rate, low_crossover, high_crossover)
+    if variant == "legacy":
+        sos = sos + (_mid_sos(sample_rate, low_crossover, high_crossover),)
+    return tuple(iir.blocked_ops(s, block_size, device, dtype) for s in sos)
 
 
-def _band_rows(values, tracks):
-    """Per-band values (each a scalar or ``tracks`` of them) as the
-    ``3·tracks`` band-major rows' values (row ``b·tracks + i``)."""
-    return [float(v) for band in values
-            for v in np.broadcast_to(np.asarray(band, np.float64), (tracks,))]
+def ctrl_tail_from_tail(tail, hop):
+    """The control-rate detector tail ``(3, look_pad // hop)`` (the port's
+    carried state) of the JAX general path's sample-rate tail ``(3,
+    look_pad, C)``: hop-bucket sums of the channel-mean squared bands."""
+    tail = torch.as_tensor(tail)
+    return bucket_sums((tail * tail).mean(dim=2), hop)
 
 
 def _fused_stats_from_ctrl(xb, t, sample_rate, thresholds_db, ratios, hop,
-                           ctrl_tail, look_ctrl):
-    """The detector from hop-bucketed band energies, band-major.
+                           ctrl_tail, look_ctrl, valid_ctrl=None):
+    """The multiband detector from hop-bucketed band energies ``(3·T, t)``
+    (row ``b·T + i``: band ``b`` of track ``i``), with the reference's band
+    ballistics (``compressor.stats_from_buckets``)."""
+    return stats_from_buckets(
+        xb, t, sample_rate, thresholds_db, ratios,
+        tuple(a for a, _ in BAND_BALLISTICS_MS),
+        tuple(r for _, r in BAND_BALLISTICS_MS), hop, ctrl_tail, look_ctrl,
+        valid_ctrl)
 
-    ``xb``: ``(3, t)`` hop-bucket x² sums per band (low, mid, high), or
-    ``(3·T, t)`` for an album of T tracks (row ``b·T + i``: band ``b`` of
-    track ``i``).  ``thresholds_db``/``ratios``: three values, each a
-    scalar or T of them.  ``ctrl_tail``: the previous chunk's last
-    ``look_ctrl`` buckets ``(3·T, look_ctrl)``, or None at the start of the
-    signal.  The windowed means are differences of a running sum
-    (:func:`cumsum_mxu`) taken in float64: over ~1M control steps a
-    float32 sum loses the short windows to cancellation.  The gain
-    computer then runs in ``xb``'s dtype.
 
-    Returns ``(stats dict of (3·T, t) tensors, new_ctrl_tail (3·T,
-    look_ctrl))``.
+def _run_ballistics_bt(stacked_bt, sample_rate, hop, ballistics, att0,
+                       block_ctrl=None, overlap_ctrl=None):
+    """Band-major ``(3·T, t)`` ballistics (T tracks, row ``b·T + i``),
+    every row its own timeline, all in one run, dispatched as the JAX
+    package's ``_run_ballistics``:
+
+    * ``"auto"``, ``"pallas"`` → exact, collapse mode (K7, K5, K6);
+    * ``"scan"`` → exact, serial mode (K5, K6): the same bits;
+    * ``"blocked"`` → the block-parallel approximation on K5 and K6
+      (``compressor.attenuation_blocked_bt``), or exact serial when no
+      ``block_ctrl`` is set.
+
+    Returns ``(att (3·T, t), att_final (3·T,))``.
     """
-    attacks = tuple(a for a, _ in BAND_BALLISTICS_MS)
-    releases = tuple(r for _, r in BAND_BALLISTICS_MS)
-    dt, dev = xb.dtype, xb.device
-    tracks = xb.shape[0] // 3
-    offset = 0
-    ext = xb
-    if ctrl_tail is not None:
-        offset = ctrl_tail.shape[1]
-        ext = torch.cat([ctrl_tail.to(dt), xb], dim=1)
-    ext64 = ext.to(torch.float64).reshape(3, tracks, -1)
-    csum = torch.cat([torch.zeros((3, tracks, 1), dtype=torch.float64,
-                                  device=dev),
-                      cumsum_mxu(ext64, dim=2)], dim=2)
-    steps = torch.arange(t, dtype=torch.float64, device=dev) * hop
-
-    ms_rows, att_f, rel_f = [], [], []
-    for i in range(3):
-        look = max(0, int(attacks[i] * sample_rate / 1000.0))
-        look_eff = look if hop == 1 else max(hop, -(-look // hop) * hop)
-        wb = min(look if hop == 1 else look_eff // hop, t + offset)
-        hi = csum[i, :, offset:offset + t]
-        if offset >= wb:
-            lo = csum[i, :, offset - wb:offset - wb + t]
-            cnt = float(max(look_eff, 1))
-        else:
-            lo = torch.cat([torch.zeros((tracks, wb), dtype=hi.dtype,
-                                        device=dev), hi[:, :t - wb]], dim=1)
-            cnt = steps.clamp(1, max(look_eff, 1))
-        ms_rows.append((hi - lo) / cnt)
-        att_f += [max(attacks[i] * sample_rate / 1000.0, 1.0)] * tracks
-        rel_f += [max(releases[i] * sample_rate / 1000.0, 1.0)] * tracks
-    ms = torch.cat(ms_rows).to(dt)
-    stats = gain_computer_stats_bt(ms, _band_rows(thresholds_db, tracks),
-                                   _band_rows(ratios, tracks), att_f, rel_f,
-                                   hop)
-    if look_ctrl > 0:
-        pad = max(0, look_ctrl - ext.shape[1])
-        new_tail = torch.nn.functional.pad(ext, (pad, 0))[:, -look_ctrl:]
-    else:
-        new_tail = ext[:, :0]
-    return stats, new_tail
+    if ballistics not in BALLISTICS:
+        raise ValueError(f"unknown comp_ballistics {ballistics!r}: one of "
+                         f"{BALLISTICS}")
+    m, ca, cr = stacked_bt["max_att"], stacked_bt["ca"], stacked_bt["cr"]
+    if att0 is not None:
+        att0 = torch.as_tensor(att0, dtype=m.dtype, device=m.device)
+    if ballistics in ("auto", "pallas"):
+        return ballistics_rates_bt(m, ca, cr, att0, mode="collapse")
+    if ballistics == "blocked" and block_ctrl is not None:
+        if overlap_ctrl is None:
+            overlap_ctrl = _default_overlap(sample_rate, 200.0, hop)
+        return attenuation_blocked_bt(m, ca, cr, block_ctrl, overlap_ctrl,
+                                      att0)
+    return ballistics_rates_bt(m, ca, cr, att0, mode="serial")
 
 
-def _run_ballistics_bt(stacked_bt, sample_rate, hop, ballistics, att0):
-    """Band-major ``(3·T, t)`` ballistics (T tracks, row ``b·T + i``): the
-    exact kernel route, every row its own timeline, all in one run.
-
-    ``"auto"`` runs ``ops.ballistics`` on every device; the approximate
-    ``"blocked"`` and the ``"scan"`` executions are not ported.  Returns
-    ``(att (3·T, t), att_final (3·T,))``.
-    """
-    if ballistics != "auto":
-        raise NotImplementedError(
-            f"comp_ballistics={ballistics!r}: the port runs the exact "
-            "kernel route ('auto'); the blocked and scan ballistics are "
-            "ROADMAP queue 1 item 4")
-    m = stacked_bt["max_att"]
-    tracks = m.shape[0] // 3
-    ca = [hop / max(a * sample_rate / 1000.0, 1.0)
-          for a, _ in BAND_BALLISTICS_MS for _ in range(tracks)]
-    cr = [hop / max(r * sample_rate / 1000.0, 1.0)
-          for _, r in BAND_BALLISTICS_MS for _ in range(tracks)]
-    return ballistics_rates_bt(m, ca, cr, att0)
+def _legacy_bands(x4, zi, ops, return_state, n_valid):
+    """The legacy split of ``(C, T, nb, L)`` rows: ``(low, mid, high)``
+    rows and the final states ``{lp, hp, mid_hp, mid_lp}``."""
+    c, tracks, nb, L = x4.shape
+    rows = x4.reshape(c * tracks, nb, L)
+    mid_zi = None
+    if zi.get("mid_hp") is not None:
+        mid_zi = torch.cat([torch.as_tensor(zi["mid_hp"]),
+                            torch.as_tensor(zi["mid_lp"])])
+    s_ins, (z_lp, z_hp, z_mid) = iir.sosfilt_states_multi_rows(
+        None, rows, (zi.get("lp"), zi.get("hp"), mid_zi),
+        return_state=return_state, ops_list=ops, n_valid=n_valid)
+    low, high, mid = (iir.recompute_rows(rows, s, o).reshape(x4.shape)
+                      for s, o in zip(s_ins, ops))
+    zf = {"lp": z_lp, "hp": z_hp}
+    if z_mid is not None:
+        k = ops[0].k
+        zf.update(mid_hp=z_mid[:k], mid_lp=z_mid[k:])
+    return (low, mid, high), zf
 
 
 def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
                             low_crossover=250.0, high_crossover=4000.0,
                             hop=1, ballistics="auto", state=None,
-                            return_state=False, emit_mono=False, ops=None):
-    """Worker-variant 3-band compressor over rows ``(C, nb, L)``, or over
-    an album's ``(C, T, nb, L)``: T tracks, each its own signal with its
-    own sliders, state and detector, in one launch of each kernel.
+                            return_state=False, emit_mono=False, ops=None,
+                            variant="worker", block_ctrl=None,
+                            overlap_ctrl=None, valid_frames=None):
+    """3-band compressor over rows ``(C, nb, L)``, or over an album's
+    ``(C, T, nb, L)``: T tracks, each its own signal with its own
+    sliders, state and detector, in one launch of each kernel.
 
     The band kernels compute every block from that block and its incoming
     states alone, and their buckets lie inside a block, so the tracks fold
@@ -190,51 +204,153 @@ def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
       thresholds_db / ratios: length-3 (low, mid, high), each value a
         scalar or, for an album, T of them.
       hop: control decimation of the detector (a divisor of ``L``).
-      ballistics: ``"auto"`` (exact; see :func:`_run_ballistics_bt`).
-      state: the carried ``{"crossover": {"lp", "hp"}, "att",
-        "ctrl_tail"}`` of the previous chunk (None at the start): zi
-        ``(K, 2, C·T)``, ``att (3·T,)``, ``ctrl_tail (3·T, look)``.
+      ballistics: one of :data:`BALLISTICS` (see :func:`_run_ballistics_bt`);
+        ``block_ctrl`` / ``overlap_ctrl`` set the blocked execution.
+      state: the carried state of the previous chunk (None at the start):
+        ``{"crossover": {"lp", "hp"} (+ "mid_hp", "mid_lp" for the legacy
+        split), "att", "ctrl_tail"}``: zi ``(K, 2, C·T)``, ``att (3·T,)``,
+        ``ctrl_tail (3·T, look)``.
       emit_mono: also return the output's channel mean ``(nb, L)``
         (``(T, nb, L)`` for an album).
-      ops: the crossover pair's blocked operators (:func:`crossover_ops`),
-        looked up when not given.
+      ops: the crossovers' blocked operators (:func:`crossover_ops` of the
+        variant), looked up when not given.
+      variant: ``"worker"`` or ``"legacy"`` (the split).
+      valid_frames: the samples of each track before its zero padding; the
+        returned state is the one after them (all samples when None).
 
     Returns ``y``, then ``mono`` with ``emit_mono``, then the new state
     with ``return_state``.
     """
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
     x4 = xrows if xrows.ndim == 4 else xrows[:, None]
     c, tracks, nb, L = x4.shape
+    _check_hop(hop, L)
     state = state or {}
-    lp_sos, hp_sos = _crossover_sos(sample_rate, low_crossover,
-                                    high_crossover)
     zi = state.get("crossover") or {}
-    (s_in_lp, s_in_hp), (z_lp, z_hp) = iir.sosfilt_states_multi_rows(
-        (lp_sos, hp_sos), x4.reshape(c * tracks, nb, L),
-        (zi.get("lp"), zi.get("hp")), return_state=return_state,
-        ops_list=ops)
-    rows = x4.reshape(c, tracks * nb, L)
-    s_in_lp, s_in_hp = (s.reshape(c, tracks * nb, -1)
-                        for s in (s_in_lp, s_in_hp))
-    xb = band_energies(rows, s_in_lp, s_in_hp, lp_sos, hp_sos, hop=hop)
+    if ops is None:
+        ops = crossover_ops(sample_rate, L, x4.device, low_crossover,
+                            high_crossover, variant, x4.dtype)
+    valid_ctrl = None if valid_frames is None else -(-int(valid_frames)
+                                                     // hop)
+    if variant == "legacy":
+        bands, zf = _legacy_bands(x4, zi, ops, return_state, valid_frames)
+        xb = torch.stack([bucket_sums((b * b).mean(dim=0).reshape(-1), hop)
+                          for b in bands])
+    else:
+        lp_sos, hp_sos = _crossover_sos(sample_rate, low_crossover,
+                                        high_crossover)
+        (s_in_lp, s_in_hp), (z_lp, z_hp) = iir.sosfilt_states_multi_rows(
+            (lp_sos, hp_sos), x4.reshape(c * tracks, nb, L),
+            (zi.get("lp"), zi.get("hp")), return_state=return_state,
+            ops_list=ops, n_valid=valid_frames)
+        zf = {"lp": z_lp, "hp": z_hp}
+        rows = x4.reshape(c, tracks * nb, L)
+        s_in_lp, s_in_hp = (s.reshape(c, tracks * nb, -1)
+                            for s in (s_in_lp, s_in_hp))
+        xb = band_energies(rows, s_in_lp, s_in_hp, lp_sos, hp_sos, hop=hop)
     t = xb.shape[1] // tracks
     look_ctrl = detector_lookpad(sample_rate, hop) // hop
     stacked, new_ctrl_tail = _fused_stats_from_ctrl(
         xb.reshape(3 * tracks, t), t, sample_rate, thresholds_db, ratios,
-        hop, state.get("ctrl_tail"), look_ctrl)
+        hop, state.get("ctrl_tail"), look_ctrl, valid_ctrl)
     att, att_f = _run_ballistics_bt(stacked, sample_rate, hop, ballistics,
-                                    state.get("att"))
+                                    state.get("att"), block_ctrl,
+                                    overlap_ctrl)
+    if valid_ctrl is not None:
+        att_f = att[:, valid_ctrl - 1]
     gains = (10.0 ** (-att / 20.0)).reshape(3, tracks * t)  # control rate
-    cols = torch.stack([gains[1], gains[0] - gains[1], gains[2] - gains[1]])
-    y = band_gain_apply(rows, s_in_lp, s_in_hp, cols.contiguous(), lp_sos,
-                        hp_sos, hop=hop, emit_mono=emit_mono)
-    if emit_mono:
-        y = (y[0].reshape(xrows.shape),
-             y[1].reshape(x4.shape[1:]) if xrows.ndim == 4 else y[1])
+    if variant == "legacy":
+        g = gains.reshape(3, 1, tracks, nb, L // hop).repeat_interleave(
+            hop, dim=4)
+        y = bands[0] * g[0] + bands[1] * g[1] + bands[2] * g[2]
+        ym = y.mean(dim=0) if emit_mono else None
     else:
-        y = y.reshape(xrows.shape)
-    out = y if emit_mono else (y,)
+        cols = torch.stack([gains[1], gains[0] - gains[1],
+                            gains[2] - gains[1]])
+        y = band_gain_apply(rows, s_in_lp, s_in_hp, cols.contiguous(), lp_sos,
+                            hp_sos, hop=hop, emit_mono=emit_mono)
+        if emit_mono:
+            y, ym = y
+            ym = ym.reshape(x4.shape[1:])
+    y = y.reshape(xrows.shape)
+    out = (y,)
+    if emit_mono:
+        out += (ym if xrows.ndim == 4 else ym[0],)
     if return_state:
-        st = {"crossover": {"lp": z_lp, "hp": z_hp}, "att": att_f,
-              "ctrl_tail": new_ctrl_tail}
-        out = (*out, st)
+        out += ({"crossover": zf, "att": att_f, "ctrl_tail": new_ctrl_tail},)
     return out if len(out) > 1 else out[0]
+
+
+def _audio(x):
+    squeeze = x.ndim == 1
+    return (x[:, None] if squeeze else x), squeeze
+
+
+def _check_hop(hop, block_size):
+    if block_size % hop:
+        raise ValueError(f"comp_hop {hop} must divide the block size "
+                         f"{block_size}")
+
+
+def multiband_compress(x, sample_rate, thresholds_db, ratios,
+                       variant="worker", low_crossover=250.0,
+                       high_crossover=4000.0, hop=1, block_ctrl=None,
+                       overlap_ctrl=None, state=None, return_state=False,
+                       ballistics="auto"):
+    """The 3-band compressor of ``(N, C)`` or ``(N,)`` audio (the JAX
+    package's ``multiband_compress``), through the rows body
+    (:func:`multiband_compress_rows`) at blocks of 384 samples (``hop``
+    must divide them).
+
+    ``state``: the carried ``{"crossover", "att", "ctrl_tail"}`` of a
+    previous chunk, or the JAX general path's ``{"crossover", "att",
+    "tail"}`` (its sample-rate tail becomes the control-rate one).
+    Returns ``y``, or ``(y, new_state)`` with ``return_state`` (the state
+    after exactly N samples; a chunk that goes on should hold whole
+    control steps).
+    """
+    x2, squeeze = _audio(x)
+    n = x2.shape[0]
+    if state is not None and state.get("tail") is not None:
+        state = {**state, "ctrl_tail": ctrl_tail_from_tail(
+            state["tail"], hop).to(device=x2.device, dtype=x2.dtype)}
+        del state["tail"]
+    out = multiband_compress_rows(
+        iir.to_rows(x2), sample_rate, thresholds_db, ratios,
+        low_crossover, high_crossover, hop=hop, ballistics=ballistics,
+        state=state, return_state=return_state, variant=variant,
+        block_ctrl=block_ctrl, overlap_ctrl=overlap_ctrl, valid_frames=n)
+    y, st = out if return_state else (out, None)
+    y = iir.from_rows(y, n)
+    y = y[:, 0] if squeeze else y
+    return (y, st) if return_state else y
+
+
+def crossover_split(x, sample_rate, variant="worker", low_crossover=250.0,
+                    high_crossover=4000.0, zi=None):
+    """Split ``(N, C)`` audio into ``(low, mid, high)`` stacked as ``(3, N,
+    C)`` (the JAX package's ``crossover_split``), through the rows form.
+    ``zi``: the carried crossover states.  Returns ``(bands, zf)``, ``zf``
+    after exactly N samples."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
+    x2, _ = _audio(x)
+    n = x2.shape[0]
+    x4 = iir.to_rows(x2)[:, None]
+    ops = crossover_ops(sample_rate, iir.NC_BLOCK, x2.device, low_crossover,
+                        high_crossover, variant, x2.dtype)
+    zi = zi or {}
+    if variant == "legacy":
+        bands, zf = _legacy_bands(x4, zi, ops, True, n)
+    else:
+        rows = x4[:, 0]
+        s_ins, (z_lp, z_hp) = iir.sosfilt_states_multi_rows(
+            None, rows, (zi.get("lp"), zi.get("hp")), ops_list=ops,
+            n_valid=n)
+        low, high = (iir.recompute_rows(rows, s, o)
+                     for s, o in zip(s_ins, ops))
+        bands = (low, rows - low - high, high)
+        zf = {"lp": z_lp, "hp": z_hp}
+    return torch.stack([iir.from_rows(b.reshape(x4.shape[0], -1, iir.NC_BLOCK), n)
+                        for b in bands]), zf

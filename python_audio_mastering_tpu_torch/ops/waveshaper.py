@@ -1,26 +1,81 @@
-"""Memoryless nonlinearities of the worker chain: the tanh exciter and the
-soft-knee limiter (counterpart of ``python_audio_mastering_tpu.ops.waveshaper``,
-worker variant; reference engine:128-134, 224-227).  Pure functions."""
+"""Memoryless nonlinearities of both chain variants (counterpart of
+``python_audio_mastering_tpu.ops.waveshaper``).  Pure functions.
+
+* ``saturate`` / ``soft_limiter`` — the worker chain (reference
+  engine:128-134, 224-227);
+* ``saturate_legacy`` / ``soft_limiter_legacy`` — the legacy chain of the
+  monolith service (reference main.py:94-97, 189-192).
+
+Both exciters are one form, ``dry·x + wet·tanh(drive·x)``
+(:func:`exciter`), whose three coefficients :func:`exciter_coefs` gives
+per variant: the ``front_chain`` kernel takes them as it finds them, and
+the EQ states pass before it reads the signal through the same
+:func:`exciter`.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["saturation_coefs", "saturate", "soft_limiter"]
+__all__ = ["saturation_coefs", "legacy_gain", "exciter_coefs", "exciter",
+           "saturate", "saturate_legacy", "soft_limiter",
+           "soft_limiter_legacy"]
 
 
 def saturation_coefs(saturation_percent):
-    """``(mix, drive)`` of the exciter: ``mix = (pct/100)^2``,
+    """``(mix, drive)`` of the worker exciter: ``mix = (pct/100)^2``,
     ``drive = 1 + 4·mix``."""
     mix = (float(saturation_percent) / 100.0) ** 2
     return mix, 1.0 + mix * 4.0
 
 
+def legacy_gain(amount):
+    """The legacy exciter's ``g = 1 + 4·amount/100``, in float32 as the
+    JAX chain computes it."""
+    a = np.float32(amount)
+    return float(np.float32(1.0) + (a / np.float32(100.0)) * np.float32(4.0))
+
+
+def exciter_coefs(saturation_percent, variant: str = "worker"):
+    """``(dry, wet, drive)`` of ``dry·x + wet·tanh(drive·x)``.
+
+    Worker: ``dry = fp32(1 − fp32(mix))``, ``wet = mix``,
+    ``drive = 1 + 4·mix``.  Legacy: ``tanh(g·x)/g`` as ``dry = 0``,
+    ``wet = 1/g``, ``drive = g``; at amount 0 the identity, ``(1, 0, 1)``.
+    A ``(dry, wet, drive)`` triple passes through unchanged.
+    """
+    if isinstance(saturation_percent, (tuple, list)):
+        dry, wet, drive = saturation_percent
+        return float(dry), float(wet), float(drive)
+    if variant == "legacy":
+        if float(saturation_percent) == 0.0:
+            return 1.0, 0.0, 1.0
+        g = legacy_gain(saturation_percent)
+        return 0.0, 1.0 / g, g
+    mix, drive = saturation_coefs(saturation_percent)
+    return float(np.float32(1.0) - np.float32(mix)), mix, drive
+
+
+def exciter(x, coefs):
+    """``dry·x + wet·tanh(x·drive)`` for ``coefs = (dry, wet, drive)``."""
+    dry, wet, drive = coefs
+    return dry * x + wet * torch.tanh(x * drive)
+
+
 def saturate(x, saturation_percent):
     """Dry/wet tanh waveshaper: ``(1-mix)·x + mix·tanh(x·drive)``
     (the identity at 0 %)."""
-    mix, drive = saturation_coefs(saturation_percent)
-    return (1.0 - mix) * x + mix * torch.tanh(x * drive)
+    return exciter(x, exciter_coefs(saturation_percent))
+
+
+def saturate_legacy(x, amount):
+    """Gain-compensated tanh ``tanh(x·g)/g``, ``g = 1 + 4·amount/100``;
+    the identity at amount 0 (main.py:95)."""
+    if float(amount) == 0.0:
+        return x
+    g = legacy_gain(amount)
+    return torch.tanh(x * g) / g
 
 
 def soft_limiter(x, threshold=0.98, knee=0.02):
@@ -30,3 +85,8 @@ def soft_limiter(x, threshold=0.98, knee=0.02):
     over = ax - threshold
     limited = threshold + over / torch.sqrt(1.0 + (over / knee) ** 2)
     return torch.where(ax > threshold, limited * torch.sign(x), x)
+
+
+def soft_limiter_legacy(x, threshold=0.98):
+    """tanh limiter: ``tanh(x)·thr`` where ``|x| > thr`` (main.py:189-192)."""
+    return torch.where(x.abs() > threshold, torch.tanh(x) * threshold, x)

@@ -136,7 +136,10 @@ def master_album(tracks: Sequence[np.ndarray], params, config: ChainConfig,
                  pad_multiple: int = 1, device="cuda"):
     """Master an album in one batched pass on ``device`` (the card unless
     the caller passes ``device="cpu"``): the album is one chunk, its
-    length padded to ``pad_multiple`` and to the chunk alignment.
+    length padded to ``pad_multiple`` and to the chunk alignment.  Each
+    track comes out as the one-shot ``master()`` masters it: for a legacy
+    config, with the legacy EQ (the JAX package vmaps its one-shot
+    ``master``), where ``master_album_streamed`` runs the streamed body.
 
     ``params``: one ``MasteringParams`` for every track, or one per track.
     Returns a list of ``(N_i, C)`` float32 arrays.
@@ -148,5 +151,6 @@ def master_album(tracks: Sequence[np.ndarray], params, config: ChainConfig,
     align = _chunk_align(config)
     outs, _, _, _ = run_tracks(tracks, tracks_params, config,
                                math.ceil(n_pad / align) * align,
-                               device=device, album=True)
+                               device=device, album=True,
+                               legacy_eq=config.variant == "legacy")
     return outs

@@ -11,7 +11,9 @@ gated loudness of all cells sets one gain, and pass B applies gain and
 limiter chunk by chunk: the soft limiter, or in quality mode the
 lookahead true-peak limiter with its delay line and release gain carried
 (``ops.limiter``).  The streamed result matches the one-shot
-:func:`master` up to float reassociation.  ``return_meters`` adds the
+:func:`master` up to float reassociation, except for the legacy variant,
+whose streamed body runs the worker EQ behind the legacy saturation, as
+the JAX streamed runner does (``models.chain``).  ``return_meters`` adds the
 R128 meter family, from the same cells and a true-peak meter run over
 pass B's output with a carried boundary tail.
 
@@ -58,7 +60,6 @@ from python_audio_mastering_tpu_torch.ops import limiter as lim
 from python_audio_mastering_tpu_torch.ops import loudness as loud
 from python_audio_mastering_tpu_torch.ops import meters as met
 from python_audio_mastering_tpu_torch.ops._kernels import upload
-from python_audio_mastering_tpu_torch.ops.waveshaper import soft_limiter
 
 __all__ = ["master_streamed", "run_tracks", "StreamState",
            "default_chunk_frames", "quantize_pcm16", "dequantize_pcm16_host",
@@ -72,8 +73,8 @@ _CKPT_GLOB = "chunk_*.npz"
 class StreamState:
     """Carried state across chunks: scipy-layout ``(K, 2, C·T)`` filter
     states of the EQ and of the K-weighting (loudness) filter, and the
-    multiband compressor's ``{"crossover": {"lp", "hp"}, "att",
-    "ctrl_tail"}`` dict."""
+    multiband compressor's ``{"crossover": {"lp", "hp"} (+ "mid_hp",
+    "mid_lp" for the legacy split), "att", "ctrl_tail"}`` dict."""
 
     eq_zi: Any = None
     mb: Any = None
@@ -157,12 +158,14 @@ def _fill_wire(w, tracks, start, pcm16, pool):
 
 
 def _fx_chunk(chunk, tracks_params, config: ChainConfig, state: StreamState,
-              chain: MasteringChain, need_cells: bool = True, groups=None):
+              chain: MasteringChain, need_cells: bool = True, groups=None,
+              legacy_eq: bool = False):
     """Chain front (and multiband) on one ``(C, T, nb, L)`` chunk of T
     tracks with carried state, plus the chunk's loudness cells.  The
-    meter's mono downmix comes from the last kernel of the chunk, as in the
-    one-shot chain.  Returns ``(y, new_state, cells (T, n_cells, C') or
-    None)``."""
+    meter's mono downmix comes from the last stage of the chunk, as in the
+    one-shot chain.  ``legacy_eq``: the one-shot legacy front (a chunk that
+    is the whole signal).  Returns ``(y, new_state, cells (T, n_cells, C')
+    or None)``."""
     want_mono = (need_cells and chunk.shape[0] > 1
                  and config.measure_downmix == "reference_mono_mean")
     multiband = tracks_params[0].multiband
@@ -171,10 +174,11 @@ def _fx_chunk(chunk, tracks_params, config: ChainConfig, state: StreamState,
     if want_mono and not multiband:
         y, meter_rows, eq_zi = chain.front(
             chunk, tracks_params, state=state.eq_zi, return_state=True,
-            emit_mono=True, groups=groups)
+            emit_mono=True, groups=groups, legacy_eq=legacy_eq)
     else:
         y, eq_zi = chain.front(chunk, tracks_params, state=state.eq_zi,
-                               return_state=True, groups=groups)
+                               return_state=True, groups=groups,
+                               legacy_eq=legacy_eq)
     if multiband:
         out = chain.multiband(y, tracks_params, state=mb_state,
                               return_state=True, emit_mono=want_mono)
@@ -357,7 +361,8 @@ def run_tracks(tracks, tracks_params, config: ChainConfig, chunk_frames: int,
                checkpoint_dir=None, checkpoint_every: int = 1,
                transfer: str = "float32", return_meters: bool = False,
                stats: dict | None = None, timings: dict | None = None,
-               on_track_done=None, device="cuda", album: bool = False):
+               on_track_done=None, device="cuda", album: bool = False,
+               legacy_eq: bool = False):
     """Master T tracks chunk by chunk on ``device`` (already resolved by
     the caller), every kernel launched once per chunk for all of them.
 
@@ -367,7 +372,10 @@ def run_tracks(tracks, tracks_params, config: ChainConfig, chunk_frames: int,
     residency telemetry; ``timings`` also the phase walls, with a device
     barrier between phases.  ``on_track_done(i, audio, meters_i)`` runs on
     a small pool as each track's readback lands.  ``album`` picks the
-    progress messages' wording.
+    progress messages' wording.  ``legacy_eq`` (a legacy config) runs the
+    one-shot legacy front, as ``master()`` does, and needs the whole
+    signal in one chunk; else a legacy chunk takes the worker EQ, as the
+    JAX streamed runner's does.
 
     Returns ``(outs [(N_i, C) float32 numpy], measured (T,), gains_db (T,),
     meters list or None)``.
@@ -377,13 +385,14 @@ def run_tracks(tracks, tracks_params, config: ChainConfig, chunk_frames: int,
         return _run_tracks(
             pool, tracks, tracks_params, config, chunk_frames, progress_cb,
             carry_state, checkpoint_dir, checkpoint_every, transfer,
-            return_meters, stats, timings, on_track_done, device, album)
+            return_meters, stats, timings, on_track_done, device, album,
+            legacy_eq)
 
 
 def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
                 progress_cb, carry_state, checkpoint_dir, checkpoint_every,
                 transfer, return_meters, stats, timings, on_track_done,
-                device, album):
+                device, album, legacy_eq):
     if transfer not in ("float32", "pcm16"):
         raise ValueError(f"unknown transfer format {transfer!r}")
     pcm16 = transfer == "pcm16"
@@ -400,6 +409,9 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
     L = config.block_size
     cpb = chunk_frames // L
     num_chunks = max(1, -(-n // chunk_frames))
+    if legacy_eq and (num_chunks > 1 or config.variant != "legacy"):
+        raise ValueError("the one-shot legacy front takes a legacy config "
+                         "and the whole signal in one chunk")
     chunk_shape = (c, n_tracks, cpb, L)
     barrier = (torch.cuda.synchronize if timings is not None
                and device.type == "cuda" else lambda: None)
@@ -468,7 +480,7 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
 
     # pass A; checkpoint segments are written on one ordered background
     # thread (the file of chunk i exists only after those before it)
-    groups = chain.front_groups(tracks_params)
+    groups = chain.front_groups(tracks_params, legacy_eq)
     every = max(1, int(checkpoint_every))
     writer = (ThreadPoolExecutor(max_workers=1) if checkpoint_dir else None)
     saves, seg_y, seg_c = [], [], []
@@ -478,7 +490,8 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
             y, new_state, cells = _fx_chunk(chunk_at(i), tracks_params,
                                             config, state, chain,
                                             need_cells=need_cells,
-                                            groups=groups)
+                                            groups=groups,
+                                            legacy_eq=legacy_eq)
             state = new_state if carry_state else StreamState()
             processed.append(y)
             mem["max_retained_bytes"] = max(
@@ -553,7 +566,7 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
             return t[:, i].reshape(c, -1)[:, : lengths[i] - start].T
 
         if not quality:
-            f = soft_limiter(y * gb, threshold=config.limiter_threshold)
+            f = chain.limiter(y * gb)
             f = requantize_pcm16(f) if pcm16 else f
             for i in live:
                 meter(i, track(f, i), start + chunk_frames >= lengths[i])

@@ -73,11 +73,11 @@ def test_master_no_lufs_and_1d_input():
 
 
 @pytest.mark.parametrize("params,config,error,match", [
-    pytest.param({"multiband": True}, {"comp_ballistics": "blocked"},
-                 NotImplementedError, "(?s)blocked.*ROADMAP",
+    pytest.param({"multiband": True}, {"comp_ballistics": "bogus"},
+                 ValueError, "unknown comp_ballistics 'bogus'",
                  id="params0-config0-multiband"),
-    pytest.param({}, {"variant": "legacy"}, NotImplementedError,
-                 "(?s)legacy.*ROADMAP", id="params1-config1-legacy"),
+    pytest.param({}, {"variant": "bogus"}, ValueError,
+                 "unknown variant 'bogus'", id="params1-config1-legacy"),
     pytest.param({}, {"limiter_mode": "lookahead_truepeak"}, None, None,
                  id="params2-config2-lookahead"),
     pytest.param({}, {"limiter_mode": "brickwall"}, ValueError,
@@ -85,11 +85,12 @@ def test_master_no_lufs_and_1d_input():
                  id="params3-config3-unknown-limiter"),
 ])
 def test_outside_the_slice_raises(params, config, error, match):
-    """What the chain refuses: the legacy variant and the blocked
-    ballistics are not ported (``NotImplementedError`` naming their ROADMAP
-    item), and a limiter mode that does not exist is a ``ValueError``.
-    Quality mode (the lookahead limiter) runs: a hot input comes out under
-    the ceiling."""
+    """What the chain refuses: a variant, a ballistics execution or a
+    limiter mode that does not exist is a ``ValueError`` (the legacy
+    variant and every ballistics execution of the JAX package run, see
+    test_torch_legacy.py and test_torch_ballistics_modes.py).  Quality
+    mode (the lookahead limiter) runs: a hot input comes out under the
+    ceiling."""
     x = (make_signal(4096, seed=3) * 2.0).astype(np.float32)
     cfg = dataclasses.replace(ChainConfig.gpu_default(FS), **config)
     p = MasteringParams.from_settings(params)

@@ -442,3 +442,36 @@ def test_multiband_master_on_the_card_matches_the_cpu_path(cuda_device):
     d = (got.audio.cpu() - ref.audio).abs()
     assert d.max().item() < 5e-3 and d.pow(2).mean().sqrt().item() < 5e-5
     assert abs(float(got.measured_lufs) - float(ref.measured_lufs)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multiband", [False, True])
+def test_legacy_chain_on_the_card(cuda_device, multiband):
+    """The legacy chain: K1 with the legacy exciter ``(0, 1/g, g)``
+    against its plain twin (max abs <= 1e-4), and the one-shot and streamed
+    legacy chains on the card against the CPU path (the multiband limits
+    above)."""
+    from python_audio_mastering_tpu_torch import master
+    from python_audio_mastering_tpu_torch.ops import waveshaper as ws
+    from python_audio_mastering_tpu_torch.parallel.streaming import (
+        master_streamed,
+    )
+
+    params = MasteringParams.from_settings({**SETTINGS,
+                                            "multiband": multiband})
+    cfg = dataclasses.replace(ChainConfig.gpu_default(48000),
+                              variant="legacy")
+    xrows, s_in, t, w, _, width = _front_operands(2, 45, cuda_device, 48000)
+    coefs = ws.exciter_coefs(params.saturation, "legacy")
+    s_in, _, _ = iir.sosfilt_states_rows(None, ws.exciter(xrows, coefs),
+                                         ops=MasteringChain(cfg).to(
+                                             cuda_device).eq_ops(params))
+    got = cmb.front_chain(xrows, s_in, t, w, coefs, width)
+    assert (got - cmb.front_chain_ref(xrows, s_in, t, w, coefs,
+                                      width)).abs().max().item() <= 1e-4
+    x = _signal(96000, 2, 48000, 11).T.copy() * 0.5
+    for run in (lambda d: master(x, params, cfg, device=d).cpu().numpy(),
+                lambda d: master_streamed(x, params, cfg, chunk_seconds=0.6,
+                                          device=d)[0]):
+        d = np.abs(run(cuda_device) - run("cpu"))
+        assert d.max() < 5e-3 and np.sqrt(np.mean(d ** 2)) < 5e-5
