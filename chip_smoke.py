@@ -9,7 +9,8 @@ card by default), on a seeded 180 s 44.1 kHz stereo track with the bench
 settings, multiband off (phases 2-6) and on (phases 7-12), in quality
 mode through every single-file and cloud engine (phases 14-17), and on
 the bench's 12-track album through the album path, the album engine and
-the job worker (phases 18-21), after
+the job worker (phases 18-21), the legacy chain (phases 22-25) and the
+automaster, the engine's and the CLI's (phases 26-30), after
 building its CUDA kernels from the sources in the checkout and checking
 each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
@@ -166,6 +167,32 @@ track with the bench settings:
      torch.profiler device time and idle share; the device time of the
      ballistics in "auto", "scan" and "blocked" on both chains' targets
 
+The automaster (``models.automaster``, the system's training path), K1
+and K4 under autograd, on the 180 s track with ``gpu_default``:
+
+ 26  K1's autograd.Function (the kernel forward, the VJP in plain torch)
+     at (2, 20672, 384), emit_mono off and on, every input and slider,
+     and K4's at (1, 20672, 384) h = 6, against autograd through their
+     plain twins for one seeded upstream gradient: within 1e-5 of each
+     gradient's max
+ 27  the automaster loss and its six-component gradient on the card
+     (float32, no device argument) against the port's CPU path in
+     float64, at theta = 0 and a seeded theta, the target the profile of
+     the track mastered with bass +5 and treble -3: |dloss| <= 1e-5 of
+     the loss, |dgrad| <= 2e-6 (theta = 0) and 1e-5 (seeded) of max
+     |grad|, no component 0; the control, the chain's EQ operators built
+     in float32 as JAX builds them, must exceed the limit at theta = 0
+ 28  one fit step (forward, backward, Adam): front_chain launched once,
+     kweight_cells twice, no other kernel, and neither plain twin called
+ 29  engine.automaster_audio (no device argument) on the 180 s WAV pair,
+     40 steps: the loss falls below 0.8 x its start, bass_boost > 0.5,
+     treble_boost < 0.5, the output within 0.15 LU of -14 by the BS.1770
+     oracle; the fit's wall, one step's time (CUDA events, median of 10),
+     its host synchronisations and its torch.profiler breakdown
+ 30  the port's CLI in a subprocess (no --device) on 10 s WAVs: master
+     (within 3.052e-5, one 16-bit step, of engine.process_audio's output)
+     and automaster (5 steps) exit 0
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -179,7 +206,9 @@ ran).
 Exits non-zero at the first failed phase.  The last two lines of output
 are the kernel record (each kernel's ``launches`` from phases 4 and 10,
 ``album_launches`` / ``album_max_abs_err`` / ``album_ms`` from phases
-18 and 21, and ``legacy_launches`` from phases 22 and 23) and
+18 and 21, ``legacy_launches`` from phases 22 and 23, and
+``automaster_launches`` (one fit step) and, for K1 and K4,
+``vjp_rel_err`` from phases 26 and 28) and
 ``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
@@ -191,6 +220,8 @@ call, it compares two versions on one card.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -247,6 +278,23 @@ ALBUM_STOP_AFTER = 6      # phase 19 interrupts the album after this chunk
 ALBUM_CKPT_EVERY = 4      # and checkpoints it every this many chunks
 ALBUM_BUDGET = 1 << 30    # phase 19's device budget, under the album's need
 ENGINE_SECONDS = 30       # phase 20's uploads
+# the automaster (phases 26-30): VJPs vs autograd through the plain twins
+# (relative to each gradient's max); card float32 vs the CPU's float64 loss
+# (relative) and gradient (of its max), set from the H100's readings: loss
+# <= 2.4e-6 at both thetas, gradient 2.1e-7 at theta = 0 and 4.7e-6 at the
+# seeded theta.  At theta = 0 the control (the EQ operators built in
+# float32) reads 1.3e-5, so that limit sits between the two; at the seeded
+# theta the float32 forward's residual is the larger (the control reads
+# 3.3e-6) and no limit there can see the build.  The engine's steps; the
+# CLI's
+AM_VJP = 1e-5
+AM_LOSS = 1e-5
+AM_GRAD = {"theta = 0": 2e-6, "seeded theta": 1e-5}
+AM_STEPS = 40
+CLI_SECONDS = 10
+CLI_STEPS = 5
+AUTOMASTER_SLIDERS = ("saturation", "bass_boost", "mid_cut", "presence_boost",
+                      "treble_boost", "width")
 _PMB = "python_audio_mastering_tpu/ops/pallas_multiband.py"
 _PK = "python_audio_mastering_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -786,6 +834,7 @@ def main():
     quality_phases(o, card)
     album_phases(o, kernels, card)
     legacy_phases(o, kernels, card)
+    automaster_phases(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
@@ -2117,6 +2166,281 @@ def legacy_phases(o, kernels, card):
                   f"{sum(by_name.values()):.4f} ms, wall {wall:.3f} ms per "
                   f"call ({card})")
     print("phase 25 ok", flush=True)
+
+
+@contextlib.contextmanager
+def float32_built_eq_ops():
+    """Phase 27's control: the chain's traced EQ operators built in
+    float32, as the JAX chain builds them without x64, then widened to
+    float64 for the states pass (the port builds them in float64)."""
+    from python_audio_mastering_tpu_torch.ops import iir
+
+    build = iir.blocked_ops_traced
+
+    def build_f32(sos, block_size, dtype=torch.float32):
+        saved, iir._STATES_DTYPE = iir._STATES_DTYPE, torch.float32
+        try:
+            ops = build(sos, block_size, dtype)
+        finally:
+            iir._STATES_DTYPE = saved
+        return dataclasses.replace(ops, g=ops.g.double(), al=ops.al.double(),
+                                   powers=ops.powers.double())
+
+    iir.blocked_ops_traced = build_f32
+    try:
+        yield
+    finally:
+        iir.blocked_ops_traced = build
+
+
+def automaster_phases(o, kernels, card):
+    """Phases 26-30: the automaster (``models.automaster``), K1 and K4
+    under autograd, on the 180 s track; ``engine.automaster_audio`` and the
+    port's CLI (``o`` from :func:`main_path_operands`)."""
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    from python_audio_mastering_tpu_torch import (
+        ChainConfig,
+        MasteringParams,
+        engine,
+        master,
+    )
+    from python_audio_mastering_tpu_torch.io import wavio
+    from python_audio_mastering_tpu_torch.models import automaster as am
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops.waveshaper import exciter_coefs
+
+    x, dev = o.x, o.xrows.device
+    cfg = ChainConfig.gpu_default(FS)
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def vjp_check(what, fn, plain, args, n_out):
+        """Gradients of ``fn`` (the autograd.Function) and of ``plain``
+        (autograd through the plain twin) for one seeded upstream gradient:
+        each within AM_VJP of its own max."""
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        ref_leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        outs, refs = fn(*leaves), plain(*ref_leaves)
+        outs = outs if n_out > 1 else (outs,)
+        refs = refs if n_out > 1 else (refs,)
+        ups = [torch.randn(r.shape, generator=gen, device=dev) for r in refs]
+        got = torch.autograd.grad(outs, leaves, ups)
+        want = torch.autograd.grad(refs, ref_leaves, ups)
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            rel = ((g - w).abs().max() / w.abs().max()).item()
+            worst = max(worst, rel)
+            print(f"  {what} d(arg {i}) {tuple(w.shape)}: max |diff| / max "
+                  f"|grad| {rel:.3e}")
+            check(np.isfinite(rel) and rel <= AM_VJP,
+                  f"{what}: gradient {i} off by {rel} > {AM_VJP}")
+        return worst
+
+    # phase 26 --------------------------------------------------------------
+    # K1 with every input and slider in the graph, K4 with its signal and
+    # states (the chain's K-filter operators are constants)
+    coefs = [torch.tensor(c, device=dev)
+             for c in exciter_coefs(o.params.saturation)]
+    width = torch.tensor(float(o.params.width), device=dev)
+    k1 = (o.xrows, o.s_eq, o.eq.t, o.eq.w, *coefs, width)
+    for emit in (False, True):
+        def fn(x_, s_, t_, w_, dry, wet, drive, wd, emit=emit):
+            return cmb.front_chain(x_, s_, t_, w_, (dry, wet, drive), wd,
+                                   emit_mono=emit)
+
+        def plain(x_, s_, t_, w_, dry, wet, drive, wd, emit=emit):
+            return cmb.front_chain_ref(x_, s_, t_, w_, (dry, wet, drive), wd,
+                                       emit_mono=emit)
+
+        kernels["front_chain"]["vjp_rel_err"] = max(
+            kernels["front_chain"].get("vjp_rel_err", 0.0),
+            vjp_check(f"phase 26 front_chain VJP emit_mono={emit}", fn, plain,
+                      k1, 2 if emit else 1))
+    h = K4_HOPS[0]
+    kernels["kweight_cells"]["vjp_rel_err"] = vjp_check(
+        f"phase 26 kweight_cells VJP h={h}",
+        lambda *a: cmb.kweight_cells(*a, h),
+        lambda *a: cmb.kweight_cells_ref(*a, h),
+        (o.mono, o.s_kw, o.kw.t, o.kw.w), 1)
+    print("phase 26 ok", flush=True)
+
+    # phase 27 --------------------------------------------------------------
+    target_params = MasteringParams.from_settings(
+        {"bass_boost": 5.0, "treble_boost": -3.0, "lufs": -14.0})
+    y_ref = master(x, target_params, cfg)          # no device argument
+    target = am.spectral_profile(y_ref, FS)
+    model = am.AutoMasterModel(config=cfg)         # no device argument
+    check(model.device.type == "cuda", f"the model is on {model.device}")
+    cpu64 = am.AutoMasterModel(
+        config=dataclasses.replace(cfg, dtype="float64"), device="cpu")
+    audio, audio64 = model.as_audio(x), cpu64.as_audio(x)
+    target64 = target.double().cpu()
+    rng = np.random.default_rng(27)
+
+    def loss_grad(m, theta0, audio_, target_, dtype):
+        th = torch.tensor(theta0, dtype=dtype, device=m.device,
+                          requires_grad=True)
+        loss = m.loss(th, audio_, target_)
+        loss.backward()
+        return loss.item(), th.grad.double().cpu()
+
+    for name, theta0 in (("theta = 0", np.zeros(6)),
+                         ("seeded theta", rng.standard_normal(6) * 0.5)):
+        t0 = time.perf_counter()
+        loss64, g64 = loss_grad(cpu64, theta0, audio64, target64,
+                                torch.float64)
+        t_cpu = time.perf_counter() - t0
+        readings = {}
+        for what, build in (("card", contextlib.nullcontext),
+                            ("control", float32_built_eq_ops)):
+            with build():
+                loss, g = loss_grad(model, theta0, audio, target,
+                                    torch.float32)
+            readings[what] = (abs(loss - loss64) / loss64,
+                              ((g - g64).abs().max() / g64.abs().max()).item())
+            print(f"phase 27 {what} at {name}, float32 vs the port's CPU "
+                  f"float64 ({t_cpu:.1f} s): loss {loss:.6f} vs "
+                  f"{loss64:.6f} (|diff| / loss {readings[what][0]:.3e}); "
+                  f"gradient {[round(v, 6) for v in g.tolist()]} vs "
+                  f"{[round(v, 6) for v in g64.tolist()]}, max |diff| / max "
+                  f"|grad| {readings[what][1]:.3e}")
+            if what == "card":
+                check(bool((g != 0).all()),
+                      f"a gradient component is 0: {g}")
+        (d_loss, d_grad), (c_loss, c_grad) = (readings["card"],
+                                              readings["control"])
+        limit = AM_GRAD[name]
+        check(d_loss <= AM_LOSS, f"loss off by {d_loss} > {AM_LOSS}")
+        check(d_grad <= limit, f"gradient off by {d_grad} > {limit}")
+        if name == "theta = 0":
+            check(c_grad > limit, f"the control's gradient ({c_grad}) is "
+                                  f"within {limit}: the limit is blind to it")
+    print("phase 27 ok", flush=True)
+
+    # phase 28 --------------------------------------------------------------
+    def fresh_step():
+        th = torch.zeros(6, device=dev, requires_grad=True)
+        step = am.make_train_step(model, torch.optim.Adam([th], lr=0.05))
+        return lambda: step(th, audio[None], target[None])
+
+    step = fresh_step()
+    step()                                         # warm
+    torch.cuda.synchronize()
+    cmb.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    counts, plain = cmb.launch_counts(), cmb.plain_calls()
+    print(f"phase 28 one fit step (forward, backward, Adam): launches "
+          f"{counts}, plain twins called {plain}")
+    want = {k: 0 for k in counts}
+    want.update(front_chain=1, kweight_cells=2)
+    check(counts == want, f"fit step launches {counts}, expected {want}")
+    check(all(v == 0 for v in plain.values()),
+          f"a plain twin ran in the fit step: {plain}")
+    launched = {**counts, "pass1_bnd": sum(counts[k] for k in K5_LAUNCHES)}
+    for name in NO_MB_KERNELS + MB_KERNELS:
+        kernels[name]["automaster_launches"] = launched[name]
+    print("phase 28 ok", flush=True)
+
+    # phase 29 --------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        src, ref_wav, dst = (os.path.join(tmp, f) for f in
+                             ("in.wav", "ref.wav", "out.wav"))
+        wavio.write_wav(src, x, FS, float_format=True)
+        wavio.write_wav(ref_wav, y_ref.cpu().numpy(), FS, float_format=True)
+        msgs, stamps = [], []
+
+        def cb(m):
+            msgs.append(m)
+            stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        fitted = engine.automaster_audio(
+            {"input_file": src, "reference_file": ref_wav,
+             "output_file": dst, "lufs": -14.0}, cb, steps=AM_STEPS)
+        wall = time.perf_counter() - t0
+        check(fitted is not None, f"automaster_audio failed: {msgs[-1:]}")
+        losses = [float(m.rsplit("loss ", 1)[1]) for m in msgs
+                  if m.startswith("Fitting")]
+        i_ref = next(i for i, m in enumerate(msgs) if m.startswith("Analyz"))
+        i_master = msgs.index("Mastering with fitted settings...")
+        fit_wall = stamps[i_master] - stamps[i_ref]
+        out, fs_out = wavio.read_wav(dst)
+        lufs_out = oracle_lufs(out.astype(np.float64).mean(axis=1), FS)
+        ratio = losses[-1] / losses[0]
+        sliders = {k: round(fitted[k], 3) for k in AUTOMASTER_SLIDERS}
+        print(f"phase 29 automaster_audio (no device argument), {SECONDS} s, "
+              f"{AM_STEPS} steps: wall {wall:.2f} s, fit {fit_wall:.2f} s "
+              f"(reference profile and {len(losses)} steps); loss "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f} (x{ratio:.3f}); fitted "
+              f"{sliders}; output {out.shape}, oracle loudness "
+              f"{lufs_out:.4f} LUFS; last message {msgs[-1]!r}")
+        check(len(losses) == AM_STEPS, f"{len(losses)} Fitting lines")
+        check(losses[-1] < 0.8 * losses[0],
+              f"loss {losses[-1]} not below 0.8 x {losses[0]}")
+        check(fitted["bass_boost"] > 0.5,
+              f"fitted bass_boost {fitted['bass_boost']} <= 0.5")
+        check(fitted["treble_boost"] < 0.5,
+              f"fitted treble_boost {fitted['treble_boost']} >= 0.5")
+        check(fs_out == FS and out.shape == x.shape, "automaster output")
+        check(abs(lufs_out - (-14.0)) <= 0.15,
+              f"output loudness {lufs_out} not within 0.15 LU of -14")
+
+        # the fit's step: CUDA events, the profiler, host syncs
+        step = fresh_step()
+
+        def step_ms():
+            return cuda_ms(step, reps=1)
+
+        t_step = median_of(step_ms, runs=10)
+        _, syncs = count_syncs(step)
+        print(f"phase 29 one fit step: {t_step:.3f} ms (CUDA events, median "
+              f"of 10), {syncs} host synchronisations ({card})")
+        print("phase 29 profile of one fit step:")
+        profile_calls(step, calls=5, top=14)
+        print("phase 29 ok", flush=True)
+
+        # phase 30 ----------------------------------------------------------
+        x_cli = x[: CLI_SECONDS * FS]
+        cli_in, cli_ref = (os.path.join(tmp, f) for f in ("c.wav", "r.wav"))
+        wavio.write_wav(cli_in, x_cli, FS)
+        wavio.write_wav(cli_ref, y_ref[: CLI_SECONDS * FS].cpu().numpy(), FS)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+        def run_cli(*argv):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "python_audio_mastering_tpu_torch.cli",
+                 *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=600)
+            print(f"phase 30 cli {argv[0]} (no --device): exit "
+                  f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+                  f"last line {proc.stdout.strip().splitlines()[-1:]!r}")
+            check(proc.returncode == 0,
+                  f"cli {argv[0]} exit {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+            return proc.stdout
+
+        cli_out = os.path.join(tmp, "cli.wav")
+        run_cli("master", cli_in, cli_out, "--preset", "techno",
+                "--saturation", "20", "--width", "1.3", "--lufs", "-14")
+        eng_out = os.path.join(tmp, "eng.wav")
+        check(engine.process_audio({**SETTINGS, "input_file": cli_in,
+                                    "output_file": eng_out}),
+              "process_audio of the CLI's input failed")
+        y_cli, _ = wavio.read_wav(cli_out)
+        y_eng, _ = wavio.read_wav(eng_out)
+        d_cli = float(np.abs(y_cli - y_eng).max())
+        print(f"phase 30 cli master vs engine.process_audio: max abs "
+              f"{d_cli:.3e}")
+        check(d_cli <= 3.052e-5, f"cli master vs process_audio {d_cli}")
+        text = run_cli("automaster", cli_in, os.path.join(tmp, "cli_am.wav"),
+                       "--reference", cli_ref, "--steps", str(CLI_STEPS))
+        check(f"step {CLI_STEPS - 1}: loss" in text
+              and "Processing complete!" in text, "cli automaster output")
+    print("phase 30 ok", flush=True)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,10 @@ chain of the monolith service (``ChainConfig(variant="legacy")``,
 (``parallel.streaming.master_streamed``, with the R128 meters on
 request) and by the album (``parallel.batch``), and the single-file,
 album and cloud engines (``engine``, ``serving``), with output
-resampling.
+resampling.  The automaster (``models.automaster``, ``engine.
+automaster_audio``) fits the saturation, EQ and width sliders to a
+reference track by gradient descent through the chain; ``cli`` and
+``gui`` are the command-line and desktop clients.
 
     >>> from python_audio_mastering_tpu_torch import master, MasteringParams, ChainConfig
     >>> y = master(x, MasteringParams.from_settings({"saturation": 20}),

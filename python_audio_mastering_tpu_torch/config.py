@@ -8,6 +8,10 @@ winning when both are present.
 
 The port keeps no ``mb_kernel`` or ``layout`` field: a kernel is chosen by
 the device of the tensor it is given (see ``ops.cuda_multiband``).
+
+A slider of :class:`MasteringParams` may hold a 0-d tensor (the
+automaster's fit differentiates the chain through them);
+:meth:`MasteringParams.to_settings` detaches such values into floats.
 """
 
 from __future__ import annotations
@@ -17,6 +21,11 @@ import dataclasses
 import torch
 
 __all__ = ["MasteringParams", "ChainConfig"]
+
+
+def _num(v):
+    """A slider value as a Python float (a tensor detached first)."""
+    return float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
 
 # (short worker key, GUI/long key, default) — as in the JAX package.
 _MB_KEYS = [
@@ -83,20 +92,26 @@ class MasteringParams:
                 kwargs[short] = float(s[long_])
         return cls(**kwargs)
 
+    def has_tensors(self):
+        """True when a slider holds a tensor (the automaster's route)."""
+        return any(isinstance(getattr(self, f.name), torch.Tensor)
+                   for f in dataclasses.fields(self))
+
     def to_settings(self):
-        """Back to the wire format (short multiband spelling)."""
+        """Back to the wire format (short multiband spelling); tensor
+        sliders become floats."""
         out = {
-            "saturation": float(self.saturation),
-            "bass_boost": float(self.bass_boost),
-            "mid_cut": float(self.mid_cut),
-            "presence_boost": float(self.presence_boost),
-            "treble_boost": float(self.treble_boost),
-            "width": float(self.width),
-            "lufs": float(self.lufs) if self.lufs_enabled else None,
+            "saturation": _num(self.saturation),
+            "bass_boost": _num(self.bass_boost),
+            "mid_cut": _num(self.mid_cut),
+            "presence_boost": _num(self.presence_boost),
+            "treble_boost": _num(self.treble_boost),
+            "width": _num(self.width),
+            "lufs": _num(self.lufs) if self.lufs_enabled else None,
             "multiband": bool(self.multiband),
         }
         for short, _, _ in _MB_KEYS:
-            out[short] = float(getattr(self, short))
+            out[short] = _num(getattr(self, short))
         return out
 
 

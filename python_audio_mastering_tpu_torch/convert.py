@@ -2,8 +2,9 @@
 
 The chain has no learned weights: what a job carries is its slider values
 (``MasteringParams``), its static configuration (``ChainConfig``) and, in a
-streamed job, its filter states.  These functions are duck-typed — they
-read attributes and numpy-convertible arrays — so they need no ``jax``.
+streamed job, its filter states; an automaster fit carries its θ and its
+optimizer state.  These functions are duck-typed — they read attributes
+and numpy-convertible arrays — so they need no ``jax``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from python_audio_mastering_tpu_torch.ops.multiband import ctrl_tail_from_tail
 from python_audio_mastering_tpu_torch.parallel.streaming import StreamState
 
 __all__ = ["params_from_jax", "album_params_from_jax", "config_from_jax",
-           "stream_state_from_jax", "limiter_state_from_jax"]
+           "stream_state_from_jax", "limiter_state_from_jax",
+           "theta_from_jax", "adam_state_from_optax"]
 
 _BOOL_PARAMS = ("multiband", "lufs_enabled")
 
@@ -87,3 +89,44 @@ def limiter_state_from_jax(state, device="cpu") -> LookaheadLimiterState:
         buf=torch.tensor(np.asarray(state.buf), device=device),
         g=torch.tensor(np.asarray(state.g), device=device),
         pend=int(state.pend))
+
+
+def theta_from_jax(theta, device="cpu"):
+    """An automaster θ (JAX array, ``(6,)`` or a batch's ``(T, 6)``) as a
+    tensor on ``device``, in its own dtype."""
+    return torch.tensor(np.asarray(theta), device=device)
+
+
+def _adam_leaf(state):
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
+    state, which ``optax.adam`` nests in a tuple of chained states."""
+    if all(hasattr(state, k) for k in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            leaf = _adam_leaf(s)
+            if leaf is not None:
+                return leaf
+    return None
+
+
+def adam_state_from_optax(opt_state, lr):
+    """A ``torch.optim.Adam`` state dict for one parameter (θ) from an
+    ``optax.adam`` state: ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``,
+    ``count`` → ``step``, so that a fit begun in JAX goes on in the port
+    (``optimizer.load_state_dict``, then ``models.automaster.
+    make_train_step``).  The moments keep their dtype; the
+    optimizer's ``load_state_dict`` moves them to θ's device and dtype.
+    The hyperparameters are ``optax.adam``'s defaults (β 0.9 and 0.999,
+    ε 1e-8), which are ``torch.optim.Adam``'s."""
+    leaf = _adam_leaf(opt_state)
+    if leaf is None:
+        raise ValueError("no optax Adam state (count, mu, nu) found")
+    groups = torch.optim.Adam([torch.zeros(1)],
+                              lr=lr).state_dict()["param_groups"]
+    return {"state": {0: {
+        "step": torch.tensor(float(np.asarray(leaf.count)),
+                             dtype=torch.float32),
+        "exp_avg": torch.tensor(np.asarray(leaf.mu)),
+        "exp_avg_sq": torch.tensor(np.asarray(leaf.nu))}},
+        "param_groups": groups}

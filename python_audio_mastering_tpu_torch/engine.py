@@ -15,6 +15,10 @@ engines:
   ``process_audio_from_gcs``), the cloud worker engine: download from a
   blob store, master, upload the WAV, an R128 meter summary
   ``{output}.meters.json`` and a ``.complete`` flag;
+* ``automaster_audio(settings, callback)``, the GUI's automaster tab and
+  the CLI's ``automaster`` verb: fit the saturation, EQ and width sliders
+  to a reference track (``models.automaster``), then master the input
+  with them;
 * ``process_album_from_uris(uris, settings)``, the cloud album engine:
   every file of an album decoded (the native batch decoder when it can),
   conformed to one rate and channel count, mastered in one batched
@@ -23,8 +27,7 @@ engines:
 
 The settings keys beyond the chain's: ``quality`` (truthy: the lookahead
 true-peak limiter), ``output_sample_rate`` and ``dither``.  Every entry
-runs on the card unless the caller passes ``device="cpu"``.  The
-automaster engine is ROADMAP queue 1 item 6.
+runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from python_audio_mastering_tpu_torch.parallel.streaming import master_streamed
 from python_audio_mastering_tpu_torch.serving import store as store_mod
 
 __all__ = ["EQ_PRESETS", "default_config", "process_audio",
-           "batch_process_audio", "process_audio_from_gcs",
+           "batch_process_audio", "automaster_audio", "process_audio_from_gcs",
            "process_audio_from_uri", "process_album_from_uris",
            "conform_album_tracks", "meters_summary", "AUDIO_EXTENSIONS"]
 
@@ -161,6 +164,68 @@ def process_audio(settings: dict, status_callback=None,
         traceback.print_exc()
         cb(f"ERROR: {e}")
         return False
+
+
+def automaster_audio(settings: dict, status_callback=None,
+                     config: ChainConfig | None = None, steps: int = 40,
+                     device="cuda"):
+    """Desktop automaster engine (the GUI's automaster tab, the CLI's
+    ``automaster`` verb): fit the chain's slider subspace to the spectral
+    profile and loudness of ``settings["reference_file"]`` by gradient
+    descent (``models.automaster``, ``steps`` Adam steps on ``device``),
+    then master ``input_file`` with the fitted settings through the
+    streamed chain into ``output_file`` (``output_sample_rate`` and
+    ``dither`` honoured).
+
+    The contract of :func:`process_audio` (progress through
+    ``status_callback``, ``Fitting i/steps: loss …`` for each step, a final
+    message containing "complete" or "ERROR"); it returns the fitted
+    settings dict, or None on failure, so the GUI can show the solved
+    sliders.  Without a card on ``device`` it fails with an ``ERROR:``
+    line naming it.
+    """
+    cb = status_callback or (lambda msg: None)
+    try:
+        in_path = settings.get("input_file")
+        ref_path = settings.get("reference_file")
+        out_path = settings.get("output_file")
+        if not in_path or not ref_path or not out_path:
+            cb("ERROR: input_file, reference_file and output_file "
+               "must be set.")
+            return None
+        device = require_device(device, "automaster_audio")
+        cb(f"Loading {os.path.basename(in_path)}...")
+        audio, fs = wavio.read_audio(in_path)
+        cb(f"Analyzing reference {os.path.basename(ref_path)}...")
+        ref, ref_fs = wavio.read_audio(ref_path)
+
+        from python_audio_mastering_tpu_torch.models import automaster
+
+        cfg = _config_for(settings, fs, config)
+        target_lufs = settings.get("lufs", -14.0)
+        model = automaster.AutoMasterModel(
+            config=cfg,
+            target_lufs=-14.0 if target_lufs is None else float(target_lufs),
+            device=device)
+        target = automaster.spectral_profile(model.as_audio(ref), ref_fs)
+        audio = np.asarray(audio, np.float32)
+        params, _ = automaster.fit(
+            model, audio, target, steps=steps,
+            callback=lambda i, l: cb(f"Fitting {i + 1}/{steps}: "
+                                     f"loss {l:.5f}"))
+        fitted = params.to_settings()
+        cb("Mastering with fitted settings...")
+        out, _, _ = master_streamed(audio, MasteringParams.from_settings(fitted),
+                                    cfg, progress_cb=cb, device=device)
+        out, fs_out = _maybe_resample(out, fs, settings, cb, device)
+        wavio.write_audio(out_path, out, fs_out,
+                          dither=bool(settings.get("dither")))
+        cb(f"Processing complete! Saved to {out_path}")
+        return fitted
+    except Exception as e:  # noqa: BLE001 — engine boundary: report, don't raise
+        traceback.print_exc()
+        cb(f"ERROR: {e}")
+        return None
 
 
 def batch_process_audio(settings: dict, input_folder: str, output_folder: str,

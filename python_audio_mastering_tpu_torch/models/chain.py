@@ -44,6 +44,17 @@ body); the result is the same filter, cut back to the input length.
 :class:`MasteringChain` holds the float64-built operators as buffers: the
 K-weighting ``T``/``G``/``W``/``A^L`` and a small cache of EQ operators
 keyed by the EQ coefficients.  :func:`master` is a thin function over it.
+
+Sliders given as tensors (``models.automaster`` differentiates the chain
+through them) take the chain's tensor route: the EQ is designed from them
+in the graph (``ops.biquad`` on tensors), its operators are built in the
+graph (``iir.blocked_ops_traced``; the EQ cache is neither read nor
+written), the exciter, width and legacy blends keep them as tensors, and
+``front_chain`` and ``kweight_cells`` run under autograd (their forward is
+the kernel, their backward plain torch).  Nothing on this route calls
+``float()`` on a slider or builds a cache key.  The multiband compressor
+has no gradient in the port (the automaster leaves it off, as JAX's latent
+space does): tensor sliders with multiband on are refused.
 """
 
 from __future__ import annotations
@@ -108,14 +119,23 @@ def eq_sos(params: MasteringParams, sample_rate: int):
     """The worker EQ as one 4-section cascade, float64 ``(4, 6)``.
 
     low shelf @250 (bass), peak @1k (−mid_cut), peak @4k (presence), high
-    shelf @8k (treble), with the reference's doubled-w0 quirk.
+    shelf @8k (treble), with the reference's doubled-w0 quirk.  A numpy
+    array, or a tensor in the graph when a gain is a tensor.
     """
-    return np.concatenate([
-        reference_shelf_sos(sample_rate, 250.0, params.bass_boost, "low"),
-        reference_peak_sos(sample_rate, 1000.0, -float(params.mid_cut)),
-        reference_peak_sos(sample_rate, 4000.0, params.presence_boost),
-        reference_shelf_sos(sample_rate, 8000.0, params.treble_boost, "high"),
-    ], axis=0)
+    gains = (params.bass_boost, params.mid_cut, params.presence_boost,
+             params.treble_boost)
+    like = next((g for g in gains if isinstance(g, torch.Tensor)), None)
+    if like is not None:
+        gains = tuple(g if isinstance(g, torch.Tensor)
+                      else torch.tensor(float(g), dtype=torch.float64,
+                                        device=like.device) for g in gains)
+    bass, mid, presence, treble = gains
+    rows = [reference_shelf_sos(sample_rate, 250.0, bass, "low"),
+            reference_peak_sos(sample_rate, 1000.0, -mid),
+            reference_peak_sos(sample_rate, 4000.0, presence),
+            reference_shelf_sos(sample_rate, 8000.0, treble, "high")]
+    return (np.concatenate(rows, axis=0) if like is None
+            else torch.cat(rows, dim=0))
 
 
 @functools.lru_cache(maxsize=8)
@@ -135,8 +155,11 @@ def legacy_eq_sos(sample_rate: int):
             butter_sos(5, 8000.0 / (0.5 * sample_rate), "highpass"))
 
 
-def _db_gain(gain_db):
-    """``10^(gain_db/20)`` in float32, as the JAX chain computes it."""
+def _db_gain(gain_db, dtype=torch.float32):
+    """``10^(gain_db/20)`` in float32, as the JAX chain computes it; of a
+    tensor gain, a tensor in ``dtype`` (the signal's)."""
+    if isinstance(gain_db, torch.Tensor):
+        return 10.0 ** (gain_db.to(dtype) / 20.0)
     return float(10.0 ** (torch.tensor(float(gain_db), dtype=torch.float32)
                           / 20.0))
 
@@ -221,9 +244,13 @@ class MasteringChain(nn.Module):
     def eq_ops(self, params: MasteringParams):
         """EQ operators for ``params``.  The coefficients are rounded to
         the working dtype first (the JAX chain casts its EQ sos to float32
-        before building its operators), then built in float64."""
+        before building its operators), then built in float64.  Tensor
+        gains: built in the graph on this chain's device, not cached."""
         dt = self.config.torch_dtype()
         sos = eq_sos(params, self.config.sample_rate)
+        if isinstance(sos, torch.Tensor):
+            sos = sos.to(self.device).to(dt).to(torch.float64)
+            return iir.blocked_ops_traced(sos, self.config.block_size, dt)
         sos = sos.astype(self.config.dtype).astype(np.float64)
         key = (sos.tobytes(), self.device)
         ops = self._eq_cache.get(key)
@@ -264,7 +291,8 @@ class MasteringChain(nn.Module):
         stages, each a blend of its input with one blocked filter of it
         (float64 states pass, float32 ``x @ T + s_in @ Wᵀ``).  The shelves
         blend ``x + F·(g−1)`` for a boost and ``x·g + F·(1−g)`` for a cut
-        (a host branch on the slider), the peaks ``x + F·(g−1)``."""
+        (a host branch on the slider; a ``where`` for a tensor slider, as
+        JAX's), the peaks ``x + F·(g−1)``."""
         shelf_lo, peak_1k, peak_4k, shelf_hi = self.legacy_eq_ops()
 
         def filtered(x, ops):
@@ -272,16 +300,20 @@ class MasteringChain(nn.Module):
                                             ops=ops)[0]
 
         def shelf(x, ops, gain_db):
-            g = _db_gain(gain_db)
+            g = _db_gain(gain_db, x.dtype)
+            if isinstance(gain_db, torch.Tensor):
+                f = filtered(x, ops)
+                return torch.where(gain_db > 0, x + f * (g - 1.0),
+                                   x * g + f * (1.0 - g))
             if float(gain_db) > 0:
                 return x + filtered(x, ops) * (g - 1.0)
             return x * g + filtered(x, ops) * (1.0 - g)
 
         def peak(x, ops, gain_db):
-            return x + filtered(x, ops) * (_db_gain(gain_db) - 1.0)
+            return x + filtered(x, ops) * (_db_gain(gain_db, x.dtype) - 1.0)
 
         x = shelf(xrows, shelf_lo, params.bass_boost)
-        x = peak(x, peak_1k, -float(params.mid_cut))
+        x = peak(x, peak_1k, -params.mid_cut)
         x = peak(x, peak_4k, params.presence_boost)
         return shelf(x, shelf_hi, params.treble_boost)
 
@@ -314,7 +346,14 @@ class MasteringChain(nn.Module):
         launch: ``[(params, track indices, EQ operators), ...]``.  A run
         computes them once and holds the operators to its end.
         ``legacy_eq``: groups of the one-shot legacy front (no EQ
-        operators: its filters are static)."""
+        operators: its filters are static).  One track of tensor sliders is
+        one group, its operators built in the graph."""
+        if tracks_params[0].has_tensors():
+            if len(tracks_params) != 1:
+                raise ValueError("tensor sliders take one track, not an "
+                                 "album")
+            p = tracks_params[0]
+            return [(p, [0], None if legacy_eq else self.eq_ops(p))]
         groups = {}
         for i, p in enumerate(tracks_params):
             if legacy_eq:
@@ -437,6 +476,10 @@ class MasteringChain(nn.Module):
         cfg = self.config
         check_supported(params, cfg)
         check_fp32_matmul(self.device)
+        if params.multiband and params.has_tensors():
+            raise ValueError("tensor sliders with multiband on: the "
+                             "multiband compressor has no gradient in the "
+                             "port")
         x = torch.as_tensor(audio).to(device=self.device,
                                       dtype=cfg.torch_dtype())
         squeeze = x.ndim == 1

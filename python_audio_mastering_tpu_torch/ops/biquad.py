@@ -9,7 +9,10 @@ the host and only their blocked operators go to the device.
 * ``reference_*`` — the reference engine's shelf/peak formulas, including
   its doubled ``w0 = 2*pi*fc/nyquist`` (its "250 Hz" shelf corners at
   500 Hz; DESIGN.md §3) and the clamp of ``w0`` just under pi (DESIGN.md
-  D10).
+  D10).  Given a tensor gain they are torch functions of it instead: a
+  float64 ``(1, 6)`` tensor on the gain's device, in the graph (the
+  automaster differentiates through them).  As in the JAX package there
+  is no branch at 0 dB, so a fit that starts at 0 dB has a gradient.
 * ``deman_*`` — the tan-based K-weighting designs that reproduce the
   ITU-R BS.1770-4 48 kHz tables and generalize to any sample rate.
 * :func:`butter_sos` — Butterworth sections for the multiband crossovers,
@@ -22,6 +25,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 __all__ = [
     "reference_shelf_sos",
@@ -37,43 +41,59 @@ def _row(b0, b1, b2, a0, a1, a2):
                     dtype=np.float64)
 
 
+def _row_t(b0, b1, b2, a0, a1, a2):
+    """:func:`_row` of tensor (or float) coefficients, float64."""
+    vals = [b0 / a0, b1 / a0, b2 / a0, torch.ones_like(a0), a1 / a0,
+            a2 / a0]
+    return torch.stack(vals)[None]
+
+
+def _gain_a(gain_db):
+    """``10^(gain/20)``: float64 from a float, or a float64 tensor."""
+    if isinstance(gain_db, torch.Tensor):
+        return 10.0 ** (gain_db.to(torch.float64) / 20.0), torch.sqrt, _row_t
+    return 10.0 ** (float(gain_db) / 20.0), math.sqrt, _row
+
+
 def _reference_w0(sample_rate, hz):
     return min(2.0 * math.pi * (hz / (0.5 * sample_rate)), 0.999 * math.pi)
 
 
 def reference_shelf_sos(sample_rate, cutoff_hz, gain_db, kind):
-    """Shelf exactly as the reference computes it (identity at 0 dB)."""
+    """Shelf exactly as the reference computes it (identity at 0 dB);
+    a torch function of a tensor ``gain_db``."""
     w0 = _reference_w0(sample_rate, cutoff_hz)
-    a = 10.0 ** (float(gain_db) / 20.0)
+    a, sqrt, row = _gain_a(gain_db)
     q = 0.707
     cosw0 = math.cos(w0)
     alpha = math.sin(w0) / (2.0 * q)
-    sqrt_a = math.sqrt(a)
+    sqrt_a = sqrt(a)
     if kind == "low":
-        return _row(a * ((a + 1) - (a - 1) * cosw0 + 2 * sqrt_a * alpha),
-                    2 * a * ((a - 1) - (a + 1) * cosw0),
-                    a * ((a + 1) - (a - 1) * cosw0 - 2 * sqrt_a * alpha),
-                    (a + 1) + (a - 1) * cosw0 + 2 * sqrt_a * alpha,
-                    -2 * ((a - 1) + (a + 1) * cosw0),
-                    (a + 1) + (a - 1) * cosw0 - 2 * sqrt_a * alpha)
+        return row(a * ((a + 1) - (a - 1) * cosw0 + 2 * sqrt_a * alpha),
+                   2 * a * ((a - 1) - (a + 1) * cosw0),
+                   a * ((a + 1) - (a - 1) * cosw0 - 2 * sqrt_a * alpha),
+                   (a + 1) + (a - 1) * cosw0 + 2 * sqrt_a * alpha,
+                   -2 * ((a - 1) + (a + 1) * cosw0),
+                   (a + 1) + (a - 1) * cosw0 - 2 * sqrt_a * alpha)
     if kind == "high":
-        return _row(a * ((a + 1) + (a - 1) * cosw0 + 2 * sqrt_a * alpha),
-                    -2 * a * ((a - 1) + (a + 1) * cosw0),
-                    a * ((a + 1) + (a - 1) * cosw0 - 2 * sqrt_a * alpha),
-                    (a + 1) - (a - 1) * cosw0 + 2 * sqrt_a * alpha,
-                    2 * ((a - 1) - (a + 1) * cosw0),
-                    (a + 1) - (a - 1) * cosw0 - 2 * sqrt_a * alpha)
+        return row(a * ((a + 1) + (a - 1) * cosw0 + 2 * sqrt_a * alpha),
+                   -2 * a * ((a - 1) + (a + 1) * cosw0),
+                   a * ((a + 1) + (a - 1) * cosw0 - 2 * sqrt_a * alpha),
+                   (a + 1) - (a - 1) * cosw0 + 2 * sqrt_a * alpha,
+                   2 * ((a - 1) - (a + 1) * cosw0),
+                   (a + 1) - (a - 1) * cosw0 - 2 * sqrt_a * alpha)
     raise ValueError(f"kind must be 'low' or 'high', got {kind!r}")
 
 
 def reference_peak_sos(sample_rate, center_hz, gain_db, q=1.0):
-    """Peaking EQ exactly as the reference computes it (identity at 0 dB)."""
+    """Peaking EQ exactly as the reference computes it (identity at 0 dB);
+    a torch function of a tensor ``gain_db``."""
     w0 = _reference_w0(sample_rate, center_hz)
-    a = 10.0 ** (float(gain_db) / 20.0)
+    a, _, row = _gain_a(gain_db)
     cosw0 = math.cos(w0)
     alpha = math.sin(w0) / (2.0 * q)
-    return _row(1 + alpha * a, -2 * cosw0, 1 - alpha * a,
-                1 + alpha / a, -2 * cosw0, 1 - alpha / a)
+    return row(1 + alpha * a, -2 * cosw0, 1 - alpha * a,
+               1 + alpha / a, -2 * cosw0, 1 - alpha / a)
 
 
 _KW_SHELF_G = 3.999843853973347

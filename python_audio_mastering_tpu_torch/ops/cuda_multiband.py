@@ -28,6 +28,17 @@ on the card.  Each counts its kernel launches in ``<wrapper>.launches``
 (only where it launches the kernel); :func:`reset_launch_counts` and
 :func:`launch_counts` read and clear them for every kernel of the port,
 the ballistics kernels of ``ops.ballistics`` included.
+
+``front_chain`` and ``kweight_cells`` also run under autograd (the
+automaster differentiates the chain through them): given an input that
+requires grad, or a tensor exciter coefficient or width, they go through
+a ``torch.autograd.Function`` whose forward is the same kernel launch (or,
+on the CPU, the same plain version) and whose backward is the VJP written
+out in plain torch, fp32 ``torch.matmul`` products on the card (the JAX
+package has no backward kernel: XLA differentiates its plain mirror).  The
+backward never launches a kernel and never calls a plain twin; the twins
+count their calls in ``<twin>.calls`` (:func:`plain_calls`) so that a run
+can show it.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import (
 __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
            "kweight_cells_ref", "band_energies", "band_energies_ref",
            "band_gain_apply", "band_gain_apply_ref", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "plain_calls"]
 
 # csrc/tf32_product.cuh: a tile holds 128 rows, every channel of a block
 # among them, and 128 columns of one filter (64 of each of two), and its
@@ -62,6 +73,7 @@ _TF32_STATE_DEPTH = 16
 def front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation, width,
                     emit_mono: bool = False):
     """Plain version of :func:`front_chain` (same algebra)."""
+    front_chain_ref.calls += 1
     c, nb, L = xrows.shape
     xs = exciter(xrows, exciter_coefs(saturation)).reshape(c * nb, L)
     y = xs @ t_eq + s_in_eq.reshape(c * nb, -1) @ w_eq.T
@@ -73,6 +85,7 @@ def front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation, width,
 
 def kweight_cells_ref(xrows, s_in, t_kw, w_kw, hop):
     """Plain version of :func:`kweight_cells` (same algebra)."""
+    kweight_cells_ref.calls += 1
     c, nb, L = xrows.shape
     if L % hop != 0:
         raise ValueError(f"hop {hop} must divide block size {L}")
@@ -149,10 +162,33 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation, width,
       emit_mono: also return the output's channel mean ``(nb, L)``.
 
     Returns ``y (C, nb, L)``, or ``(y, mono)`` with ``emit_mono``.
+
+    Under autograd (an input that requires grad, or a tensor coefficient
+    or width) it runs through :class:`_FrontChainFn`.
     """
+    coefs = exciter_coefs(saturation)
+    scalars = (*coefs, width)
+    if (any(isinstance(v, torch.Tensor) for v in scalars)
+            or _wants_grad(xrows, s_in_eq, t_eq, w_eq)):
+        out = _FrontChainFn.apply(xrows, s_in_eq, t_eq, w_eq, *scalars,
+                                  emit_mono)
+        return out if emit_mono else out[0]
+    return _front_chain_forward(xrows, s_in_eq, t_eq, w_eq, coefs, width,
+                                emit_mono)
+
+
+def _wants_grad(*tensors):
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _front_chain_forward(xrows, s_in_eq, t_eq, w_eq, coefs, width,
+                         emit_mono):
+    """K1's launch on a CUDA tensor (its plain version on the CPU), with
+    float coefficients and width."""
     if xrows.device.type == "cpu":
-        return front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation,
-                               width, emit_mono)
+        return front_chain_ref(xrows, s_in_eq, t_eq, w_eq, coefs, width,
+                               emit_mono)
     c, nb, L, s = _check_operands("front_chain", xrows, s_in_eq, t_eq, w_eq)
     t_eq = t_eq.contiguous()
     _check_tf32_operands("front_chain", xrows, t_eq, s, filters=1)
@@ -160,7 +196,7 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation, width,
     mono = (torch.empty((nb, L), dtype=xrows.dtype, device=xrows.device)
             if emit_mono else None)
     wt = w_eq.T.contiguous()
-    dry, wet, drive = exciter_coefs(saturation)
+    dry, wet, drive = coefs
     lib = _kernels.library().lib
     with torch.cuda.device(xrows.device):
         stream = torch.cuda.current_stream(xrows.device).cuda_stream
@@ -199,7 +235,16 @@ def kweight_cells(xrows, s_in, t_kw, w_kw, hop):
       t_kw / w_kw: the K-filter's ``T (L, L)`` / ``W (L, S)`` operators
         (float64-built: the K-weighting poles sit near the unit circle).
       hop: bucket width ``h``, a divisor of ``L`` (``gcd(cell, L)``).
+
+    Under autograd it runs through :class:`_KweightCellsFn`.
     """
+    if _wants_grad(xrows, s_in, t_kw, w_kw):
+        return _KweightCellsFn.apply(xrows, s_in, t_kw, w_kw, int(hop))
+    return _kweight_cells_forward(xrows, s_in, t_kw, w_kw, hop)
+
+
+def _kweight_cells_forward(xrows, s_in, t_kw, w_kw, hop):
+    """K4's launch on a CUDA tensor (its plain version on the CPU)."""
     if xrows.device.type == "cpu":
         return kweight_cells_ref(xrows, s_in, t_kw, w_kw, hop)
     c, nb, L, s = _check_operands("kweight_cells", xrows, s_in, t_kw, w_kw)
@@ -229,6 +274,117 @@ def kweight_cells(xrows, s_in, t_kw, w_kw, hop):
     _raise_on("kweight_cells", err)
     kweight_cells.launches += 1
     return out
+
+
+class _FrontChainFn(torch.autograd.Function):
+    """K1 under autograd.  Forward: the kernel (one launch; the
+    coefficients and width read to the host in one transfer).  Backward,
+    in plain torch, with ``xs = exc(x)``, ``u = xs·T + s_in·Wᵀ`` and ``y =
+    width(u)`` (the mid/side matrix, symmetric): ``du = widthᵀ(dy)`` plus
+    ``dmono / C`` on each channel; ``dT = Σ_rows xsᵀ du``, ``dW = duᵀ
+    s_in``, ``ds_in = du W``, ``dxs = du Tᵀ``, whose exciter derivative
+    gives ``dx``, ``d dry``, ``d wet`` and ``d drive``; ``d width = Σ (dy_L
+    − dy_R)·(u_L − u_R)/2``, ``u_L − u_R`` recomputed from the channel
+    differences (half a forward product).  Nothing but the inputs is
+    saved."""
+
+    @staticmethod
+    def forward(ctx, xrows, s_in, t, w, dry, wet, drive, width, emit_mono):
+        scalars = (dry, wet, drive, width)
+        tens = [v for v in scalars if isinstance(v, torch.Tensor)]
+        vals = iter(torch.stack([
+            v.detach().reshape(()).to(tens[0].device, torch.float64)
+            for v in tens]).tolist() if tens else ())
+        host = [next(vals) if isinstance(v, torch.Tensor) else float(v)
+                for v in scalars]
+        out = _front_chain_forward(xrows, s_in, t, w, tuple(host[:3]),
+                                   host[3], emit_mono)
+        ctx.set_materialize_grads(False)
+        ctx.host = host
+        # the dtype and shape of each tensor slider, for its gradient
+        ctx.scalar_like = [(v.dtype, v.shape) if isinstance(v, torch.Tensor)
+                           else None for v in scalars]
+        ctx.save_for_backward(xrows, s_in, t, w)
+        return out if emit_mono else (out,)
+
+    @staticmethod
+    def backward(ctx, dy, dmono=None):
+        x, s_in, t, w = ctx.saved_tensors
+        c, nb, L = x.shape
+        dry, wet, drive, width = ctx.host
+        need = ctx.needs_input_grad
+        if dy is None:
+            dy = x.new_zeros(x.shape)
+        if dmono is not None:
+            dy = dy + dmono[None] / c
+        rows = x.reshape(c * nb, L)
+        states = s_in.reshape(c * nb, -1)
+        th = torch.tanh(rows * drive)
+        xs = dry * rows + wet * th
+        d_width = None
+        if c == 2:
+            a, b = (1.0 + width) / 2.0, (1.0 - width) / 2.0
+            du = torch.stack([a * dy[0] + b * dy[1], b * dy[0] + a * dy[1]])
+            if need[7]:
+                xs2, st2 = xs.reshape(2, nb, L), states.reshape(2, nb, -1)
+                u_diff = (xs2[0] - xs2[1]) @ t + (st2[0] - st2[1]) @ w.T
+                d_width = ((dy[0] - dy[1]) * u_diff).sum() / 2.0
+        else:
+            du = dy
+            if need[7]:
+                d_width = x.new_zeros(())
+        du = du.reshape(c * nb, L)
+        d_t = xs.T @ du if need[2] else None
+        d_w = du.T @ states if need[3] else None
+        d_s = (du @ w).reshape(s_in.shape) if need[1] else None
+        d_x = d_dry = d_wet = d_drive = None
+        if need[0] or any(need[4:7]):
+            dxs = du @ t.T
+            if need[4]:
+                d_dry = (dxs * rows).sum()
+            if need[5]:
+                d_wet = (dxs * th).sum()
+            sech2 = 1.0 - th * th
+            if need[6]:
+                d_drive = (dxs * (wet * rows * sech2)).sum()
+            if need[0]:
+                d_x = (dxs * (dry + wet * drive * sech2)).reshape(x.shape)
+
+        grads = [None if g is None or like is None
+                 else g.to(like[0]).reshape(like[1])
+                 for g, like in zip((d_dry, d_wet, d_drive, d_width),
+                                    ctx.scalar_like)]
+        return (d_x, d_s, d_t, d_w, *grads, None)
+
+
+class _KweightCellsFn(torch.autograd.Function):
+    """K4 under autograd.  Forward: the kernel.  Backward, in plain torch,
+    with ``k = x·T + s_in·Wᵀ`` recomputed (not saved: 63 MB a call on a
+    180 s stereo track): ``dk = 2·k·repeat(dcells, h)``, ``dx = dk Tᵀ``,
+    ``ds_in = dk W``, and ``dT = xᵀ dk``, ``dW = dkᵀ s_in`` only where they
+    are asked for (the K-filter's operators are constants in the chain)."""
+
+    @staticmethod
+    def forward(ctx, xrows, s_in, t, w, hop):
+        ctx.hop = hop
+        ctx.save_for_backward(xrows, s_in, t, w)
+        return _kweight_cells_forward(xrows, s_in, t, w, hop)
+
+    @staticmethod
+    def backward(ctx, dcells):
+        x, s_in, t, w = ctx.saved_tensors
+        c, nb, L = x.shape
+        need = ctx.needs_input_grad
+        rows = x.reshape(c * nb, L)
+        states = s_in.reshape(c * nb, -1)
+        k = rows @ t + states @ w.T
+        dk = 2.0 * k * dcells.reshape(c * nb, L // ctx.hop).repeat_interleave(
+            ctx.hop, dim=1)
+        d_x = (dk @ t.T).reshape(x.shape) if need[0] else None
+        d_s = (dk @ w).reshape(s_in.shape) if need[1] else None
+        d_t = rows.T @ dk if need[2] else None
+        d_w = dk.T @ states if need[3] else None
+        return d_x, d_s, d_t, d_w, None
 
 
 @functools.lru_cache(maxsize=16)
@@ -395,6 +551,8 @@ def band_gain_apply(xrows, s_in_lp, s_in_hp, cols, sos_lp, sos_hp, hop=1,
 
 front_chain.launches = 0
 kweight_cells.launches = 0
+front_chain_ref.calls = 0
+kweight_cells_ref.calls = 0
 band_energies.launches = 0
 band_gain_apply.launches = 0
 _WRAPPERS = (front_chain, kweight_cells, band_energies, band_gain_apply,
@@ -402,10 +560,21 @@ _WRAPPERS = (front_chain, kweight_cells, band_energies, band_gain_apply,
              ballistics.replay_bnd)
 
 
+_PLAIN_TWINS = (front_chain_ref, kweight_cells_ref)
+
+
 def reset_launch_counts():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and the call counts of the plain
+    twins of :func:`plain_calls`, to 0."""
     for fn in _WRAPPERS:
         fn.launches = 0
+    for fn in _PLAIN_TWINS:
+        fn.calls = 0
+
+
+def plain_calls():
+    """``{plain twin name: calls}`` since the last reset."""
+    return {fn.__name__: fn.calls for fn in _PLAIN_TWINS}
 
 
 def launch_counts():

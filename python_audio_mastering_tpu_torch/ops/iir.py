@@ -24,6 +24,17 @@ Wᵀ``, which is the CUDA kernels' job (``ops.cuda_multiband``), with
 :func:`sosfilt_blocked_rows` here as its plain version.
 :func:`sosfilt_states_multi_rows` serves several cascades of one signal
 (the multiband crossovers) from one shared read.
+
+Coefficients that are a tensor in the autograd graph (the automaster's EQ)
+take a traced route instead (:func:`blocked_ops_traced`, the counterpart
+of the JAX package's ``_blocked_operators`` and ``_affine_prefix_traced``):
+the operators are built on the signal's device in float64, as functions
+of the coefficients.  Torch has no associative scan, so the powers
+``A^0 … A^{L−1}`` come by doubling, ``P[2^k : 2^{k+1}] = P[:2^k] @
+A^{2^k}`` (9 batched products at L = 384); the boundary prefix builds its
+superblock operators from the traced ``A^L`` the same way at every level.
+``T``/``W`` are cast to the working dtype for the kernels, ``G``/``A^L``
+stay float64 for the states pass.  Nothing of this route is cached.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ import torch
 __all__ = [
     "BlockedOps",
     "blocked_ops",
+    "blocked_ops_traced",
+    "cascade_state_space_traced",
     "cascade_state_space",
     "zi_to_state",
     "state_to_zi",
@@ -184,7 +197,9 @@ class BlockedOps:
     ``t``/``w`` (the output recompute) are in the working dtype; ``g``/``al``
     (the states pass) are float64.  ``al64`` is ``A^L`` as a numpy array,
     from which the boundary prefix builds its operators, and ``prefix``
-    keeps the prefix's device operators between calls.
+    keeps the prefix's device operators between calls.  Traced operators
+    (:func:`blocked_ops_traced`) have no ``al64``: they carry the powers
+    ``A^0 … A^{L−1}`` instead, and the prefix is built in the graph.
     """
 
     t: torch.Tensor
@@ -195,6 +210,11 @@ class BlockedOps:
     k: int
     prefix: dict = dataclasses.field(default_factory=dict)
     sos: np.ndarray | None = None
+    powers: torch.Tensor | None = None
+
+    @property
+    def traced(self):
+        return self.al64 is None
 
 
 def blocked_ops(sos, block_size, device="cpu", dtype=torch.float32):
@@ -211,6 +231,127 @@ def blocked_ops(sos, block_size, device="cpu", dtype=torch.float32):
     return BlockedOps(t=on(t, dtype), g=on(g, _STATES_DTYPE),
                       w=on(w, dtype), al=on(al, _STATES_DTYPE),
                       al64=np.ascontiguousarray(al), k=sos.shape[0], sos=sos)
+
+
+def cascade_state_space_traced(sos):
+    """``(A, B, C, D)`` of a ``(K, 6)`` cascade tensor, in its dtype and on
+    its device, as functions of it (:func:`_state_space_static`'s
+    algebra)."""
+    k = sos.shape[0]
+    s_dim = 2 * k
+    a = sos.new_zeros((s_dim, s_dim))
+    b = sos.new_zeros(s_dim)
+    c = sos.new_zeros(s_dim)
+    one, zero = sos.new_ones(()), sos.new_zeros(())
+    d = None
+    for j in range(k):
+        b0, b1, b2, _, a1, a2 = sos[j].unbind()
+        a_j = torch.stack([torch.stack([-a1, one]), torch.stack([-a2, zero])])
+        b_j = torch.stack([b1 - a1 * b0, b2 - a2 * b0])
+        s = 2 * j
+        a[s:s + 2, s:s + 2] = a_j
+        if j == 0:
+            b[:2] = b_j
+            c[0] = 1.0
+            d = b0
+        else:
+            a[s:s + 2, :s] = torch.outer(b_j, c[:s])
+            b[s:s + 2] = b_j * d
+            c = torch.cat([c[:s] * b0, one[None],
+                           sos.new_zeros(s_dim - s - 1)])
+            d = d * b0
+    return a, b, c, d
+
+
+def _powers_traced(a, n):
+    """``A^0 … A^{n−1}`` ``(n, S, S)`` of a tensor ``a`` by doubling:
+    ``P[2^k : 2^{k+1}] = P[:2^k] @ A^{2^k}`` (powers of one matrix
+    commute), ~log2(n) batched products."""
+    p = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)[None]
+    a_k = a
+    while p.shape[0] < n:
+        p = torch.cat([p, p @ a_k])
+        if p.shape[0] < n:
+            a_k = a_k @ a_k
+    return p[:n]
+
+
+def blocked_ops_traced(sos, block_size, dtype=torch.float32):
+    """Blocked operators of a ``(K, 6)`` coefficient tensor, built in the
+    graph on its device in float64 (counterpart of JAX
+    ``_blocked_operators``): ``T``/``W`` cast to ``dtype``, ``G``/``A^L``
+    float64, and the powers ``A^0 … A^{L−1}`` for final states.  Not
+    cached."""
+    sos = sos.to(_STATES_DTYPE)
+    a, b, c, d = cascade_state_space_traced(sos)
+    L = int(block_size)
+    powers = _powers_traced(a, L)                       # A^0 … A^{L−1}
+    al = a @ powers[L - 1]
+    v = powers @ b                                      # v[t] = A^t B
+    h = torch.cat([d[None], v[: L - 1] @ c])            # impulse response
+    t_mat = _toeplitz_rows(torch.cat([h, torch.zeros_like(h)]), L)
+    g = v.flip(0)                                       # G[j] = A^{L−1−j} B
+    w = torch.einsum("i,tij->tj", c, powers)            # W[t] = C A^t
+    return BlockedOps(t=t_mat.to(dtype), g=g, w=w.to(dtype), al=al,
+                      al64=None, k=sos.shape[0], powers=powers)
+
+
+def _toeplitz_rows(hc, n):
+    """``out[j, i] = hc[i − j]`` for ``i ≥ j``, else 0 (``hc[n:2n]`` must be
+    zeros), over the leading axis of ``hc`` ``(2n, ...)``, by the
+    stride-(2n−1) tile trick (JAX ``_blocked_operators``): row ``j`` of the
+    tiled array cut into rows of ``2n − 1`` starts at ``hc[−j mod 2n]``.
+    Only repeats, reshapes and slices: a gather here (``hc[idx]``) has an
+    index-put backward that took most of a fit step's device time."""
+    rest = hc.shape[1:]
+    tiled = hc.repeat(n, *([1] * len(rest)))[: n * (2 * n - 1)]
+    return tiled.reshape(n, 2 * n - 1, *rest)[:, :n]
+
+
+def _affine_prefix_traced(t_vec, s0, a, m_grp=_PREFIX_GROUP):
+    """Traced-matrix twin of :func:`_affine_prefix_static` (JAX
+    ``_affine_prefix_traced``): the superblock operators are built in the
+    graph from the tensor ``a`` (powers by doubling, the block-Toeplitz
+    ``tbig_t`` by :func:`_toeplitz_rows`), and the recursion runs on the
+    superblock totals with ``A^M``."""
+    c, n, s_dim = t_vec.shape
+    m = min(n, m_grp)
+    powers = _powers_traced(a, m + 1)
+    powers_m, a_m = powers[:m], powers[m]
+    # blocks[j, m'] = A^{m'−j} for m' ≥ j, else 0, and
+    # tbig_t[j·S + sj, m'·S + sm] = A^{m'−j}[sm, sj]
+    blocks = _toeplitz_rows(torch.cat([powers_m, torch.zeros_like(powers_m)]),
+                            m)
+    tbig_t = blocks.permute(0, 3, 1, 2).reshape(m * s_dim, m * s_dim)
+    ng = -(-n // m)
+    t_pad = torch.nn.functional.pad(t_vec, (0, 0, 0, ng * m - n))
+    cum = (t_pad.reshape(c, ng, m * s_dim) @ tbig_t).reshape(c, ng, m, s_dim)
+    if ng == 1:
+        sg_in = s0[:, None]
+    else:
+        sg_in = _affine_prefix_traced(cum[:, :, m - 1, :], s0, a_m,
+                                      m_grp=m_grp)
+    shifted = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]],
+                        dim=2)
+    s_in = torch.einsum("mij,cgj->cgmi", powers_m, sg_in) + shifted
+    return s_in.reshape(c, ng * m, s_dim)[:, :n]
+
+
+def _boundary_states_traced(t_vec, s0, al):
+    """Incoming block states ``(C, nb, S)`` and the state after the last
+    block ``(C, S)`` for a traced ``A^L`` (JAX ``_boundary_states_traced``)."""
+    s_in = _affine_prefix_traced(t_vec, s0, al)
+    return s_in, s_in[:, -1] @ al.T + t_vec[:, -1]
+
+
+def _final_state_traced(s_in_last, x_last, powers, g, rem):
+    """The state after ``rem < L`` samples of a block entered in
+    ``s_in_last`` ``(C, S)``: ``A^rem s_in + Σ_{j<rem} A^{rem−1−j} B x[j]``,
+    ``A^rem`` read from the block's ``powers`` and the drive terms a slice
+    of ``G`` (``G[j] = A^{L−1−j} B``) (JAX ``_final_state_traced``, which
+    builds ``A^rem`` by ``_matpow_traced``).  ``x_last`` is ``(C, rem)``."""
+    L = g.shape[0]
+    return s_in_last @ powers[rem].T + x_last @ g[L - rem:]
 
 
 def zi_to_state(zi):
@@ -246,17 +387,24 @@ def _states_from_summaries(t_vec, zi, ops, dtype, return_state,
     L)`` is the float64 signal, needed then."""
     c, nb, _ = t_vec.shape
     s0 = _initial_state(zi, ops.k, c, t_vec)
-    s_in64 = _affine_prefix_static(t_vec, s0, ops.al64, cache=ops.prefix)
+    if ops.traced:
+        s_in64, s_end = _boundary_states_traced(t_vec, s0, ops.al)
+    else:
+        s_in64 = _affine_prefix_static(t_vec, s0, ops.al64, cache=ops.prefix)
     s_in = s_in64.to(dtype).contiguous()
     if not return_state:
         return s_in, zi
     L = rows64.shape[2] if rows64 is not None else None
     if n_valid is None or n_valid >= nb * L:
-        s_last = s_in64[:, -1] @ ops.al.T + t_vec[:, -1]           # (C, S)
+        s_last = (s_end if ops.traced
+                  else s_in64[:, -1] @ ops.al.T + t_vec[:, -1])    # (C, S)
     else:
         j, r = divmod(int(n_valid), L)
         s_last = s_in64[:, j]
-        if r:
+        if r and ops.traced:
+            s_last = _final_state_traced(s_last, rows64[:, j, :r], ops.powers,
+                                         ops.g, r)
+        elif r:
             _, g_r, _, al_r = _blocked_operators_static(
                 ops.sos.tobytes(), ops.k, r)
             s_last = (s_last @ torch.as_tensor(al_r.T, device=s_last.device)
@@ -271,7 +419,8 @@ def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None,
 
     One ``rows @ G`` read of the signal plus the scan-free boundary
     prefix.  ``ops`` (from :func:`blocked_ops`) skips the operator lookup
-    when the caller holds them already.  ``n_valid``: the samples of the
+    when the caller holds them already.  A ``sos`` tensor that requires
+    grad takes the traced route (:func:`blocked_ops_traced`).  ``n_valid``: the samples of the
     signal before its zero padding, where ``zf`` is taken (all of them
     when None).
 
@@ -280,7 +429,9 @@ def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None,
     False).
     """
     c, nb, L = xrows.shape
-    if ops is None:
+    if ops is None and isinstance(sos, torch.Tensor) and sos.requires_grad:
+        ops = blocked_ops_traced(sos, L, xrows.dtype)
+    elif ops is None:
         ops = blocked_ops(sos, L, xrows.device, xrows.dtype)
     rows = xrows.reshape(c * nb, L).to(_STATES_DTYPE)
     t_vec = (rows @ ops.g).reshape(c, nb, -1)

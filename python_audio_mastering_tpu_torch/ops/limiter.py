@@ -70,7 +70,8 @@ def _prefix_max(v):
     m = torch.cummax(m, dim=1).values
     if rows > 1:
         before = torch.cummax(m[:-1, -1], dim=0).values
-        m[1:] = torch.maximum(m[1:], before[:, None])
+        # out of place: autograd keeps m for the maximum's backward
+        m = torch.cat([m[:1], torch.maximum(m[1:], before[:, None])])
     return m.reshape(-1)[:n]
 
 
@@ -87,8 +88,13 @@ def _release_scan(target, rho, g0=None):
     log_rho = math.log(rho)
     steps = torch.arange(n, dtype=torch.float64,
                          device=target.device) * log_rho
-    # 1 − t < 0 (a smoothed gain a rounding above 1) never wins the max
-    m = _prefix_max(torch.log(torch.clamp_min(1.0 - t64, 0.0)) - steps)
+    # 1 − t ≤ 0 (a smoothed gain at 1, or a rounding above it) is log 0 =
+    # −inf and never wins the max; the inner where keeps log's gradient
+    # finite there (0, not 0/0) under autograd
+    u1 = 1.0 - t64
+    pos = u1 > 0.0
+    m = _prefix_max(torch.where(pos, torch.log(torch.where(pos, u1, 1.0)),
+                                -math.inf) - steps)
     if g0 is not None:
         # the carried u[−1] = 1 − g0 enters as the term j = −1
         u0 = 1.0 - torch.as_tensor(g0, dtype=torch.float64,

@@ -11,6 +11,11 @@ Both exciters are one form, ``dry·x + wet·tanh(drive·x)``
 per variant: the ``front_chain`` kernel takes them as it finds them, and
 the EQ states pass before it reads the signal through the same
 :func:`exciter`.
+
+A slider given as a tensor takes a tensor route: the coefficients stay
+tensors of the slider (``mix``, ``drive`` and ``dry = 1 − mix`` in its
+dtype, as the JAX chain computes them in the signal's), so autograd
+reaches the slider through them.  The float route is unchanged.
 """
 
 from __future__ import annotations
@@ -43,11 +48,25 @@ def exciter_coefs(saturation_percent, variant: str = "worker"):
     Worker: ``dry = fp32(1 − fp32(mix))``, ``wet = mix``,
     ``drive = 1 + 4·mix``.  Legacy: ``tanh(g·x)/g`` as ``dry = 0``,
     ``wet = 1/g``, ``drive = g``; at amount 0 the identity, ``(1, 0, 1)``.
-    A ``(dry, wet, drive)`` triple passes through unchanged.
+    A ``(dry, wet, drive)`` triple passes through unchanged (a tensor in it
+    stays a tensor).  A tensor slider gives tensors: worker ``mix =
+    (s/100)^2``, ``dry = 1 − mix``, ``drive = 1 + 4·mix``; legacy ``g = 1
+    + 4·s/100`` and the identity where ``s == 0`` (a ``where``, as JAX's
+    ``saturate_legacy``).
     """
     if isinstance(saturation_percent, (tuple, list)):
-        dry, wet, drive = saturation_percent
-        return float(dry), float(wet), float(drive)
+        return tuple(c if isinstance(c, torch.Tensor) else float(c)
+                     for c in saturation_percent)
+    if isinstance(saturation_percent, torch.Tensor):
+        s = saturation_percent
+        if variant == "legacy":
+            g = 1.0 + (s / 100.0) * 4.0
+            off = s == 0.0
+            one, zero = torch.ones_like(g), torch.zeros_like(g)
+            return (torch.where(off, one, zero),
+                    torch.where(off, zero, 1.0 / g), torch.where(off, one, g))
+        mix = (s / 100.0) ** 2
+        return 1.0 - mix, mix, 1.0 + mix * 4.0
     if variant == "legacy":
         if float(saturation_percent) == 0.0:
             return 1.0, 0.0, 1.0
@@ -71,7 +90,11 @@ def saturate(x, saturation_percent):
 
 def saturate_legacy(x, amount):
     """Gain-compensated tanh ``tanh(x·g)/g``, ``g = 1 + 4·amount/100``;
-    the identity at amount 0 (main.py:95)."""
+    the identity at amount 0 (main.py:95; a ``where`` for a tensor
+    ``amount``)."""
+    if isinstance(amount, torch.Tensor):
+        g = 1.0 + (amount / 100.0) * 4.0
+        return torch.where(amount == 0.0, x, torch.tanh(x * g) / g)
     if float(amount) == 0.0:
         return x
     g = legacy_gain(amount)

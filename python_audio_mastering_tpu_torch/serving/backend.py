@@ -160,7 +160,9 @@ def make_backend_app(store: BlobStore, publish, upload_expiry_s: int = 900,
     return app
 
 
-def main():  # pragma: no cover — manual serving entry point
+def main(device="cuda"):  # pragma: no cover — manual serving entry point
+    """Serve the job API with a local queue whose worker masters on
+    ``device`` (the card by default)."""
     from wsgiref.simple_server import make_server
 
     from python_audio_mastering_tpu_torch.serving.jobqueue import LocalQueue
@@ -170,7 +172,7 @@ def main():  # pragma: no cover — manual serving entry point
                           os.path.join(tempfile.gettempdir(), "pam_blobs"))
     bucket = os.environ.get("GCS_BUCKET_NAME", "audio-uploads")
     store = LocalFSBlobStore(root, bucket=bucket)
-    q = LocalQueue(consumer=make_consumer(store))
+    q = LocalQueue(consumer=make_consumer(store, device=device))
     q.start()
     app = make_backend_app(store, q.publish)
     port = int(os.environ.get("PORT", 8080))

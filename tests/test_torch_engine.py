@@ -419,7 +419,8 @@ def test_process_audio_defaults_to_the_card(tmp_path):
 
 def test_port_imports_without_jax():
     """The card's machine has no jax: the port must import and run, in
-    quality mode too, with jax unimportable."""
+    quality mode too, and take an automaster fit step, with jax
+    unimportable; the CLI and the GUI logic import."""
     code = (
         "import sys, dataclasses; sys.modules['jax'] = None\n"
         "import numpy as np\n"
@@ -432,6 +433,8 @@ def test_port_imports_without_jax():
         " jobqueue, worker\n"
         "from python_audio_mastering_tpu_torch.parallel import batch\n"
         "from python_audio_mastering_tpu_torch.io import native\n"
+        "from python_audio_mastering_tpu_torch import cli, gui_logic\n"
+        "from python_audio_mastering_tpu_torch.models import automaster\n"
         "cfg = dataclasses.replace(p.ChainConfig.gpu_default(),"
         " limiter_mode='lookahead_truepeak')\n"
         "y = p.master(np.full((2048, 2), 0.5, np.float32),"
@@ -441,6 +444,12 @@ def test_port_imports_without_jax():
         " np.float32)] * 2, p.MasteringParams(), cfg, transfer='pcm16',"
         " device='cpu')\n"
         "assert len(outs) == 2 and outs[0].shape == (2048, 2)\n"
+        "m = automaster.AutoMasterModel(config=p.ChainConfig.gpu_default(),"
+        " device='cpu')\n"
+        "x = np.random.default_rng(0).standard_normal((8192, 2)) * 0.1\n"
+        "fitted, losses = automaster.fit(m, x,"
+        " automaster.spectral_profile(x * 0.5, 44100), steps=1)\n"
+        "assert len(losses) == 1 and np.isfinite(losses[0])\n"
         "assert not any(m == 'python_audio_mastering_tpu' or"
         " m.startswith('python_audio_mastering_tpu.') for m in sys.modules)\n"
         "print('ok', tuple(y.shape))\n")

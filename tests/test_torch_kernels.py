@@ -6,7 +6,9 @@ so the card's machine, which has no jax, runs it:
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 Tests marked ``cuda`` need an NVIDIA GPU and skip without one; the
-others check the wrappers' device dispatch on the CPU.  Kernel vs plain
+others check the wrappers' device dispatch on the CPU.  K1 and K4 under
+autograd (the kernel forward, the VJP written out in plain torch) against
+autograd through their plain twins: within 1e-5 of each gradient's max.  Kernel vs plain
 on the card: fp32 sums in another order, max abs ≤ 1e-4 (K2, K4:
 relative to the largest value; K1-K4 run their products in 3xTF32 on the
 tensor cores, close to fp32, K4 its states term in fp32); the ballistics
@@ -215,6 +217,121 @@ def test_kweight_cells_kernel_matches_plain(cuda_device, block, fs,
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
     assert torch.equal(cmb.kweight_cells(*args), got)
     assert all(int(t.abs().sum()) == 0 for t in cmb._TICKETS.values())
+
+
+def _grads(fn, args, ups):
+    """Gradients of ``fn(*args)`` (every tensor argument a fresh leaf) for
+    the upstream gradients ``ups``; an argument the result does not use
+    (the width of a mono signal) gets zeros."""
+    leaves = [a.detach().clone().requires_grad_(True)
+              if torch.is_tensor(a) else a for a in args]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(out, [a for a in leaves if torch.is_tensor(a)],
+                               ups, allow_unused=True, materialize_grads=True)
+
+
+def _assert_grads_close(got, want, limit=1e-5):
+    """Each gradient within ``limit`` of its own max (zero where the
+    reference is zero)."""
+    for a, b in zip(got, want):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        assert err <= limit * scale if scale else err == 0.0, (err, scale)
+
+
+def _k1_grad_operands(channels, nb, device, block=L):
+    """K1's operands with the exciter coefficients and width as tensors."""
+    from python_audio_mastering_tpu_torch.ops.waveshaper import exciter_coefs
+
+    x, s_in, t, w, sat, width = _front_operands(channels, nb, device,
+                                                block=block)
+    return (x, s_in, t, w, *(torch.tensor(c, device=device)
+                             for c in exciter_coefs(sat)),
+            torch.tensor(width, device=device))
+
+
+def _k1(kernel):
+    def fn(x, s, t, w, dry, wet, drive, width, emit_mono=False):
+        return kernel(x, s, t, w, (dry, wet, drive), width,
+                      emit_mono=emit_mono)
+    return fn
+
+
+@pytest.mark.parametrize("emit_mono", [False, True])
+def test_autograd_wrappers_take_the_plain_version_on_cpu(emit_mono):
+    """Under autograd a CPU tensor goes through the same
+    ``autograd.Function`` the card runs, its forward the plain version:
+    the outputs are the plain twin's bits, the gradients autograd's through
+    the plain twin (within 1e-5 of each gradient's max, fp32 sums in
+    another order), no launch is counted and the backward calls no plain
+    twin."""
+    g = torch.Generator().manual_seed(3)
+    args = _k1_grad_operands(2, 9, "cpu")
+    ups = [torch.randn(2, 9, L, generator=g)] + (
+        [torch.randn(9, L, generator=g)] if emit_mono else [])
+    cmb.reset_launch_counts()
+    got = _grads(lambda *a: _k1(cmb.front_chain)(*a, emit_mono=emit_mono),
+                 args, ups)
+    assert cmb.plain_calls()["front_chain_ref"] == 1
+    want = _grads(lambda *a: _k1(cmb.front_chain_ref)(*a,
+                                                      emit_mono=emit_mono),
+                  args, ups)
+    _assert_grads_close(got, want)
+    kargs = _kweight_operands(1, 20, "cpu", 44100)
+    up = [torch.randn(1, 20 * L // kargs[4], generator=g)]
+    cmb.reset_launch_counts()
+    got = _grads(lambda *a: cmb.kweight_cells(*a, kargs[4]), kargs[:4], up)
+    assert cmb.plain_calls()["kweight_cells_ref"] == 1
+    want = _grads(lambda *a: cmb.kweight_cells_ref(*a, kargs[4]), kargs[:4],
+                  up)
+    _assert_grads_close(got, want)
+    assert not any(cmb.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_mono", [False, True])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("block", [128, 384, 512])
+def test_front_chain_vjp_matches_plain_autograd(cuda_device, block, channels,
+                                                emit_mono):
+    """K1 under autograd (the kernel forward, the written-out VJP) against
+    autograd through the plain twin, every input and slider: within 1e-5
+    of each gradient's max.  The backward launches nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(block + channels)
+    args = _k1_grad_operands(channels, 45, cuda_device, block=block)
+    ups = [torch.randn(channels, 45, block, generator=g, device=cuda_device)]
+    if emit_mono:
+        ups.append(torch.randn(45, block, generator=g, device=cuda_device))
+    cmb.reset_launch_counts()
+    got = _grads(lambda *a: _k1(cmb.front_chain)(*a, emit_mono=emit_mono),
+                 args, ups)
+    torch.cuda.synchronize()
+    assert cmb.front_chain.launches == 1
+    assert cmb.plain_calls()["front_chain_ref"] == 0
+    want = _grads(lambda *a: _k1(cmb.front_chain_ref)(*a,
+                                                      emit_mono=emit_mono),
+                  args, ups)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [44100, 48000])
+@pytest.mark.parametrize("block", [128, 384, 512])
+def test_kweight_cells_vjp_matches_plain_autograd(cuda_device, block, fs):
+    """K4 under autograd against autograd through its plain twin (signal,
+    states and both operators): within 1e-5 of each gradient's max."""
+    args = _kweight_operands(1, 99, cuda_device, fs, block)
+    h = args[4]
+    g = torch.Generator(device=cuda_device).manual_seed(block)
+    up = [torch.randn(1, 99 * block // h, generator=g, device=cuda_device)]
+    cmb.reset_launch_counts()
+    got = _grads(lambda *a: cmb.kweight_cells(*a, h), args[:4], up)
+    torch.cuda.synchronize()
+    assert cmb.kweight_cells.launches == 1
+    assert cmb.plain_calls()["kweight_cells_ref"] == 0
+    want = _grads(lambda *a: cmb.kweight_cells_ref(*a, h), args[:4], up)
+    _assert_grads_close(got, want)
 
 
 @pytest.mark.parametrize("case", ["states_f1", "states_f2", "rows", "T"])
