@@ -9,8 +9,9 @@ card by default), on a seeded 180 s 44.1 kHz stereo track with the bench
 settings, multiband off (phases 2-6) and on (phases 7-12), in quality
 mode through every single-file and cloud engine (phases 14-17), and on
 the bench's 12-track album through the album path, the album engine and
-the job worker (phases 18-21), the legacy chain (phases 22-25) and the
-automaster, the engine's and the CLI's (phases 26-30), after
+the job worker (phases 18-21), the legacy chain (phases 22-25), the
+automaster, the engine's and the CLI's (phases 26-30), and sequence
+parallelism on one, two and four ranks (phases 31-34), after
 building its CUDA kernels from the sources in the checkout and checking
 each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
@@ -193,6 +194,52 @@ and K4 under autograd, on the 180 s track with ``gpu_default``:
      (within 3.052e-5, one 16-bit step, of engine.process_audio's output)
      and automaster (5 steps) exit 0
 
+Sequence parallelism (``parallel.sequence`` over ``parallel.mesh``), one
+process a rank through ``parallel.mesh.launch``, every rank on the card;
+the 180 s track grown to a seeded 600 s one, ``gpu_default``, the bench
+settings, each run called without a device argument after a warm call:
+
+ 31  D = 1 over NCCL: master_track_sharded multiband off, "approx" and
+     "exact"
+ 32  D = 2 over gloo (the ranks share the card): the same three, quality
+     mode with multiband off and on and the legacy variant (the row-major
+     body) and return_meters
+ 33  D = 4 over gloo: the same three, and master_album_sharded of 4 seeded
+     180 s tracks (multiband, "exact") on a 2 x 2 mesh
+     For every run and rank: K1-K7's launches and the plain twins' calls
+     (the rows body with multiband launches every kernel on every rank,
+     no plain twin; without multiband K1 and K4; the row-major body none),
+     the wall (the port's utils.tracing.span, closed after a device
+     synchronise; CUDA events on the rank's stream) and the collectives'
+     host time (the mesh's collective/* spans inside it); every rank
+     returns the same audio.  Rank 0 checks each output against its
+     reference on the card: the one-shot master() (multiband off and
+     quality < 2e-4 max abs and < 1e-3 LU, quality's sample peak <= the
+     ceiling x (1 + 1e-6); "exact" and the album's tracks within phase
+     10's limits; "approx" and quality with multiband within the JAX
+     package's fast SP budget, rms < 4e-3 and max < 0.1), the streamed legacy chain (the legacy run:
+     < 2e-4, the worker EQ behind the legacy saturation, as JAX's SP body
+     runs it), master_streamed's meters (the meters run); and the
+     oracle within 0.15 LU of -14 (but quality's, printed).  Every rank
+     holds what K1-K4 returned on the main path
+     against their plain twins on the same operands, on the card (phases
+     2, 3, 7 and 8's 1e-4), and every call of the ballistics entry points
+     (ballistics_rates_bt: K5-K7; attenuation_blocked_bt: K5/K6 rows, in
+     the row-major body with multiband) bitwise against their plain twins
+     on the CPU; each multiband run must have held every one it ran.
+     Quality with multiband (the row-major body) launches K5 and K6 on
+     every rank and stays within the fast SP budget of its one-shot
+     master().  The meters run: measured loudness, integrated, series,
+     LRA and true peak against master_streamed's within SP_METER_LIMITS,
+     each limit's control (the K-filter's shard-incoming state dropped,
+     a float32 running sum, the windows across a shard boundary dropped,
+     the sample peak for the true peak) required above it.  Rank 0's
+     device time, idle share and top activities of the first multiband
+     run, under torch.profiler
+ 34  the walls of every run beside the card's name and power limit: D
+     ranks share one card's SMs, so they measure the machinery, not a
+     scaling
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -208,7 +255,9 @@ are the kernel record (each kernel's ``launches`` from phases 4 and 10,
 ``album_launches`` / ``album_max_abs_err`` / ``album_ms`` from phases
 18 and 21, ``legacy_launches`` from phases 22 and 23, and
 ``automaster_launches`` (one fit step) and, for K1 and K4,
-``vjp_rel_err`` from phases 26 and 28) and
+``vjp_rel_err`` from phases 26 and 28, and ``sp_launches``, rank 0's in
+phase 32's "approx" run, and for K1-K4 ``sp_max_abs_err``, the largest
+distance from the plain twin over every rank of phases 31-33) and
 ``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
@@ -835,6 +884,7 @@ def main():
     album_phases(o, kernels, card)
     legacy_phases(o, kernels, card)
     automaster_phases(o, kernels, card)
+    sp_phases(kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
@@ -2441,6 +2491,461 @@ def automaster_phases(o, kernels, card):
         check(f"step {CLI_STEPS - 1}: loss" in text
               and "Processing complete!" in text, "cli automaster output")
     print("phase 30 ok", flush=True)
+
+
+# sequence parallelism (phases 31-34): one process a rank, all on the card;
+# the JAX package's fast-mode SP budget (tests/test_sequence.py:33-34)
+SP_SECONDS = 600
+SP_APPROX_RMS, SP_APPROX_MAX = 4e-3, 0.1
+SP_ALBUM_SECONDS = 180
+SP_ALBUM_SEEDS = (40, 41, 42, 43)
+SP_COUNTED = NO_MB_KERNELS + MB_COUNTED
+# run: (settings, ChainConfig fields, sp_ballistics, return_meters)
+SP_RUNS = {
+    "off": (SETTINGS, {}, "approx", False),
+    "approx": (MB_SETTINGS, {}, "approx", False),
+    "exact": (MB_SETTINGS, {}, "exact", False),
+    "quality": (SETTINGS, {"limiter_mode": "lookahead_truepeak"}, "approx",
+                False),
+    "legacy": (SETTINGS, {"variant": "legacy"}, "approx", False),
+    "quality_mb": (MB_SETTINGS, {"limiter_mode": "lookahead_truepeak"},
+                   "approx", False),
+    "meters": (SETTINGS, {}, "approx", True),
+    "album": (MB_SETTINGS, {}, "exact", False),
+}
+# D ranks -> the runs of its launch; the first multiband run is profiled
+SP_PLAN = {1: ("off", "approx", "exact"),
+           2: ("off", "approx", "exact", "quality", "quality_mb", "legacy",
+               "meters"),
+           4: ("off", "approx", "exact", "album")}
+# the plain twin of each kernel the SP path launches, and whether its limit
+# (phases 2, 3, 7 and 8's 1e-4) is relative to max |plain|
+SP_PLAIN = {"front_chain": ("front_chain_ref", False),
+            "kweight_cells": ("kweight_cells_ref", True),
+            "band_energies": ("band_energies_ref", True),
+            "band_gain_apply": ("band_gain_apply_ref", True)}
+SP_BALLISTICS = ("ballistics_rates_bt", "attenuation_blocked_bt")
+# the meters run against master_streamed's meters, each limit between the
+# sound runs' largest reading and its control's (600 s, D = 2, H100; PERF.md,
+# my chip runs): measured (the cells' gated loudness, LU; reads 0) and the
+# integrated meter (measured + gain_db, the target on both sides; 7.0e-9)
+# against the K-filter's shard-incoming state dropped (1.14e-5, 4.8e-7):
+# 2 float32 ulps at 16-32 LU, and under the control for the second; the
+# series (3.8e-6) and LRA (0, at most twice the series' reading) against
+# their running sum in float32 (9.4e-3, 7.0e-5); the true peak (0 dB)
+# within what the output's 2e-4 allows at full scale, against the sample
+# peak (1.5 dB).  The windows across a shard boundary dropped are printed:
+# LRA reads them at 7.6e-6 only, the series' length shows them
+SP_METER_LIMITS = {"measured": 4e-6, "integrated_lufs": 2e-7,
+                   "series": 2e-5, "lra_lu": 2e-5, "true_peak_dbtp": 1.7e-3}
+SP_METER_CONTROLS = {"measured": "shard K-state dropped",
+                     "integrated_lufs": "shard K-state dropped",
+                     "series": "float32 running sum",
+                     "lra_lu": "float32 running sum",
+                     "true_peak_dbtp": "sample peak"}
+
+
+def sp_reference(name, x, params, cfg):
+    """Rank 0's reference of a run, on the card: the one-shot master()
+    (the legacy run: master_streamed, whose worker EQ behind the legacy
+    saturation the SP body shares; the meters run: master_streamed with
+    its meters)."""
+    from python_audio_mastering_tpu_torch import master
+    from python_audio_mastering_tpu_torch.parallel.streaming import (
+        master_streamed,
+    )
+
+    if name in ("legacy", "meters"):
+        res = master_streamed(x, params, cfg, return_meters=name == "meters")
+        return res[0], res[1], res[3] if name == "meters" else None
+    r = master(x, params, cfg, return_result=True)
+    return r.audio.cpu().numpy(), float(r.measured_lufs), None
+
+
+def sp_check(name, y, measured, ref, oracle_lufs, extra=""):
+    """Rank 0's checks of one output against its reference (the limits
+    of the module docstring); returns the printed summary."""
+    y_ref, m_ref, _ = ref
+    check(y.shape == y_ref.shape, f"{name}: shape {y.shape}")
+    check(bool(np.isfinite(y).all()), f"{name}: non-finite output")
+    d = np.abs(y - y_ref)
+    d_max, d_rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+    d_lu = abs(measured - m_ref)
+    peak = float(np.abs(y).max())
+    lufs_out = oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
+    line = (f"max abs {d_max:.3e}, rms {d_rms:.3e}, |dLU| {d_lu:.3e}, "
+            f"peak {peak:.6f}, oracle {lufs_out:.4f} LUFS{extra}")
+    # the lookahead limiter trades loudness for its ceiling (phase 15)
+    quality = name.startswith("quality")
+    check(quality or abs(lufs_out - SETTINGS["lufs"]) <= 0.15,
+          f"{name}: output loudness {lufs_out} not within 0.15 LU of -14")
+    if name.startswith("album") or name == "exact":
+        limits = (MB_MAX, MB_RMS, 1e-3)
+    elif name in ("approx", "quality_mb"):
+        limits = (SP_APPROX_MAX, SP_APPROX_RMS, None)
+    else:
+        limits = (2e-4, None, 1e-3)
+    check(d_max < limits[0], f"{name}: max abs {d_max} >= {limits[0]}")
+    check(limits[1] is None or d_rms < limits[1],
+          f"{name}: rms {d_rms} >= {limits[1]}")
+    check(limits[2] is None or d_lu < limits[2],
+          f"{name}: |dLU| {d_lu} >= {limits[2]}")
+    if quality:
+        check(peak <= CEILING * (1 + 1e-6), f"quality: peak {peak} over the "
+                                            f"ceiling")
+    else:
+        check(peak <= 1.0, f"{name}: |y| max {peak} > 1")
+    return line
+
+
+@contextlib.contextmanager
+def sp_recording(captured):
+    """Record every call of the SP path's kernel wrappers (K1 as the
+    chain's front calls it, K4 as the rows meter does, K2 and K3 as
+    ``parallel.sequence`` does) and of its ballistics entry points:
+    ``captured`` gets ``(name, the real function, args, kwargs, out)``."""
+    from python_audio_mastering_tpu_torch.models import chain as chain_mod
+    from python_audio_mastering_tpu_torch.ops import loudness
+    from python_audio_mastering_tpu_torch.parallel import sequence
+
+    where = {"front_chain": chain_mod, "kweight_cells": loudness,
+             **{k: sequence for k in ("band_energies", "band_gain_apply",
+                                      *SP_BALLISTICS)}}
+    saved = {name: getattr(mod, name) for name, mod in where.items()}
+
+    def recorder(name, real):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            captured.append((name, real, args, kw, out))
+            return out
+        return call
+
+    for name, mod in where.items():
+        setattr(mod, name, recorder(name, saved[name]))
+    try:
+        yield captured
+    finally:
+        for name, mod in where.items():
+            setattr(mod, name, saved[name])
+
+
+def sp_hold(captured, rank):
+    """Hold what the SP path's kernels returned against their plain twins
+    on the same operands: K1-K4 on the card within phases 2, 3, 7 and 8's
+    1e-4, the ballistics (K5-K7 through ``ballistics_rates_bt``, K5/K6
+    rows through ``attenuation_blocked_bt``) bitwise on the CPU.  Fails on
+    any miss.  Returns ``({kernel: (input shapes, max abs)}, [(entry
+    point, targets shape)])``."""
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+
+    def cpu(v):
+        return v.cpu() if torch.is_tensor(v) else v
+
+    errs, bitwise = {}, []
+    for name, real, args, kw, out in captured:
+        shape = tuple(args[0].shape)
+        if name in SP_PLAIN:
+            plain, rel = SP_PLAIN[name]
+            ref = getattr(cmb, plain)(*args, **kw)
+            pairs = zip(*((v,) if torch.is_tensor(v) else v
+                          for v in (out, ref)))
+            for a, b in pairs:
+                mx, top = (a - b).abs().max().item(), b.abs().max().item()
+                val = mx / top if rel and top > 0 else mx
+                check(np.isfinite(val) and val <= 1e-4,
+                      f"rank {rank}: SP {name} {shape} vs {plain}: {val}")
+                shapes, e = errs.get(name, ([], 0.0))
+                errs[name] = (shapes + [shape] * (shape not in shapes),
+                              max(e, mx))
+        else:
+            plain = real(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(out, plain))
+            check(same, f"rank {rank}: SP {name} {shape} not bitwise its "
+                        f"plain twins on the CPU")
+            bitwise.append((name, shape))
+    return errs, bitwise
+
+
+def sp_sliding_f32(cell_ms, k):
+    """``ops.meters._sliding_loudness`` with its running sum in float32:
+    the series control."""
+    from python_audio_mastering_tpu_torch.ops import meters as met
+    from python_audio_mastering_tpu_torch.ops.loudness import channel_weights
+
+    csum = torch.nn.functional.pad(torch.cumsum(cell_ms.float(), dim=0),
+                                   (0, 0, 1, 0))
+    win = (csum[k:] - csum[:-k]) / k
+    w = channel_weights(cell_ms.shape[1], dtype=win.dtype, device=win.device)
+    return met._LOUDNESS_OFFSET + 10.0 * torch.log10(
+        torch.clamp_min(win @ w, float(np.finfo(np.float32).tiny)))
+
+
+def sp_meter_readings(got, measured, want, m_want):
+    """``{meter: |got - want|}``, the series as their max."""
+    out = {"measured": abs(measured - m_want)}
+    for k in ("integrated_lufs", "lra_lu", "true_peak_dbtp"):
+        if k in got:
+            out[k] = abs(got[k] - want[k])
+    if "short_term_lufs" in got:
+        out["series"] = max(float(np.abs(got[k] - want[k]).max())
+                            for k in ("momentary_lufs", "short_term_lufs"))
+    return out
+
+
+def sp_meters(res, ref, meter_in, ctrl, shard_cells):
+    """Rank 0's meters checks: the SP run's meters and measured loudness
+    against master_streamed's within SP_METER_LIMITS, and each limit's
+    control above it.  ``meter_in``: what the SP run handed
+    ``_meters_dict`` (the gathered cells scaled by gain², ...); ``ctrl``:
+    the run again with the K-filter's shard-incoming state dropped;
+    ``shard_cells``: cells a shard.  Returns the printed summary."""
+    from python_audio_mastering_tpu_torch.ops import meters as met
+
+    want, m_want = ref[2], ref[1]
+    sound = sp_meter_readings(res[3], res[1], want, m_want)
+    cells, _, _, _, n, cell = meter_in
+    valid = cells[: n // cell]
+    st32 = sp_sliding_f32(valid, 30)
+    f32 = {"momentary_lufs": sp_sliding_f32(valid, 4).cpu().numpy(),
+           "short_term_lufs": st32.cpu().numpy()}
+    st_local = torch.cat([met._sliding_loudness(valid[i:i + shard_cells], 30)
+                          for i in range(0, valid.shape[0], shard_cells)])
+    peak = float(np.abs(res[0]).max())
+    controls = {
+        "shard K-state dropped": sp_meter_readings(ctrl[3], ctrl[1], want,
+                                                   m_want),
+        "float32 running sum": {
+            "series": sp_meter_readings(f32, res[1], want, m_want)["series"],
+            "lra_lu": abs(float(met.lra_from_shortterm(st32))
+                          - want["lra_lu"])},
+        "boundary windows dropped": {
+            "lra_lu": abs(float(met.lra_from_shortterm(st_local))
+                          - want["lra_lu"])},
+        "sample peak": {"true_peak_dbtp": abs(
+            20.0 * np.log10(peak) - want["true_peak_dbtp"])},
+    }
+    line = ("; meters vs master_streamed: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sound.items())
+            + "; controls: " + "; ".join(
+                f"{c} " + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+                for c, r in controls.items()))
+    for k, lim in SP_METER_LIMITS.items():
+        check(sound[k] < lim, f"meters: {k} {sound[k]} >= {lim}{line}")
+        c = SP_METER_CONTROLS[k]
+        check(controls[c][k] > lim, f"meters: the control {c!r} reads {k} "
+                                    f"{controls[c][k]} <= {lim}: the limit "
+                                    f"cannot see it{line}")
+    return line
+
+
+def sp_rank(plan):
+    """One rank of phases 31-33: every run of ``plan`` through the port's
+    SP entry points (no device argument: the card), each timed on the
+    host and by CUDA events, its launches, plain-twin calls and the
+    collectives' host time (the mesh's ``collective/*`` spans) counted;
+    every rank holds what its kernels returned against their plain twins
+    on the same operands (``sp_hold``), and rank 0 checks each output
+    against its reference on the card.  Returns one record a run."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from python_audio_mastering_tpu_torch import ChainConfig, MasteringParams
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.parallel import sequence
+    from python_audio_mastering_tpu_torch.utils import tracing
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rank, d = dist.get_rank(), dist.get_world_size()
+    x = make_signal(SP_SECONDS * FS, FS, seed=0)
+    tracks = [make_signal(SP_ALBUM_SECONDS * FS, FS, seed=s)
+              for s in SP_ALBUM_SEEDS]
+    # warm: the first call builds the library's state, cuBLAS and the
+    # collectives' paths
+    sequence.master_track_sharded(x[:10 * FS], MasteringParams.from_settings(
+        SETTINGS), ChainConfig.gpu_default(FS))
+    records = []
+    profiled = False
+    for name in plan:
+        settings, fields, sp, meters = SP_RUNS[name]
+        params = MasteringParams.from_settings(settings)
+        cfg = dataclasses.replace(ChainConfig.gpu_default(FS), **fields)
+        if name == "album":
+            def call():
+                return sequence.master_album_sharded(tracks, params, cfg,
+                                                     sp_ballistics=sp)
+        else:
+            def call():
+                return sequence.master_track_sharded(
+                    x, params, cfg, sp_ballistics=sp, return_meters=meters)
+        captured, meter_in = [], []
+        real_md = sequence._meters_dict
+
+        def md(*args):
+            meter_in.extend(args)
+            return real_md(*args)
+
+        sequence._meters_dict = md
+        cmb.reset_launch_counts()
+        tracing.clear_trace()
+        torch.cuda.synchronize()
+        dist.barrier()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with sp_recording(captured), \
+                tracing.span(name, sync=torch.cuda.synchronize) as timed:
+            ev[0].record()
+            res = call()
+            ev[1].record()
+        sequence._meters_dict = real_md
+        wall = timed["dur_ms"]
+        spans = [r["dur_ms"] for r in tracing.get_trace()
+                 if r["name"].startswith(f"{name}/collective/")]
+        outs = res[0] if name == "album" else [res[0]]
+        rec = {"run": name, "rank": rank, "launches": cmb.launch_counts(),
+               "plain": cmb.plain_calls(), "wall_ms": wall,
+               "event_ms": ev[0].elapsed_time(ev[1]),
+               "collective_ms": sum(spans), "collectives": len(spans),
+               "digest": hashlib.sha1(b"".join(
+                   np.ascontiguousarray(o).tobytes() for o in outs))
+               .hexdigest()}
+        rec["held"], rec["bitwise"] = sp_hold(captured, rank)
+        del captured[:]
+        ctrl = None
+        if meters:
+            # the control: the K-filter's shard-incoming state dropped
+            real_bce = sequence.block_cell_energies_rows
+            sequence.block_cell_energies_rows = (
+                lambda meter, fs, zi=None, **kw: real_bce(meter, fs, **kw))
+            try:
+                ctrl = call()
+            finally:
+                sequence.block_cell_energies_rows = real_bce
+        if rank == 0:
+            if name == "album":
+                rec["check"] = [
+                    sp_check(f"album track {i}", o, float(res[1][i]),
+                             sp_reference("album", t, params, cfg),
+                             oracle_lufs)
+                    for i, (o, t) in enumerate(zip(outs, tracks))]
+            else:
+                ref = sp_reference(name, x, params, cfg)
+                extra = ""
+                if meters:
+                    align = sequence._align(cfg, d, True)
+                    n_pad = -(-x.shape[0] // align) * align
+                    extra = sp_meters(res, ref, meter_in, ctrl,
+                                      n_pad // d // meter_in[5])
+                rec["check"] = [sp_check(name, res[0], res[1], ref,
+                                         oracle_lufs, extra)]
+        if not profiled and SP_RUNS[name][0].get("multiband"):
+            # rank 0's device time and idle share of one more call
+            profiled = True
+            if rank == 0:
+                by_name, prof_wall = device_profile(call, 1)
+                rec["device_ms"] = sum(by_name.values())
+                rec["profile_wall_ms"] = prof_wall
+                rec["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            else:
+                call()
+                call()
+        records.append(rec)
+    return records
+
+
+def sp_rows_body(name):
+    """Whether a run takes the rows body (worker + reference limiter)."""
+    fields = SP_RUNS[name][1]
+    return (fields.get("variant", "worker") == "worker"
+            and fields.get("limiter_mode", "reference") == "reference")
+
+
+def sp_phases(kernels, card):
+    """Phases 31-34: ``master_track_sharded`` on the 600 s track at D = 1
+    (NCCL), 2 and 4 (gloo, the ranks sharing the card) and
+    ``master_album_sharded`` on a 2 x 2 mesh, through
+    ``parallel.mesh.launch`` (see the module docstring)."""
+    from python_audio_mastering_tpu_torch.parallel.mesh import launch
+
+    table = []
+    for phase, d in ((31, 1), (32, 2), (33, 4)):
+        t0 = time.perf_counter()
+        ranks = launch(sp_rank, d, (SP_PLAN[d],), devices=["cuda:0"] * d)
+        backend = "nccl" if d == 1 else "gloo"
+        print(f"phase {phase} D={d} ({backend}, one card): launch "
+              f"{time.perf_counter() - t0:.1f} s")
+        for k, name in enumerate(SP_PLAN[d]):
+            recs = [r[k] for r in ranks]
+            for rec in recs:
+                held = {n: f"{v[1]:.2e} at {v[0]}"
+                        for n, v in rec["held"].items()}
+                print(f"  {name} rank {rec['rank']}: wall "
+                      f"{rec['wall_ms']:.1f} ms (host), "
+                      f"{rec['event_ms']:.1f} ms (CUDA events), collectives "
+                      f"{rec['collective_ms']:.1f} ms host in "
+                      f"{rec['collectives']}; launches {rec['launches']}; "
+                      f"plain twins {rec['plain']}; vs plain twins (max abs)"
+                      f" {held}; bitwise {rec['bitwise']}")
+            for i, line in enumerate(recs[0].get("check", [])):
+                what = f"{name} track {i}" if name == "album" else name
+                print(f"  {what} rank 0 vs its reference on the card: {line}")
+            if "device_ms" in recs[0]:
+                dev_ms, wall = recs[0]["device_ms"], recs[0]["profile_wall_ms"]
+                print(f"  {name} rank 0 profile: device {dev_ms:.2f} ms, wall "
+                      f"{wall:.1f} ms, device idle "
+                      f"{100.0 * (1 - dev_ms / wall):.1f} % ({card})")
+                for act, ms in recs[0]["top"]:
+                    print(f"    {ms:9.3f} ms  {act[:90]}")
+            check(len({r["digest"] for r in recs}) == 1,
+                  f"D={d} {name}: the ranks returned different audio")
+            multiband = SP_RUNS[name][0].get("multiband")
+            if sp_rows_body(name):
+                want = SP_COUNTED if multiband else NO_MB_KERNELS
+                held = tuple(SP_PLAIN) if multiband else NO_MB_KERNELS
+                entries = {"ballistics_rates_bt"} if multiband else set()
+            else:
+                want = (*K5_LAUNCHES, "replay") if multiband else ()
+                held = ()
+                entries = set(SP_BALLISTICS) if multiband else set()
+            for rec in recs:
+                missing = [k for k in want if rec["launches"][k] == 0]
+                check(not missing, f"D={d} {name} rank {rec['rank']}: "
+                                   f"{missing} not launched")
+                check(all(v == 0 for v in rec["plain"].values()),
+                      f"D={d} {name}: a plain twin ran: {rec['plain']}")
+                unheld = [k for k in held if k not in rec["held"]]
+                unheld += sorted(entries - {e for e, _ in rec["bitwise"]})
+                check(not unheld, f"D={d} {name} rank {rec['rank']}: "
+                                  f"{unheld} not held to a plain twin")
+            table.append((d, name, recs))
+        print(f"phase {phase} ok", flush=True)
+
+    # phase 34 --------------------------------------------------------------
+    print(f"phase 34 SP walls on one card ({card}); D ranks share its SMs, "
+          f"so these are the machinery's cost, not a scaling:")
+    def each(recs, key):
+        return ", ".join(f"{r[key]:.1f}" for r in recs)
+
+    for d, name, recs in table:
+        print(f"  D={d} {name}: host wall max over ranks "
+              f"{max(r['wall_ms'] for r in recs):.1f} ms, CUDA events "
+              f"{each(recs, 'event_ms')} ms, collectives "
+              f"{each(recs, 'collective_ms')} ms host")
+    main_run = next(recs for d, name, recs in table
+                    if d == 2 and name == "approx")
+    counts = main_run[0]["launches"]
+    launched = {**counts, "pass1_bnd": sum(counts[k] for k in K5_LAUNCHES)}
+    for name in NO_MB_KERNELS + MB_KERNELS:
+        kernels[name]["sp_launches"] = launched[name]
+    for name in SP_PLAIN:
+        kernels[name]["sp_max_abs_err"] = max(
+            r["held"][name][1] for _, _, recs in table for r in recs
+            if name in r["held"])
+    print("phase 34 ok", flush=True)
 
 
 if __name__ == "__main__":

@@ -156,12 +156,11 @@ def legacy_eq_sos(sample_rate: int):
 
 
 def _db_gain(gain_db, dtype=torch.float32):
-    """``10^(gain_db/20)`` in float32, as the JAX chain computes it; of a
-    tensor gain, a tensor in ``dtype`` (the signal's)."""
+    """``10^(gain_db/20)`` in ``dtype`` (the signal's), as the JAX chain
+    computes it; of a tensor gain, a tensor."""
     if isinstance(gain_db, torch.Tensor):
         return 10.0 ** (gain_db.to(dtype) / 20.0)
-    return float(10.0 ** (torch.tensor(float(gain_db), dtype=torch.float32)
-                          / 20.0))
+    return float(10.0 ** (torch.tensor(float(gain_db), dtype=dtype) / 20.0))
 
 
 def check_supported(params: MasteringParams, config: ChainConfig):
@@ -270,7 +269,8 @@ class MasteringChain(nn.Module):
         if ops is None:
             ops = crossover_ops(self.config.sample_rate,
                                 self.config.block_size, self.device,
-                                variant=self.config.variant)
+                                variant=self.config.variant,
+                                dtype=self.config.torch_dtype())
             self._xover[self.device] = ops
         return ops
 
@@ -375,7 +375,8 @@ class MasteringChain(nn.Module):
         c, tracks, nb, L = x4.shape
         if ops is None:
             return self._legacy_front_group(x4, params, emit)
-        coefs = exciter_coefs(params.saturation, self.config.variant)
+        coefs = exciter_coefs(params.saturation, self.config.variant,
+                              self.config.torch_dtype())
         xs = exciter(x4, coefs).reshape(c * tracks, nb, L)
         s_in, zf, _ = iir.sosfilt_states_rows(
             None, xs, zi=zi, return_state=return_state, ops=ops)

@@ -125,7 +125,13 @@ def pass1_hull_ref(m, ca, cr, hmax, ctrl=None):
 def pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl=None):
     """Plain version of :func:`pass1_runs`: collapsed blocks take their
     constant, and the runs of non-collapsed blocks are walked together,
-    one block of every unfinished run per round."""
+    one block of every unfinished run per round.
+
+    A block of zero targets maps every state to itself, bit for bit (the
+    step is ``max(att − 0, 0)`` above 0 and ``min(0 + 0, 0)`` at 0): the
+    walk passes over a stretch of them in one round, the state carried
+    through (the kernel walks them step by step, to the same bits).  A
+    zero-padded timeline is otherwise one long serial run here."""
     nblk = lo.shape[1]
     if _skipped(ctrl):
         return torch.zeros_like(lo)
@@ -138,13 +144,29 @@ def pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl=None):
         return bnd
     att = torch.where(k == 0, att0[band], lo[band, (k - 1).clamp_min(0)])
     mb = _blocks(m)
+    frozen = mb.amax(dim=2) == 0.0
+    # the first block at or after each block that is not frozen, or is
+    # collapsed (a run ends there), nblk for none
+    blk = torch.arange(nblk, device=m.device).expand_as(frozen)
+    stop = torch.where(~frozen | collapsed, blk, nblk).flip(1).cummin(
+        dim=1).values.flip(1)
     ca, cr = ca[band], cr[band]
     while band.numel():
-        steps = mb[band, k]
-        for j in range(BLOCK):
-            att = _step(att, steps[:, j], ca, cr)
-        bnd[band, k] = att
-        k = k + 1
+        fz = frozen[band, k]
+        walk = torch.nonzero(~fz).flatten()
+        if walk.numel():
+            a, steps = att[walk], mb[band[walk], k[walk]]
+            for j in range(BLOCK):
+                a = _step(a, steps[:, j], ca[walk], cr[walk])
+            att = att.index_copy(0, walk, a)
+            bnd[band[walk], k[walk]] = a
+        nxt = k + 1
+        if fz.any():
+            for i in torch.nonzero(fz).flatten().tolist():
+                b, k0 = int(band[i]), int(k[i])
+                bnd[b, k0:int(stop[b, k0])] = att[i]
+            nxt = torch.where(fz, stop[band, k], nxt)
+        k = nxt
         inside = k < nblk
         go = inside.clone()   # the run goes on into a non-collapsed block
         go[inside] = ~collapsed[band[inside], k[inside]]

@@ -110,7 +110,7 @@ def bucket_sums(x2, hop):
 
 def stats_from_buckets(xb, t, sample_rate, thresholds_db, ratios,
                        attacks_ms, releases_ms, hop, ctrl_tail=None,
-                       look_ctrl=0, valid_ctrl=None):
+                       look_ctrl=0, valid_ctrl=None, global_ctrl_pos0=None):
     """The detector from hop-bucketed squared-signal sums, band-major.
 
     ``xb``: ``(B·R, t)``, row ``b·R + i`` the bucket sums of band ``b`` of
@@ -123,6 +123,11 @@ def stats_from_buckets(xb, t, sample_rate, thresholds_db, ratios,
     float32 sum loses the short windows to cancellation.  The gain
     computer then runs in ``xb``'s dtype.  ``valid_ctrl``: the new tail
     ends after this many of the ``t`` steps (the rest is padding).
+    ``global_ctrl_pos0``: the signal's first control step is this step of
+    a longer one (a shard of a sequence-parallel track, whose ``ctrl_tail``
+    is the previous shard's, zeros on the first): a window that starts
+    before that longer signal's start averages over the samples it has
+    (pydub's partial windows), as at the start of an unsharded signal.
 
     Returns ``(stats dict of (B·R, t) tensors, new_ctrl_tail (B·R,
     look_ctrl))``; the dict also holds the rows' rate factors ``ca``,
@@ -151,6 +156,9 @@ def stats_from_buckets(xb, t, sample_rate, thresholds_db, ratios,
         if offset >= wb:
             lo = csum[i, :, offset - wb:offset - wb + t]
             cnt = float(max(look_eff, 1))
+            if global_ctrl_pos0 is not None:
+                cnt = (steps + global_ctrl_pos0 * hop).clamp(
+                    1, max(look_eff, 1))
         else:
             lo = torch.cat([torch.zeros((sigs, wb), dtype=hi.dtype,
                                         device=dev), hi[:, :t - wb]], dim=1)

@@ -75,7 +75,8 @@ def front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation, width,
     """Plain version of :func:`front_chain` (same algebra)."""
     front_chain_ref.calls += 1
     c, nb, L = xrows.shape
-    xs = exciter(xrows, exciter_coefs(saturation)).reshape(c * nb, L)
+    xs = exciter(xrows, exciter_coefs(saturation, dtype=xrows.dtype)
+                 ).reshape(c * nb, L)
     y = xs @ t_eq + s_in_eq.reshape(c * nb, -1) @ w_eq.T
     y = stereo_width(y.reshape(c, nb, L), width, channel_axis=0)
     if emit_mono:
@@ -166,7 +167,7 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation, width,
     Under autograd (an input that requires grad, or a tensor coefficient
     or width) it runs through :class:`_FrontChainFn`.
     """
-    coefs = exciter_coefs(saturation)
+    coefs = exciter_coefs(saturation, dtype=xrows.dtype)
     scalars = (*coefs, width)
     if (any(isinstance(v, torch.Tensor) for v in scalars)
             or _wants_grad(xrows, s_in_eq, t_eq, w_eq)):

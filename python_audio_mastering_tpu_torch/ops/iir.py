@@ -25,6 +25,13 @@ Wᵀ``, which is the CUDA kernels' job (``ops.cuda_multiband``), with
 :func:`sosfilt_states_multi_rows` serves several cascades of one signal
 (the multiband crossovers) from one shared read.
 
+:func:`sosfilt_sharded` lifts the same decomposition one level, to a
+signal sharded over the ranks of a mesh (``parallel.mesh``): each rank
+filters its shard from a zero state, the shards' end states (a few
+hundred bytes) are all-gathered, and every rank folds them through the
+shard transition ``A^n`` (float64, host-built, :func:`_a_pow`) into its
+true incoming state (:func:`_fold_shard_states`).
+
 Coefficients that are a tensor in the autograd graph (the automaster's EQ)
 take a traced route instead (:func:`blocked_ops_traced`, the counterpart
 of the JAX package's ``_blocked_operators`` and ``_affine_prefix_traced``):
@@ -56,6 +63,7 @@ __all__ = [
     "sosfilt_states_rows",
     "sosfilt_states_multi_rows",
     "sosfilt_blocked_rows",
+    "sosfilt_sharded",
     "recompute_rows",
     "to_rows",
     "from_rows",
@@ -486,6 +494,74 @@ def sosfilt_blocked_rows(sos, xrows, zi=None, return_state=True, ops=None,
                                         return_state=return_state, ops=ops,
                                         n_valid=n_valid)
     return recompute_rows(xrows, s_in, ops), zf
+
+
+@functools.lru_cache(maxsize=128)
+def _a_pow_static(a_bytes, s_dim, n):
+    a = np.frombuffer(a_bytes, dtype=np.float64).reshape(s_dim, s_dim)
+    return np.linalg.matrix_power(a, n)
+
+
+def _a_pow(a_np, n, device):
+    """``A^n`` of a float64 ``(S, S)`` matrix, built on the host (cached
+    per matrix and ``n``) and put on ``device`` in float64: the shard
+    transition, whose filters' poles may sit near the unit circle."""
+    a_np = np.ascontiguousarray(a_np, np.float64)
+    return torch.as_tensor(_a_pow_static(a_np.tobytes(), a_np.shape[0], n),
+                           device=device)
+
+
+def _fold_shard_states(t_all, index, a_shard, s0):
+    """Incoming state of shard ``index`` and the state after the last
+    shard, from every shard's zero-state end state ``t_all`` ``(D, C,
+    S)``: ``s_{j+1} = A^n s_j + t_j`` from ``s_0 = s0`` ``(C, S)``, all in
+    float64."""
+    s_acc, s_in = s0, s0
+    for j in range(t_all.shape[0]):
+        if j == index:
+            s_in = s_acc
+        s_acc = s_acc @ a_shard.T + t_all[j]
+    return s_in, s_acc
+
+
+def sosfilt_sharded(sos, x_shard, mesh, axis="seq", zi=None, block_size=512):
+    """Blocked SOS filtering of a signal sharded over ``mesh``'s ``axis``
+    (JAX ``sosfilt_sharded``): this rank's ``(n,)`` or ``(n, C)`` shard,
+    every shard of one length ``n``.
+
+    The shard is filtered from a zero state in rows of ``L =
+    min(block_size, max(8, n))`` samples (the states pass in float64),
+    its state after its ``n`` samples is all-gathered along ``axis``, the
+    shards' end states fold through the shard transition ``A^n`` into
+    this shard's true incoming state, and the output is recomputed from
+    it (``rows @ T + s_in @ Wᵀ``, plain torch).  ``zi``: the global
+    initial state (scipy layout), entering at the first shard.  The
+    coefficients are concrete (a numpy ``(K, 6)``).
+
+    Returns ``(y_shard, zf)``, ``zf`` the state after the last shard
+    (the same on every rank), in the signal's dtype.
+    """
+    squeeze = x_shard.ndim == 1
+    x = x_shard[:, None] if squeeze else x_shard
+    n, c = x.shape
+    sos = np.ascontiguousarray(sos, np.float64)
+    L = min(block_size, max(8, n))
+    ops = blocked_ops(sos, L, x.device, x.dtype)
+    rows = to_rows(x, L)
+    nb = rows.shape[1]
+    rows64 = rows.reshape(c * nb, L).to(_STATES_DTYPE)
+    t_vec = (rows64 @ ops.g).reshape(c, nb, -1)
+    _, z_loc = _states_from_summaries(t_vec, None, ops, _STATES_DTYPE, True,
+                                      rows64.view(c, nb, L), n_valid=n)
+    t_all = mesh.all_gather(zi_to_state(z_loc).T.contiguous(), axis)
+    a_shard = _a_pow(cascade_state_space(sos)[0], n, x.device)
+    s_in, s_end = _fold_shard_states(t_all, mesh.index(axis), a_shard,
+                                     _initial_state(zi, ops.k, c, t_vec))
+    s_blocks, _ = _states_from_summaries(
+        t_vec, state_to_zi(s_in.T, ops.k), ops, x.dtype, False)
+    y = from_rows(recompute_rows(rows, s_blocks, ops), n)
+    zf = state_to_zi(s_end.T, ops.k).to(x.dtype)
+    return (y[:, 0], zf[:, :, 0]) if squeeze else (y, zf)
 
 
 def recompute_rows(xrows, s_in, ops):

@@ -122,15 +122,17 @@ def ctrl_tail_from_tail(tail, hop):
 
 
 def _fused_stats_from_ctrl(xb, t, sample_rate, thresholds_db, ratios, hop,
-                           ctrl_tail, look_ctrl, valid_ctrl=None):
+                           ctrl_tail, look_ctrl, valid_ctrl=None,
+                           global_ctrl_pos0=None):
     """The multiband detector from hop-bucketed band energies ``(3·T, t)``
     (row ``b·T + i``: band ``b`` of track ``i``), with the reference's band
-    ballistics (``compressor.stats_from_buckets``)."""
+    ballistics (``compressor.stats_from_buckets``; ``global_ctrl_pos0``:
+    a shard's first control step in its track)."""
     return stats_from_buckets(
         xb, t, sample_rate, thresholds_db, ratios,
         tuple(a for a, _ in BAND_BALLISTICS_MS),
         tuple(r for _, r in BAND_BALLISTICS_MS), hop, ctrl_tail, look_ctrl,
-        valid_ctrl)
+        valid_ctrl, global_ctrl_pos0)
 
 
 def _run_ballistics_bt(stacked_bt, sample_rate, hop, ballistics, att0,

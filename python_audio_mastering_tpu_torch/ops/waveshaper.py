@@ -15,7 +15,11 @@ the EQ states pass before it reads the signal through the same
 A slider given as a tensor takes a tensor route: the coefficients stay
 tensors of the slider (``mix``, ``drive`` and ``dry = 1 − mix`` in its
 dtype, as the JAX chain computes them in the signal's), so autograd
-reaches the slider through them.  The float route is unchanged.
+reaches the slider through them.  A float slider's coefficients are
+rounded as the JAX chain computes them in the signal's dtype: in float32
+``dry = fp32(1 − fp32(mix))`` and the legacy ``g`` in float32, in float64
+neither (a float32 ``dry`` in a float64 chain was 3.8e-9 from JAX's at
+saturation 10, and the multiband compressor carries that to its output).
 """
 
 from __future__ import annotations
@@ -35,19 +39,23 @@ def saturation_coefs(saturation_percent):
     return mix, 1.0 + mix * 4.0
 
 
-def legacy_gain(amount):
-    """The legacy exciter's ``g = 1 + 4·amount/100``, in float32 as the
-    JAX chain computes it."""
+def legacy_gain(amount, dtype=torch.float32):
+    """The legacy exciter's ``g = 1 + 4·amount/100``, in ``dtype``'s
+    precision (float32 or float64) as the JAX chain computes it."""
+    if dtype == torch.float64:
+        return 1.0 + (float(amount) / 100.0) * 4.0
     a = np.float32(amount)
     return float(np.float32(1.0) + (a / np.float32(100.0)) * np.float32(4.0))
 
 
-def exciter_coefs(saturation_percent, variant: str = "worker"):
+def exciter_coefs(saturation_percent, variant: str = "worker",
+                  dtype=torch.float32):
     """``(dry, wet, drive)`` of ``dry·x + wet·tanh(drive·x)``.
 
-    Worker: ``dry = fp32(1 − fp32(mix))``, ``wet = mix``,
-    ``drive = 1 + 4·mix``.  Legacy: ``tanh(g·x)/g`` as ``dry = 0``,
-    ``wet = 1/g``, ``drive = g``; at amount 0 the identity, ``(1, 0, 1)``.
+    Worker: ``dry = 1 − mix`` (``fp32(1 − fp32(mix))`` for a float32
+    ``dtype``, the signal's), ``wet = mix``, ``drive = 1 + 4·mix``.
+    Legacy: ``tanh(g·x)/g`` as ``dry = 0``, ``wet = 1/g``, ``drive = g``
+    (:func:`legacy_gain`); at amount 0 the identity, ``(1, 0, 1)``.
     A ``(dry, wet, drive)`` triple passes through unchanged (a tensor in it
     stays a tensor).  A tensor slider gives tensors: worker ``mix =
     (s/100)^2``, ``dry = 1 − mix``, ``drive = 1 + 4·mix``; legacy ``g = 1
@@ -70,9 +78,11 @@ def exciter_coefs(saturation_percent, variant: str = "worker"):
     if variant == "legacy":
         if float(saturation_percent) == 0.0:
             return 1.0, 0.0, 1.0
-        g = legacy_gain(saturation_percent)
+        g = legacy_gain(saturation_percent, dtype)
         return 0.0, 1.0 / g, g
     mix, drive = saturation_coefs(saturation_percent)
+    if dtype == torch.float64:
+        return 1.0 - mix, mix, drive
     return float(np.float32(1.0) - np.float32(mix)), mix, drive
 
 
@@ -85,7 +95,7 @@ def exciter(x, coefs):
 def saturate(x, saturation_percent):
     """Dry/wet tanh waveshaper: ``(1-mix)·x + mix·tanh(x·drive)``
     (the identity at 0 %)."""
-    return exciter(x, exciter_coefs(saturation_percent))
+    return exciter(x, exciter_coefs(saturation_percent, dtype=x.dtype))
 
 
 def saturate_legacy(x, amount):
@@ -97,7 +107,7 @@ def saturate_legacy(x, amount):
         return torch.where(amount == 0.0, x, torch.tanh(x * g) / g)
     if float(amount) == 0.0:
         return x
-    g = legacy_gain(amount)
+    g = legacy_gain(amount, x.dtype)
     return torch.tanh(x * g) / g
 
 

@@ -188,6 +188,27 @@ def test_segmented_walk_equals_the_serial_walk(name):
         assert nblk == 1
 
 
+@pytest.mark.parametrize("att0", [0.0, 4.0])
+def test_segmented_walk_passes_frozen_stretches(att0):
+    """Runs that go on through all-zero blocks (inside a run, and a zero
+    tail to the end: a sequence-parallel shard's padding), which the plain
+    twin passes over at once, against the serial walk, bitwise."""
+    rng = np.random.default_rng(7)
+    nblk = 24
+    m = (rng.random((3, nblk * bal.BLOCK)) * 9).astype(np.float32)
+    for a, b in ((3, 7), (10, 11), (15, nblk)):
+        m[:, a * bal.BLOCK:b * bal.BLOCK] = 0.0
+    m[1, 10 * bal.BLOCK + 64] = 5.0          # one active step in block 10
+    m = torch.from_numpy(m)
+    ca = torch.tensor([1e-3, 2e-3, 4e-4])
+    cr = torch.tensor([1e-4, 5e-5, 2e-4])
+    a0 = torch.full((3,), att0)
+    lo, hi = bal.pass1_hull(m, ca, cr, torch.maximum(a0, m.amax(dim=1)))
+    assert int((lo == hi).sum()) < 3 * nblk      # runs there are
+    assert torch.equal(bal.pass1_runs(m, ca, cr, a0, lo, hi),
+                       bal.pass1_bnd_ref(m, ca, cr, a0))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_hull_pass_is_sound(seed):
     """Every incoming state in [0, H] (its ends included), replayed through
