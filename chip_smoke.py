@@ -10,8 +10,10 @@ settings, multiband off (phases 2-6) and on (phases 7-12), in quality
 mode through every single-file and cloud engine (phases 14-17), and on
 the bench's 12-track album through the album path, the album engine and
 the job worker (phases 18-21), the legacy chain (phases 22-25), the
-automaster, the engine's and the CLI's (phases 26-30), and sequence
-parallelism on one, two and four ranks (phases 31-34), after
+automaster, the engine's and the CLI's (phases 26-30), sequence
+parallelism on one, two and four ranks (phases 31-34), and data
+parallelism (the album's tracks and the automaster's batch over ranks)
+and the fast profile (phases 35-38), after
 building its CUDA kernels from the sources in the checkout and checking
 each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
@@ -240,6 +242,49 @@ settings, each run called without a device argument after a warm call:
      ranks share one card's SMs, so they measure the machinery, not a
      scaling
 
+Data parallelism (``parallel.batch`` and ``models.automaster`` with a
+mesh: each rank masters its own tracks), one process a rank through
+``parallel.mesh.launch``, every rank on the card, the entry points called
+without a mesh or a device argument (``make_mesh()`` over the launched
+ranks); 5 seeded 44.1 kHz stereo tracks of 180, 171, 162, 153 and 144 s
+(seeds 50-54), ``gpu_default``, the bench settings:
+
+ 35  master_album multiband off and on at D = 1 (NCCL), 2 and 4 (gloo,
+     the ranks sharing the card; 5 tracks pad to 6 and 8 with silent
+     ones): on every rank K1 and K4 (with multiband K1-K7) launched and
+     no plain twin, K1-K4's outputs held to their plain twins on that
+     rank's operands (phases 2, 3, 7 and 8's 1e-4) and every ballistics
+     call bitwise to its plain twins on the CPU; every rank returns the
+     same audio; rank 0's tracks against the one-card master_album (no
+     mesh, no group) within 2e-4 max and 1e-3 LU (multiband off) or phase
+     10's 1.2e-3 max / 1.3e-5 rms / 1e-3 LU (on; the LU by the oracle of
+     both outputs), bitwise printed; the oracle within 0.15 LU of -14
+ 36  master_album_streamed(transfer="pcm16", return_meters=True) at D = 2,
+     multiband on: phase 35's checks against the one-card streamed album,
+     its measured loudness within 1e-3 LU and its meters within 1e-3;
+     on_track_done once a real track, on the rank that mastered it;
+     interrupted after each rank's chunk 3 and resumed from the ranks'
+     checkpoints: bitwise the uninterrupted run
+ 37  the automaster's shared theta: 10 Adam steps (lr 0.05) over phase
+     26's track (fitted to itself mastered with bass +5 / treble -3 dB)
+     and a second seeded 180 s track (seed 55), multiband off, at D = 1
+     (both tracks folded into one chain call) and D = 2 (a track a rank,
+     the gradient all-reduced): K1 once and K4 twice a step on every
+     rank, no plain twin; theta bitwise across ranks, D = 2's within
+     1e-4 of D = 1's; the loss falls; the step's wall, CUDA-event time and
+     the psum's host time
+     Every run prints its wall (host, CUDA events), the collectives' host
+     time and, for the streamed album, each rank's upload, compute,
+     readback and gather legs, beside the card's name and power limit:
+     the ranks share one card, so they show the machinery's cost, not a
+     scaling
+ 38  make_master_fn(ChainConfig.gpu_fast(FS)) (no device argument) on the
+     180 s track, multiband on: K2 and K3 at hop 16 held to their plain
+     twins (1e-4), K5-K7's calls bitwise on the CPU, every kernel
+     launched, the output within phase 10's limits of the port's CPU
+     path; its time against gpu_default's (CUDA events, median of 5)
+     and its device time (torch.profiler over 5 calls)
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -257,7 +302,8 @@ are the kernel record (each kernel's ``launches`` from phases 4 and 10,
 ``automaster_launches`` (one fit step) and, for K1 and K4,
 ``vjp_rel_err`` from phases 26 and 28, and ``sp_launches``, rank 0's in
 phase 32's "approx" run, and for K1-K4 ``sp_max_abs_err``, the largest
-distance from the plain twin over every rank of phases 31-33) and
+distance from the plain twin over every rank of phases 31-33, and
+``dp_launches``, rank 0's in phase 35's multiband album at D = 2) and
 ``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
@@ -885,6 +931,8 @@ def main():
     legacy_phases(o, kernels, card)
     automaster_phases(o, kernels, card)
     sp_phases(kernels, card)
+    dp_phases(kernels, card)
+    fast_phase(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
@@ -2599,18 +2647,20 @@ def sp_check(name, y, measured, ref, oracle_lufs, extra=""):
 
 
 @contextlib.contextmanager
-def sp_recording(captured):
+def sp_recording(captured, where=None):
     """Record every call of the SP path's kernel wrappers (K1 as the
     chain's front calls it, K4 as the rows meter does, K2 and K3 as
-    ``parallel.sequence`` does) and of its ballistics entry points:
+    ``parallel.sequence`` does) and of its ballistics entry points, or of
+    the wrappers ``where`` names (``{name: the module that calls it}``):
     ``captured`` gets ``(name, the real function, args, kwargs, out)``."""
     from python_audio_mastering_tpu_torch.models import chain as chain_mod
     from python_audio_mastering_tpu_torch.ops import loudness
     from python_audio_mastering_tpu_torch.parallel import sequence
 
-    where = {"front_chain": chain_mod, "kweight_cells": loudness,
-             **{k: sequence for k in ("band_energies", "band_gain_apply",
-                                      *SP_BALLISTICS)}}
+    if where is None:
+        where = {"front_chain": chain_mod, "kweight_cells": loudness,
+                 **{k: sequence for k in ("band_energies", "band_gain_apply",
+                                          *SP_BALLISTICS)}}
     saved = {name: getattr(mod, name) for name, mod in where.items()}
 
     def recorder(name, real):
@@ -2946,6 +2996,474 @@ def sp_phases(kernels, card):
             r["held"][name][1] for _, _, recs in table for r in recs
             if name in r["held"])
     print("phase 34 ok", flush=True)
+
+
+# data parallelism (phases 35-38): the album's tracks and the automaster's
+# batch sharded over ranks, one process a rank through parallel.mesh.launch
+DP_SECONDS = (180, 171, 162, 153, 144)
+DP_SEEDS = (50, 51, 52, 53, 54)
+DP_STOP_AFTER = 3          # phase 36 interrupts each rank after this chunk
+DP_METERS = 1e-3           # meters against the one-card album's
+AM_DP_STEPS = 10
+AM_DP_LR = 0.05
+AM_DP_SEED = 55            # phase 37's second track
+AM_DP_THETA = 1e-4         # D = 2's theta against D = 1's
+# D ranks -> the runs of its launch
+DP_PLAN = {1: ("album_off", "album_on", "automaster"),
+           2: ("album_off", "album_on", "streamed", "automaster"),
+           4: ("album_off", "album_on")}
+DP_RUNS = {"album_off": SETTINGS, "album_on": MB_SETTINGS,
+           "streamed": MB_SETTINGS}
+
+
+def dp_where():
+    """Where the album path calls its kernel wrappers (for
+    ``sp_recording``): K1 from the chain's front, K4 from the loudness
+    cells, K2, K3 and the ballistics from the multiband compressor."""
+    from python_audio_mastering_tpu_torch.models import chain as chain_mod
+    from python_audio_mastering_tpu_torch.ops import loudness, multiband
+
+    return {"front_chain": chain_mod, "kweight_cells": loudness,
+            **{k: multiband for k in ("band_energies", "band_gain_apply",
+                                      "ballistics_rates_bt")}}
+
+
+def dp_tracks():
+    return [make_signal(sec * FS, FS, seed=s)
+            for sec, s in zip(DP_SECONDS, DP_SEEDS)]
+
+
+def dp_digest(outs):
+    import hashlib
+
+    return hashlib.sha1(b"".join(np.ascontiguousarray(o).tobytes()
+                                 for o in outs)).hexdigest()
+
+
+def dp_check(name, outs, measured, ref_dir, oracle_lufs):
+    """Rank 0's checks of an album run against the one-card album saved
+    in ``ref_dir``: each track within phase 10's limits with multiband
+    (2e-4 max and 1e-3 LU without), the loudness against the one card's
+    measured (the oracle's reading of both outputs for ``master_album``,
+    which returns none), the oracle within 0.15 LU of -14.  Returns the
+    printed lines."""
+    ref = np.load(os.path.join(ref_dir, f"{name}.npz"))
+    mb = DP_RUNS[name].get("multiband", False)
+    limits = (MB_MAX, MB_RMS, 1e-3) if mb else (2e-4, None, 1e-3)
+    lines = []
+    for i, y in enumerate(outs):
+        y_ref = ref[f"y{i}"]
+        check(y.shape == y_ref.shape, f"{name} track {i}: shape {y.shape}")
+        check(bool(np.isfinite(y).all()), f"{name} track {i}: non-finite")
+        d = np.abs(y - y_ref)
+        d_max, d_rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+        lufs = oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
+        d_lu = abs((measured[i] if measured is not None else lufs)
+                   - float(ref["measured"][i]))
+        peak = float(np.abs(y).max())
+        lines.append(f"track {i} ({y.shape[0] / FS:.0f} s): max abs "
+                     f"{d_max:.3e} (bitwise {np.array_equal(y, y_ref)}), rms "
+                     f"{d_rms:.3e}, |dLU| {d_lu:.3e}, oracle {lufs:.4f} LUFS,"
+                     f" peak {peak:.6f}")
+        check(d_max < limits[0], f"{name} track {i}: max abs {d_max}")
+        check(limits[1] is None or d_rms < limits[1],
+              f"{name} track {i}: rms {d_rms}")
+        check(d_lu < limits[2], f"{name} track {i}: |dLU| {d_lu}")
+        check(abs(lufs - SETTINGS["lufs"]) <= 0.15,
+              f"{name} track {i}: oracle loudness {lufs}")
+        check(peak <= 1.0, f"{name} track {i}: |y| max {peak} > 1")
+    return lines
+
+
+def dp_automaster(rank):
+    """Phase 37 on one rank: AM_DP_STEPS Adam steps with a shared theta
+    over phase 26's track (fitted to itself mastered with bass +5 / treble
+    -3 dB) and a second seeded track, the batch sharded over the ranks
+    (``make_train_step(mesh=)``; on one rank both tracks fold into one
+    chain call).  Every step's launches, wall, CUDA-event time and the
+    psum's host time."""
+    from python_audio_mastering_tpu_torch import (
+        ChainConfig,
+        MasteringParams,
+        master,
+    )
+    from python_audio_mastering_tpu_torch.models import automaster as am
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.parallel.mesh import make_mesh
+    from python_audio_mastering_tpu_torch.utils import tracing
+
+    cfg = ChainConfig.gpu_default(FS)
+    target_params = MasteringParams.from_settings(
+        {"bass_boost": 5.0, "treble_boost": -3.0, "lufs": -14.0})
+    model = am.AutoMasterModel(config=cfg)
+    tracks = [make_signal(SECONDS * FS, FS, seed=s) for s in (0, AM_DP_SEED)]
+    batch_ = torch.stack([model.as_audio(t) for t in tracks])
+    targets = torch.stack([am.spectral_profile(master(t, target_params, cfg),
+                                               FS) for t in tracks])
+    theta = torch.zeros(6, device=batch_.device, requires_grad=True)
+    step = am.make_train_step(model, torch.optim.Adam([theta], lr=AM_DP_LR),
+                              shared=True, mesh=make_mesh())
+    out = {"losses": [], "wall_ms": [], "event_ms": [], "psum_ms": [],
+           "launches": [], "plain": []}
+    for _ in range(AM_DP_STEPS):
+        cmb.reset_launch_counts()
+        tracing.clear_trace()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with tracing.span("step", sync=torch.cuda.synchronize) as timed:
+            ev[0].record()
+            loss = step(theta, batch_, targets)
+            ev[1].record()
+        out["losses"].append(float(loss))
+        out["wall_ms"].append(timed["dur_ms"])
+        out["event_ms"].append(ev[0].elapsed_time(ev[1]))
+        out["psum_ms"].append(sum(r["dur_ms"] for r in tracing.get_trace()
+                                  if r["name"] == "step/collective/psum"))
+        out["launches"].append(cmb.launch_counts())
+        out["plain"].append(cmb.plain_calls())
+    out["theta"] = theta.detach().cpu().numpy()
+    out["rank"] = rank
+    return out
+
+
+def dp_rank(plan, ref_dir):
+    """One rank of phases 35-37: the album runs of ``plan`` through
+    ``parallel.batch`` (no mesh and no device argument: ``make_mesh()``
+    over the launched ranks, each on the card), its launches and
+    plain-twin calls counted, what K1-K7 returned held against their
+    plain twins (``sp_hold``), rank 0 checking the outputs against the
+    one-card album in ``ref_dir``, then run again unrecorded (bitwise the
+    same) and timed on the host and by CUDA events with the collectives'
+    host time; the streamed run also interrupted and resumed from its
+    checkpoints; and the automaster's steps.  Returns one record a run."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from python_audio_mastering_tpu_torch import ChainConfig, MasteringParams
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.parallel import batch
+    from python_audio_mastering_tpu_torch.utils import tracing
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rank, d = dist.get_rank(), dist.get_world_size()
+    tracks = dp_tracks()
+    cfg = ChainConfig.gpu_default(FS)
+    # warm: operators, cuBLAS and the collectives' paths
+    batch.master_album([t[:10 * FS] for t in tracks[:d]],
+                       MasteringParams.from_settings(MB_SETTINGS), cfg)
+    records = {}
+    for name in plan:
+        if name == "automaster":
+            records[name] = dp_automaster(rank)
+            continue
+        params = MasteringParams.from_settings(DP_RUNS[name])
+        timings, done = {}, []
+        if name == "streamed":
+            def call(**kw):
+                return batch.master_album_streamed(
+                    tracks, params, cfg, transfer="pcm16",
+                    return_meters=True, **kw)
+            kw = {"timings": timings, "on_track_done": lambda i, a, m:
+                  done.append((i, a.shape[0], m is not None))}
+        else:
+            def call(**kw):
+                return batch.master_album(tracks, params, cfg, **kw)
+            kw = {}
+        captured = []
+        cmb.reset_launch_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        with sp_recording(captured, dp_where()):
+            res = call(**kw)
+        outs, measured = (res[0], res[1]) if name == "streamed" else (res,
+                                                                      None)
+        rec = {"run": name, "rank": rank, "launches": cmb.launch_counts(),
+               "plain": cmb.plain_calls(), "digest": dp_digest(outs),
+               "done": sorted(done)}
+        rec["held"], rec["bitwise"] = sp_hold(captured, rank)
+        del captured[:]
+        # timed again, unrecorded: the recording holds every operand
+        timings.clear()
+        tracing.clear_trace()
+        torch.cuda.synchronize()
+        dist.barrier()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with tracing.span(name, sync=torch.cuda.synchronize) as timed:
+            ev[0].record()
+            again = call(timings=timings) if name == "streamed" else call()
+            ev[1].record()
+        spans = [r["dur_ms"] for r in tracing.get_trace()
+                 if r["name"].startswith(f"{name}/collective/")]
+        rec.update(wall_ms=timed["dur_ms"],
+                   event_ms=ev[0].elapsed_time(ev[1]),
+                   collective_ms=sum(spans), collectives=len(spans),
+                   timings=dict(timings),
+                   repeat_bitwise=dp_digest(again[0] if name == "streamed"
+                                            else again) == rec["digest"])
+        if rank == 0:
+            rec["check"] = dp_check(name, outs, measured, ref_dir,
+                                    oracle_lufs)
+        if name == "streamed":
+            if rank == 0:
+                with open(os.path.join(ref_dir, "streamed_meters.pkl"),
+                          "rb") as f:
+                    want = pickle.load(f)
+                worst = 0.0
+                for got_m, want_m in zip(res[2], want, strict=True):
+                    for k, v in want_m.items():
+                        worst = max(worst, float(np.max(np.abs(
+                            np.asarray(got_m[k]) - np.asarray(v)))))
+                rec["meters_err"] = worst
+                check(worst <= DP_METERS, f"streamed meters off by {worst}")
+
+            class Stop(Exception):
+                pass
+
+            def stop(msg):
+                if msg.startswith(f"Processed chunk {DP_STOP_AFTER}/"):
+                    raise Stop(msg)
+
+            ckpt = os.path.join(ref_dir, "ckpt")
+            try:
+                call(checkpoint_dir=ckpt, progress_cb=stop)
+                check(False, "the checkpointed run was not interrupted")
+            except Stop:
+                pass
+            resumed = call(checkpoint_dir=ckpt)
+            rec["resumed_bitwise"] = (
+                dp_digest(resumed[0]) == rec["digest"]
+                and np.array_equal(resumed[1], measured))
+        records[name] = rec
+    return records
+
+
+def dp_phases(kernels, card):
+    """Phases 35-37: the album (``master_album``, multiband off and on) at
+    D = 1 (NCCL), 2 and 4 (gloo, the ranks sharing the card), the streamed
+    album with pcm16, meters, on_track_done and a checkpoint resume at
+    D = 2, and the automaster's shared theta at D = 1 and 2, through
+    ``parallel.mesh.launch``; every rank's kernels held to their plain
+    twins, every rank's outputs the same, rank 0's against the one-card
+    album (see the module docstring)."""
+    import pickle
+    import shutil
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles.bs1770_ref import integrated_loudness as oracle_lufs
+
+    from python_audio_mastering_tpu_torch import ChainConfig, MasteringParams
+    from python_audio_mastering_tpu_torch.parallel import batch
+    from python_audio_mastering_tpu_torch.parallel.mesh import launch
+
+    cfg = ChainConfig.gpu_default(FS)
+    tracks = dp_tracks()
+    ref_dir = tempfile.mkdtemp(prefix="pam_dp_")
+    one = {}
+    try:
+        for name, settings in DP_RUNS.items():
+            params = MasteringParams.from_settings(settings)
+            if name == "streamed":
+                def call():
+                    return batch.master_album_streamed(
+                        tracks, params, cfg, transfer="pcm16",
+                        return_meters=True)
+            else:
+                def call():
+                    return batch.master_album(tracks, params, cfg)
+            call()                                  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call()
+            one[name] = (time.perf_counter() - t0) * 1e3
+            outs = res[0] if name == "streamed" else res
+            measured = (res[1] if name == "streamed" else
+                        [oracle_lufs(y.astype(np.float64).mean(axis=1), FS)
+                         for y in outs])
+            np.savez(os.path.join(ref_dir, f"{name}.npz"), measured=measured,
+                     **{f"y{i}": y for i, y in enumerate(outs)})
+            if name == "streamed":
+                with open(os.path.join(ref_dir, "streamed_meters.pkl"),
+                          "wb") as f:
+                    pickle.dump(res[2], f)
+        print(f"phase 35 {len(tracks)} tracks of {DP_SECONDS} s, seeds "
+              f"{DP_SEEDS}; the one-card album (no mesh) as the reference: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in one.items())
+              + f" ({card})", flush=True)
+        table = {}
+        for d in (1, 2, 4):
+            t0 = time.perf_counter()
+            ranks = launch(dp_rank, d, (DP_PLAN[d], ref_dir),
+                           devices=["cuda:0"] * d)
+            backend = "nccl" if d == 1 else "gloo"
+            print(f"phases 35-37 D={d} ({backend}, one card): launch "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            table[d] = {name: [r[name] for r in ranks] for name in DP_PLAN[d]}
+            shutil.rmtree(os.path.join(ref_dir, "ckpt"), ignore_errors=True)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+
+    for phase, names in ((35, ("album_off", "album_on")), (36, ("streamed",))):
+        for d in (1, 2, 4):
+            for name in names:
+                if name not in table[d]:
+                    continue
+                dp_report(phase, d, name, table[d][name], card)
+        print(f"phase {phase} ok", flush=True)
+
+    # phase 37 --------------------------------------------------------------
+    thetas = {}
+    for d in (1, 2):
+        recs = table[d]["automaster"]
+        for rec in recs:
+            for k, (counts, plain) in enumerate(zip(rec["launches"],
+                                                    rec["plain"])):
+                want = {n: 0 for n in counts}
+                want.update(front_chain=1, kweight_cells=2)
+                check(counts == want, f"D={d} rank {rec['rank']} step {k}: "
+                                      f"launches {counts}, expected {want}")
+                check(all(v == 0 for v in plain.values()),
+                      f"D={d} step {k}: a plain twin ran: {plain}")
+            med = statistics.median
+            print(f"phase 37 D={d} rank {rec['rank']}: losses "
+                  f"{rec['losses'][0]:.5f} -> {rec['losses'][-1]:.5f}; step "
+                  f"wall median {med(rec['wall_ms'][1:]):.2f} ms (first "
+                  f"{rec['wall_ms'][0]:.2f}), CUDA events median "
+                  f"{med(rec['event_ms'][1:]):.2f} ms, psum host median "
+                  f"{med(rec['psum_ms'][1:]):.3f} ms; launches a step "
+                  f"{rec['launches'][-1]} ({card})")
+            check(rec["losses"][-1] < rec["losses"][0],
+                  f"D={d}: the loss did not fall: {rec['losses']}")
+        for rec in recs[1:]:
+            check(np.array_equal(rec["theta"], recs[0]["theta"]),
+                  f"D={d}: theta differs across ranks")
+            check(rec["losses"] == recs[0]["losses"],
+                  f"D={d}: the loss differs across ranks")
+        thetas[d] = recs[0]["theta"]
+    d_theta = float(np.abs(thetas[2] - thetas[1]).max())
+    print(f"phase 37 theta bitwise across ranks; D=2 vs D=1 max |dtheta| "
+          f"{d_theta:.3e} (theta {np.array2string(thetas[2], precision=5)})")
+    check(d_theta <= AM_DP_THETA, f"D=2 theta {d_theta} from D=1's")
+    print("phase 37 ok", flush=True)
+
+    counts = table[2]["album_on"][0]["launches"]
+    launched = {**counts, "pass1_bnd": sum(counts[k] for k in K5_LAUNCHES)}
+    for name in NO_MB_KERNELS + MB_KERNELS:
+        kernels[name]["dp_launches"] = launched[name]
+
+
+def dp_report(phase, d, name, recs, card):
+    """Print one album run's ranks and check them (see dp_phases)."""
+    mb = DP_RUNS[name].get("multiband", False)
+    want = SP_COUNTED if mb else NO_MB_KERNELS
+    held = tuple(SP_PLAIN) if mb else NO_MB_KERNELS
+    for rec in recs:
+        held_err = {n: f"{v[1]:.2e} at {v[0]}" for n, v in rec["held"].items()}
+        t = rec["timings"]
+        legs = (f"; upload {t['h2d_s'] * 1e3:.1f} ms, compute "
+                f"{t['compute_s'] * 1e3:.1f} ms, readback "
+                f"{t['d2h_s'] * 1e3:.1f} ms, gather "
+                f"{t.get('gather_s', 0.0) * 1e3:.1f} ms" if t else "")
+        print(f"phase {phase} D={d} {name} rank {rec['rank']}: wall "
+              f"{rec['wall_ms']:.1f} ms (host), {rec['event_ms']:.1f} ms (CUDA"
+              f" events), collectives {rec['collective_ms']:.1f} ms host in "
+              f"{rec['collectives']}{legs}; launches {rec['launches']}; plain "
+              f"twins {rec['plain']}; vs plain twins (max abs) {held_err}; "
+              f"bitwise {sorted(set(rec['bitwise']))} ({card})")
+        missing = [k for k in want if rec["launches"][k] == 0]
+        check(not missing, f"D={d} {name} rank {rec['rank']}: {missing} "
+                           f"not launched")
+        check(all(v == 0 for v in rec["plain"].values()),
+              f"D={d} {name}: a plain twin ran: {rec['plain']}")
+        unheld = [k for k in held if k not in rec["held"]]
+        if mb and not any(e == "ballistics_rates_bt" for e, _ in
+                          rec["bitwise"]):
+            unheld.append("ballistics_rates_bt")
+        check(not unheld, f"D={d} {name} rank {rec['rank']}: {unheld} not "
+                          f"held to a plain twin")
+        check(rec["repeat_bitwise"], f"D={d} {name} rank {rec['rank']}: "
+                                     f"the timed repeat is not bitwise")
+    for line in recs[0]["check"]:
+        print(f"  D={d} {name} rank 0 vs the one-card album: {line}")
+    check(len({r["digest"] for r in recs}) == 1,
+          f"D={d} {name}: the ranks returned different audio")
+    if name == "streamed":
+        tracks_done = sorted(x for r in recs for x in r["done"])
+        print(f"  D={d} streamed: on_track_done {tracks_done}; meters vs the "
+              f"one-card album's max {recs[0]['meters_err']:.3e}; resumed "
+              f"after chunk {DP_STOP_AFTER} bitwise "
+              f"{[r['resumed_bitwise'] for r in recs]}")
+        check([i for i, _, _ in tracks_done] == list(range(len(DP_SECONDS)))
+              and all(m for _, _, m in tracks_done),
+              f"on_track_done calls {tracks_done}")
+        check(all(r["resumed_bitwise"] for r in recs),
+              "the resumed run is not bitwise the uninterrupted one")
+
+
+def fast_phase(o, kernels, card):
+    """Phase 38: ``make_master_fn(ChainConfig.gpu_fast(FS))`` (no device
+    argument) on the 180 s track with multiband: K2 and K3 at hop 16 held
+    to their plain twins (1e-4), every kernel launched, the output within
+    phase 10's limits of the port's CPU path, the device time against
+    ``gpu_default``'s (``o`` from :func:`main_path_operands`)."""
+    from python_audio_mastering_tpu_torch import (
+        ChainConfig,
+        MasteringChain,
+        make_master_fn,
+    )
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+
+    cfg = ChainConfig.gpu_fast(FS)
+    fn = make_master_fn(cfg)                           # no device argument
+    params = o.mb_params
+    fn(o.x, params)                                    # warm
+    torch.cuda.synchronize()
+    captured = []
+    cmb.reset_launch_counts()
+    with sp_recording(captured, dp_where()):
+        res = fn(o.x, params)
+    torch.cuda.synchronize()
+    counts = cmb.launch_counts()
+    hops = {n: kw.get("hop") for n, _, _, kw, _ in captured
+            if n in ("band_energies", "band_gain_apply")}
+    held, bitwise = sp_hold(captured, 0)
+    del captured[:]
+    print(f"phase 38 make_master_fn(gpu_fast) (no device argument, output on "
+          f"{res.audio.device}): launches {counts}; hops {hops}; vs plain "
+          f"twins (max abs) "
+          f"{ {n: f'{v[1]:.2e} at {v[0]}' for n, v in held.items()} }; "
+          f"bitwise {sorted(set(bitwise))}")
+    check(res.audio.device.type == "cuda", "make_master_fn ran off the card")
+    check(hops == {"band_energies": 16, "band_gain_apply": 16},
+          f"the band kernels ran at hops {hops}, not 16")
+    check(all(counts[k] > 0 for k in SP_COUNTED),
+          f"a kernel was not launched: {counts}")
+    check(all(k in held for k in SP_PLAIN), f"not held: {sorted(held)}")
+    y = res.audio.cpu().numpy()
+    cpu = MasteringChain(cfg)(o.x, params, return_result=True)
+    d = np.abs(y - cpu.audio.numpy())
+    d_max, d_rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+    d_lu = abs(float(res.measured_lufs) - float(cpu.measured_lufs))
+    print(f"phase 38 card vs CPU path: max abs {d_max:.3e}, rms {d_rms:.3e},"
+          f" |dLU| {d_lu:.3e}")
+    check(d_max < MB_MAX and d_rms < MB_RMS and d_lu < 1e-3,
+          f"gpu_fast card vs CPU: {d_max}, {d_rms}, {d_lu}")
+    x_dev = torch.from_numpy(o.x).cuda()
+    default = make_master_fn(ChainConfig.gpu_default(FS))
+    for what, f in (("gpu_fast", fn), ("gpu_default", default)):
+        t = median_of(lambda: cuda_ms(lambda: f(x_dev, params), reps=1))
+        by_name, wall = device_profile(lambda: f(x_dev, params), 5)
+        dev_ms = sum(by_name.values())
+        print(f"phase 38 {what} multiband master, input on the card: "
+              f"{t:.3f} ms (CUDA events, median of 5), device time "
+              f"{dev_ms:.3f} ms a call (torch.profiler, 5 calls; wall "
+              f"{wall:.3f} ms, device idle {100.0 * (1 - dev_ms / wall):.1f}"
+              f" %) ({card})")
+    print("phase 38 ok", flush=True)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,22 @@ import dataclasses
 
 import torch
 
-__all__ = ["MasteringParams", "ChainConfig"]
+__all__ = ["MasteringParams", "ChainConfig", "CompressorBandParams",
+           "settings_from_params", "PARAM_RANGES"]
+
+# GUI slider ranges (mastering_gui.py:95-112), as in the JAX package.
+PARAM_RANGES = {
+    "saturation": (0.0, 100.0),
+    "bass_boost": (-6.0, 6.0),
+    "mid_cut": (-6.0, 6.0),  # GUI range is 0..6 but rock preset uses -2.0
+    "presence_boost": (-6.0, 6.0),
+    "treble_boost": (-6.0, 6.0),
+    "width": (0.0, 2.0),
+    "lufs": (-24.0, -6.0),
+    "low_thresh": (-40.0, 0.0), "low_ratio": (1.0, 12.0),
+    "mid_thresh": (-40.0, 0.0), "mid_ratio": (1.0, 12.0),
+    "high_thresh": (-40.0, 0.0), "high_ratio": (1.0, 12.0),
+}
 
 
 def _num(v):
@@ -36,6 +51,14 @@ _MB_KEYS = [
     ("high_thresh", "high_band_threshold", -15.0),
     ("high_ratio", "high_band_ratio", 4.0),
 ]
+
+
+@dataclasses.dataclass
+class CompressorBandParams:
+    """One band's threshold/ratio (ballistics are fixed per band slot)."""
+
+    threshold_db: float
+    ratio: float
 
 
 @dataclasses.dataclass
@@ -114,6 +137,17 @@ class MasteringParams:
             out[short] = _num(getattr(self, short))
         return out
 
+    def band_params(self):
+        """The compressor's (low, mid, high) band sliders."""
+        return (CompressorBandParams(self.low_thresh, self.low_ratio),
+                CompressorBandParams(self.mid_thresh, self.mid_ratio),
+                CompressorBandParams(self.high_thresh, self.high_ratio))
+
+
+def settings_from_params(params):
+    """``params.to_settings()``: the wire settings dict."""
+    return params.to_settings()
+
 
 @dataclasses.dataclass(frozen=True)
 class ChainConfig:
@@ -145,3 +179,12 @@ class ChainConfig:
         detector, 2048-step ballistics control blocks."""
         return cls(sample_rate=sample_rate, block_size=384, comp_hop=8,
                    comp_block_ctrl=2048)
+
+    @classmethod
+    def gpu_fast(cls, sample_rate=44100):
+        """The JAX package's ``tpu_fast`` knobs: block 384, hop-16
+        detector, 1024-step ballistics control blocks with an overlap of
+        1102 (the block-parallel execution reads them, ``comp_ballistics=
+        "blocked"``; the default exact ballistics do not)."""
+        return cls(sample_rate=sample_rate, block_size=384, comp_hop=16,
+                   comp_block_ctrl=1024, comp_overlap_ctrl=1102)

@@ -15,8 +15,13 @@ torch (``ops.cuda_multiband``).  The EQ operators are built in the graph
 in float64 (``ops.iir.blocked_ops_traced``).  θ is in the config's dtype,
 float32 by default, as JAX's is without x64.
 
-A batch of tracks loops over its tracks (:func:`make_train_step`); the
-shared-θ gradient is the mean over them.
+A batch of tracks is one chain call (:meth:`AutoMasterModel.batch_loss`):
+its tracks fold into the kernels' block axis as an album's do, so a step
+launches ``front_chain`` once and ``kweight_cells`` twice whatever the
+batch size with a shared θ.  Over the ranks of a ``parallel.mesh`` mesh
+(:func:`make_train_step` with ``mesh``) each rank takes its own tracks
+and θ's gradient is all-reduced before the update: data parallelism, as
+the JAX package gets it from a sharded tracks axis.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ from python_audio_mastering_tpu_torch.models.chain import (
     MasteringChain,
     require_device,
 )
-from python_audio_mastering_tpu_torch.ops import iir
 from python_audio_mastering_tpu_torch.ops import loudness as loud
+from python_audio_mastering_tpu_torch.parallel.mesh import tracks_sharding
 
 __all__ = ["AutoMasterModel", "spectral_profile", "latent_to_params", "fit",
            "make_train_step"]
@@ -90,15 +95,21 @@ def spectral_profile(x, sample_rate, n_bands=24, n_fft=4096):
     or ``(N,)`` (numpy or a tensor; the profile lies on its device).
     """
     x = x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
-    if x.ndim == 2:
-        x = x.mean(dim=1)
-    n = (x.shape[0] // n_fft) * n_fft
+    x = x[None, :, None] if x.ndim == 1 else x[None]
+    return _profiles(x, sample_rate, n_bands, n_fft)[0]
+
+
+def _profiles(x, sample_rate, n_bands=24, n_fft=4096):
+    """:func:`spectral_profile` of each track of a batch ``(T, N, C)``:
+    ``(T, n_bands)``."""
+    x = x.mean(dim=2)
+    n = (x.shape[1] // n_fft) * n_fft
     window = torch.hann_window(n_fft, periodic=False, dtype=x.dtype,
                                device=x.device)
-    frames = x[:n].reshape(-1, n_fft) * window
-    power = (torch.fft.rfft(frames, dim=1).abs() ** 2).mean(dim=0)
+    frames = x[:, :n].reshape(x.shape[0], -1, n_fft) * window
+    power = (torch.fft.rfft(frames, dim=2).abs() ** 2).mean(dim=1)
     idx, cnt = _band_index(int(sample_rate), n_bands, n_fft, x.device)
-    band_pow = power.new_zeros(n_bands).index_add(0, idx, power)
+    band_pow = power.new_zeros(x.shape[0], n_bands).index_add(1, idx, power)
     return 10.0 * torch.log10(band_pow / cnt.to(power.dtype) + 1e-12)
 
 
@@ -135,43 +146,85 @@ class AutoMasterModel:
         """Profile mismatch (mean-removed: the loudness stage owns the
         absolute level) plus the squared loudness error of the mastered
         ``audio`` at the sliders of ``theta``."""
+        return self.batch_loss(theta, self.as_audio(audio)[None],
+                               _on(target_profile, self.device)[None])[0]
+
+    def batch_loss(self, theta, batch, targets, shared: bool = True):
+        """:meth:`loss` of each track of ``batch`` ``(T, N, C)`` (or ``(T,
+        N)``) against its row of ``targets`` ``(T, n_bands)``, in one chain
+        call (``MasteringChain.forward_tracks``); ``theta`` is one ``(6,)``
+        for every track (``shared``) or ``(T, 6)``.  Returns ``(T,)``."""
         cfg = self.config
-        params = latent_to_params(theta, lufs=self.target_lufs)
-        y = self._chain(audio, params)
-        prof = spectral_profile(y, cfg.sample_rate, self.n_bands)
-        target = _on(target_profile, prof.device)
-        d = (prof - prof.mean()) - (target - target.mean())
-        l_prof = torch.mean(d ** 2)
-        n = y.shape[0]
+        batch = self.as_audio(batch)
+        if batch.ndim == 2:
+            batch = batch[:, :, None]
+        params = (latent_to_params(theta, lufs=self.target_lufs) if shared
+                  else [latent_to_params(th, lufs=self.target_lufs)
+                        for th in theta])
+        y, _, _ = self._chain.forward_tracks(batch, params)
+        prof = _profiles(y, cfg.sample_rate, self.n_bands)
+        target = _on(targets, prof.device)
+        d = ((prof - prof.mean(dim=1, keepdim=True))
+             - (target - target.mean(dim=1, keepdim=True)))
+        l_prof = torch.mean(d ** 2, dim=1)
+        tracks, n, c = y.shape
+        L = cfg.block_size
+        rows = torch.nn.functional.pad(
+            y.permute(2, 0, 1), (0, -n % L)).reshape(c, tracks, -1, L)
         measured = loud.integrated_loudness_rows(
-            iir.to_rows(y if y.ndim == 2 else y[:, None], cfg.block_size),
-            cfg.sample_rate, downmix=cfg.measure_downmix, valid_frames=n,
-            ops=self._chain.kweight_ops())
+            rows, cfg.sample_rate, downmix=cfg.measure_downmix,
+            valid_frames=n, ops=self._chain.kweight_ops())
         l_loud = torch.where(torch.isfinite(measured),
                              (measured - self.target_lufs) ** 2,
                              torch.zeros_like(measured))
         return self.profile_weight * l_prof + self.loudness_weight * l_loud
 
 
-def make_train_step(model: AutoMasterModel, optimizer, shared: bool = True):
+def make_train_step(model: AutoMasterModel, optimizer, shared: bool = True,
+                    mesh=None):
     """One optimizer step over a batch of tracks.
 
     ``optimizer`` holds θ: a leaf tensor that requires grad, ``(6,)`` with
     ``shared=True`` (one θ for every track, the per-track losses meaned)
     or ``(T, 6)`` with ``shared=False`` (a θ per track; the mean's gradient
     is each track's own over T, as JAX's vmapped mean gives it).  The
-    tracks are looped over.  ``step(theta, batch, targets)`` updates θ in
-    place and returns the mean loss (a 0-d tensor, before the update).
+    batch is one chain call (:meth:`AutoMasterModel.batch_loss`).
+    ``step(theta, batch, targets)`` updates θ in place and returns the
+    mean loss (a 0-d tensor, before the update).
+
+    ``mesh`` (a ``parallel.mesh`` mesh; the tracks shard over its first
+    axis): every rank calls ``step`` with the whole batch ``(T, N, C)``
+    and targets; each takes its own rows (``parallel.mesh.
+    tracks_sharding``; T must split evenly, as JAX's sharded batch must)
+    and differentiates its share of the mean over all T.  With
+    ``shared=True`` θ's gradient is then all-reduced (``Mesh.psum``, the
+    loss riding in the same collective) before the update, so θ stays the
+    same on every rank; with ``shared=False`` each rank's θ holds its own
+    tracks' rows ``(T/D, 6)`` and only the loss is summed.  The returned
+    loss is the mean over all T.
     """
+    axis = None if mesh is None else mesh.axis_names[0]
+    sharding = None if mesh is None else tracks_sharding(mesh, axis)
 
     def step(theta, batch, targets):
+        n_tracks = len(batch)
+        if sharding is not None:
+            batch, targets = sharding.shard(batch), sharding.shard(targets)
         optimizer.zero_grad(set_to_none=True)
-        per_track = [model.loss(theta if shared else theta[i], a, t)
-                     for i, (a, t) in enumerate(zip(batch, targets))]
-        loss = torch.stack(per_track).mean()
+        loss = model.batch_loss(theta, batch, targets, shared).sum() \
+            / n_tracks
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            if shared:
+                both = mesh.psum(torch.cat([theta.grad.reshape(-1),
+                                            loss.reshape(1)]), axis)
+                theta.grad.copy_(both[:-1].view_as(theta.grad))
+                loss = both[-1]
+            else:
+                loss = mesh.psum(loss, axis)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 

@@ -79,9 +79,11 @@ from python_audio_mastering_tpu_torch.ops.biquad import (
 from python_audio_mastering_tpu_torch.ops.cuda_multiband import front_chain
 from python_audio_mastering_tpu_torch.ops.limiter import lookahead_limiter
 from python_audio_mastering_tpu_torch.ops.loudness import (
+    _gating_geometry,
+    block_cell_energies_rows,
     gain_for_target,
-    integrated_loudness_rows,
     kweight_sos,
+    loudness_from_cells,
 )
 from python_audio_mastering_tpu_torch.ops.multiband import (
     BALLISTICS,
@@ -98,9 +100,9 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import (
     soft_limiter_legacy,
 )
 
-__all__ = ["master", "MasterResult", "MasteringChain", "eq_sos",
-           "legacy_eq_sos", "check_supported", "check_fp32_matmul",
-           "require_device"]
+__all__ = ["master", "make_master_fn", "MasterResult", "MasteringChain",
+           "cached_chain", "eq_sos", "legacy_eq_sos", "check_supported",
+           "check_fp32_matmul", "require_device"]
 
 _EQ_CACHE_SIZE = 16
 _LIMITER_MODES = ("reference", "lookahead_truepeak")
@@ -346,15 +348,15 @@ class MasteringChain(nn.Module):
         launch: ``[(params, track indices, EQ operators), ...]``.  A run
         computes them once and holds the operators to its end.
         ``legacy_eq``: groups of the one-shot legacy front (no EQ
-        operators: its filters are static).  One track of tensor sliders is
-        one group, its operators built in the graph."""
-        if tracks_params[0].has_tensors():
-            if len(tracks_params) != 1:
-                raise ValueError("tensor sliders take one track, not an "
-                                 "album")
-            p = tracks_params[0]
-            return [(p, [0], None if legacy_eq else self.eq_ops(p))]
+        operators: its filters are static).  Tensor sliders group by the
+        params object (the automaster's shared θ is one group, a θ per
+        track one group a track), their operators built in the graph."""
         groups = {}
+        if tracks_params[0].has_tensors():
+            for i, p in enumerate(tracks_params):
+                groups.setdefault(id(p), (p, []))[1].append(i)
+            return [(p, idx, None if legacy_eq else self.eq_ops(p))
+                    for p, idx in groups.values()]
         for i, p in enumerate(tracks_params):
             if legacy_eq:
                 eq = (float(p.bass_boost), float(p.mid_cut),
@@ -470,62 +472,23 @@ class MasteringChain(nn.Module):
         return lim(x, threshold=self.config.limiter_threshold)
 
     def forward(self, audio, params: MasteringParams,
-                return_result: bool = False):
+                return_result: bool = False, valid_frames=None):
         """Master ``(N, C)`` or ``(N,)`` audio (numpy or tensor) on this
-        module's device.  Returns the mastered tensor, or a
-        :class:`MasterResult` with ``return_result``."""
-        cfg = self.config
-        check_supported(params, cfg)
-        check_fp32_matmul(self.device)
-        if params.multiband and params.has_tensors():
-            raise ValueError("tensor sliders with multiband on: the "
-                             "multiband compressor has no gradient in the "
-                             "port")
-        x = torch.as_tensor(audio).to(device=self.device,
-                                      dtype=cfg.torch_dtype())
+        module's device.  ``valid_frames``: the loudness is measured over
+        the first ``valid_frames`` samples only (a zero-padded track).
+        Returns the mastered tensor, or a :class:`MasterResult` with
+        ``return_result``."""
+        x = torch.as_tensor(audio)
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]
         if x.ndim != 2 or x.shape[0] == 0:
             raise ValueError(f"audio must be (N, C) or (N,) with N > 0, got "
                              f"shape {tuple(torch.as_tensor(audio).shape)}")
-        n, c = x.shape
-        L = cfg.block_size
-        nb = -(-n // L)
-        xr = torch.nn.functional.pad(x.T, (0, nb * L - n)).reshape(c, nb, L)
-
-        want_mono = (params.lufs_enabled and c > 1
-                     and cfg.measure_downmix == "reference_mono_mean")
-        legacy = cfg.variant == "legacy"
-        meter_rows = None
-        if params.multiband:
-            xr = self.multiband(self.front(xr, params, legacy_eq=legacy),
-                                params, emit_mono=want_mono)
-            if want_mono:
-                xr, meter_rows = xr
-        elif want_mono:
-            xr, meter_rows = self.front(xr, params, emit_mono=True,
-                                        legacy_eq=legacy)
-        else:
-            xr = self.front(xr, params, legacy_eq=legacy)
-
-        if params.lufs_enabled:
-            measured = integrated_loudness_rows(
-                meter_rows[None] if meter_rows is not None else xr,
-                cfg.sample_rate, downmix=cfg.measure_downmix,
-                valid_frames=n, ops=self.kweight_ops())
-            gain = gain_for_target(measured, params.lufs)
-            xr = xr * gain
-            gain_db = 20.0 * torch.log10(gain)
-        else:
-            measured = torch.tensor(float("nan"), dtype=xr.dtype,
-                                    device=xr.device)
-            gain_db = torch.zeros((), dtype=xr.dtype, device=xr.device)
-
-        if cfg.limiter_mode == "lookahead_truepeak":
-            y = lookahead_limiter(xr.reshape(c, nb * L).T[:n], cfg.sample_rate)
-        else:
-            y = self.limiter(xr).reshape(c, nb * L).T[:n]
+        y, measured, gain_db = self.forward_tracks(
+            x[None], params,
+            None if valid_frames is None else [valid_frames])
+        y, measured, gain_db = y[0], measured[0], gain_db[0]
         if squeeze:
             y = y[:, 0]
         if return_result:
@@ -533,18 +496,122 @@ class MasteringChain(nn.Module):
                                 applied_gain_db=gain_db)
         return y
 
+    def forward_tracks(self, batch, params, valid_frames=None):
+        """Master a batch ``(T, N, C)`` of tracks in one pass, the tracks
+        folded into the kernels' block axis as an album chunk is: the
+        front kernel launches once per group of equal front settings (once
+        for a shared ``params``), the loudness kernel once for all.
+
+        ``params``: one :class:`MasteringParams` for every track, or T of
+        them (tensor sliders too: the automaster's batch).
+        ``valid_frames``: T lengths; each track's loudness is measured over
+        its first ones (all N when None).  Returns ``(y (T, N, C),
+        measured_lufs (T,), applied_gain_db (T,))``.
+        """
+        cfg = self.config
+        x = torch.as_tensor(batch).to(device=self.device,
+                                      dtype=cfg.torch_dtype())
+        tracks, n, c = x.shape
+        tp = ([params] * tracks if isinstance(params, MasteringParams)
+              else list(params))
+        first = tp[0]
+        for p in tp:
+            check_supported(p, cfg)
+        check_fp32_matmul(self.device)
+        if first.multiband and any(p.has_tensors() for p in tp):
+            raise ValueError("tensor sliders with multiband on: the "
+                             "multiband compressor has no gradient in the "
+                             "port")
+        L = cfg.block_size
+        nb = -(-n // L)
+        xr = torch.nn.functional.pad(x.permute(2, 0, 1),
+                                     (0, nb * L - n)).reshape(c, tracks, nb, L)
+
+        want_mono = (first.lufs_enabled and c > 1
+                     and cfg.measure_downmix == "reference_mono_mean")
+        legacy = cfg.variant == "legacy"
+        groups = self.front_groups(tp, legacy)
+        meter_rows = None
+        if first.multiband:
+            xr = self.multiband(self.front(xr, tp, groups=groups,
+                                           legacy_eq=legacy),
+                                tp, emit_mono=want_mono)
+            if want_mono:
+                xr, meter_rows = xr
+        elif want_mono:
+            xr, meter_rows = self.front(xr, tp, emit_mono=True,
+                                        groups=groups, legacy_eq=legacy)
+        else:
+            xr = self.front(xr, tp, groups=groups, legacy_eq=legacy)
+
+        if first.lufs_enabled:
+            meter = meter_rows[None] if meter_rows is not None else xr
+            if cfg.measure_downmix == "reference_mono_mean":
+                meter = meter.mean(dim=0, keepdim=True)
+            cell_ms, _, _ = block_cell_energies_rows(
+                meter, cfg.sample_rate, ops=self.kweight_ops())
+            cell = _gating_geometry(cfg.sample_rate)[0]
+            vf = ([n] * tracks if valid_frames is None
+                  else [min(int(v), n) for v in valid_frames])
+            mask = (torch.arange(cell_ms.shape[1], device=self.device)[None]
+                    < upload([v // cell for v in vf], torch.int64,
+                             self.device)[:, None])
+            measured = loudness_from_cells(cell_ms, cell_mask=mask)
+            gain = gain_for_target(measured, upload(
+                [float(p.lufs) for p in tp], xr.dtype, self.device))
+            xr = xr * gain.view(1, tracks, 1, 1)
+            gain_db = 20.0 * torch.log10(gain)
+        else:
+            measured = torch.full((tracks,), float("nan"), dtype=xr.dtype,
+                                  device=xr.device)
+            gain_db = torch.zeros((tracks,), dtype=xr.dtype,
+                                  device=xr.device)
+
+        y = xr.reshape(c, tracks, nb * L)[:, :, :n].permute(1, 2, 0)
+        if cfg.limiter_mode == "lookahead_truepeak":
+            y = torch.stack([lookahead_limiter(t, cfg.sample_rate)
+                             for t in y])
+        else:
+            y = self.limiter(y)
+        return y, measured, gain_db
+
 
 def master(audio, params: MasteringParams, config: ChainConfig,
-           return_result: bool = False, device="cuda"):
+           return_result: bool = False, valid_frames=None, device="cuda"):
     """Run the mastering chain of ``config.variant`` on ``(N, C)`` or
     ``(N,)`` float audio.
 
-    ``device``: where to run, the card unless the caller passes
-    ``device="cpu"``; raises when no card is there (see
+    ``valid_frames``: for a zero-padded track, the loudness is measured
+    over its first ``valid_frames`` samples, so the gated LUFS equals the
+    unpadded track's.  ``device``: where to run, the card unless the
+    caller passes ``device="cpu"``; raises when no card is there (see
     :func:`require_device`).  Every length takes the rows body: a signal
     shorter than ``4 · block_size`` is padded to whole blocks like any
     other.
     """
     device = require_device(device, "master")
     chain = MasteringChain(config).to(device)
-    return chain(audio, params, return_result=return_result)
+    return chain(audio, params, return_result=return_result,
+                 valid_frames=valid_frames)
+
+
+@functools.lru_cache(maxsize=8)
+def cached_chain(config: ChainConfig, device) -> MasteringChain:
+    """One :class:`MasteringChain` per (config, device), kept between
+    calls with its operator caches (``device`` a resolved
+    ``torch.device``)."""
+    return MasteringChain(config).to(device)
+
+
+def make_master_fn(config: ChainConfig, return_result: bool = True,
+                   device="cuda"):
+    """``fn(audio, params)`` for a fixed config over one cached
+    :class:`MasteringChain` on ``device`` (the card unless the caller
+    passes ``device="cpu"``): a :class:`MasterResult` by default, the
+    mastered tensor with ``return_result=False``."""
+    chain = cached_chain(config, require_device(device, "make_master_fn"))
+
+    def fn(audio, params):
+        return chain(audio, params, return_result=return_result)
+
+    return fn

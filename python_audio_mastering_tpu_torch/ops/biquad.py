@@ -9,7 +9,8 @@ the host and only their blocked operators go to the device.
 * ``reference_*`` — the reference engine's shelf/peak formulas, including
   its doubled ``w0 = 2*pi*fc/nyquist`` (its "250 Hz" shelf corners at
   500 Hz; DESIGN.md §3) and the clamp of ``w0`` just under pi (DESIGN.md
-  D10).  Given a tensor gain they are torch functions of it instead: a
+  D10); ``rbj_*`` the textbook RBJ designs, ``w0 = 2*pi*fc/fs``.  Given
+  a tensor gain the shelves and peaks are torch functions of it: a
   float64 ``(1, 6)`` tensor on the gain's device, in the graph (the
   automaster differentiates through them).  As in the JAX package there
   is no branch at 0 dB, so a fit that starts at 0 dB has a gradient.
@@ -30,9 +31,13 @@ import torch
 __all__ = [
     "reference_shelf_sos",
     "reference_peak_sos",
+    "rbj_shelf_sos",
+    "rbj_peak_sos",
+    "rbj_highpass_sos",
     "deman_high_shelf_sos",
     "deman_high_pass_sos",
     "butter_sos",
+    "sos_identity",
 ]
 
 
@@ -59,10 +64,25 @@ def _reference_w0(sample_rate, hz):
     return min(2.0 * math.pi * (hz / (0.5 * sample_rate)), 0.999 * math.pi)
 
 
+def sos_identity(dtype=np.float32):
+    """A single pass-through SOS section."""
+    return np.array([[1.0, 0.0, 0.0, 1.0, 0.0, 0.0]], dtype=dtype)
+
+
 def reference_shelf_sos(sample_rate, cutoff_hz, gain_db, kind):
     """Shelf exactly as the reference computes it (identity at 0 dB);
     a torch function of a tensor ``gain_db``."""
-    w0 = _reference_w0(sample_rate, cutoff_hz)
+    return _shelf_sos(_reference_w0(sample_rate, cutoff_hz), gain_db, kind)
+
+
+def rbj_shelf_sos(sample_rate, cutoff_hz, gain_db, kind):
+    """Textbook RBJ shelf (corner actually at ``cutoff_hz``)."""
+    return _shelf_sos(2.0 * math.pi * cutoff_hz / sample_rate, gain_db,
+                      kind)
+
+
+def _shelf_sos(w0, gain_db, kind):
+    """The RBJ shelf algebra at a given ``w0``."""
     a, sqrt, row = _gain_a(gain_db)
     q = 0.707
     cosw0 = math.cos(w0)
@@ -88,12 +108,29 @@ def reference_shelf_sos(sample_rate, cutoff_hz, gain_db, kind):
 def reference_peak_sos(sample_rate, center_hz, gain_db, q=1.0):
     """Peaking EQ exactly as the reference computes it (identity at 0 dB);
     a torch function of a tensor ``gain_db``."""
-    w0 = _reference_w0(sample_rate, center_hz)
+    return _peak_sos(_reference_w0(sample_rate, center_hz), gain_db, q)
+
+
+def rbj_peak_sos(sample_rate, center_hz, gain_db, q=1.0):
+    """Textbook RBJ peaking EQ (centre actually at ``center_hz``)."""
+    return _peak_sos(2.0 * math.pi * center_hz / sample_rate, gain_db, q)
+
+
+def _peak_sos(w0, gain_db, q):
     a, _, row = _gain_a(gain_db)
     cosw0 = math.cos(w0)
     alpha = math.sin(w0) / (2.0 * q)
     return row(1 + alpha * a, -2 * cosw0, 1 - alpha * a,
                1 + alpha / a, -2 * cosw0, 1 - alpha / a)
+
+
+def rbj_highpass_sos(sample_rate, cutoff_hz, q):
+    """Textbook RBJ high pass."""
+    w0 = 2.0 * math.pi * cutoff_hz / sample_rate
+    cosw0 = math.cos(w0)
+    alpha = math.sin(w0) / (2.0 * q)
+    return _row((1 + cosw0) / 2, -(1 + cosw0), (1 + cosw0) / 2, 1 + alpha,
+                -2 * cosw0, 1 - alpha)
 
 
 _KW_SHELF_G = 3.999843853973347

@@ -32,10 +32,11 @@ import torch
 from python_audio_mastering_tpu_torch.ops._kernels import upload
 from python_audio_mastering_tpu_torch.ops.ballistics import ballistics_rates_bt
 
-__all__ = ["cumsum_mxu", "gain_computer_stats_bt", "stats_from_buckets",
-           "bucket_sums", "detector_stats", "detector_stats_bands",
-           "attenuation_scan", "attenuation_exact", "attenuation_coarse",
-           "attenuation_blocked", "attenuation_blocked_bt",
+__all__ = ["cumsum_mxu", "gain_computer_stats", "gain_computer_stats_bt",
+           "stats_from_buckets", "bucket_sums", "detector_stats",
+           "detector_stats_bands", "attenuation_scan", "attenuation_exact",
+           "attenuation_coarse", "attenuation_blocked",
+           "attenuation_blocked_bt",
            "compressor_gain_db", "compress_dynamic_range"]
 
 COARSE_FACTOR = 64   # the coarse pre-scan's decimation (JAX default)
@@ -62,6 +63,14 @@ def cumsum_mxu(x, dim=-1, block=512):
     carry = torch.cumsum(totals, dim=-1) - totals  # exclusive block carry
     out = (within + carry[..., None]).reshape(x.shape[:-1] + (nb * block,))
     return out[..., :n].movedim(-1, dim)
+
+
+def gain_computer_stats(ms, thresholds_db, ratios, att_f, rel_f, hop):
+    """:func:`gain_computer_stats_bt` of time-major ``(T, B)`` envelope
+    columns: the stats dict of ``(T, B)`` tensors."""
+    stats = gain_computer_stats_bt(ms.T, thresholds_db, ratios, att_f, rel_f,
+                                   hop)
+    return {k: v.T for k, v in stats.items()}
 
 
 def gain_computer_stats_bt(ms_bt, thresholds_db, ratios, att_f, rel_f, hop):

@@ -21,6 +21,7 @@ the same kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -43,6 +44,7 @@ __all__ = [
     "block_cell_energies",
     "integrated_loudness",
     "normalize_to_lufs",
+    "BlockEnergyAccumulator",
 ]
 
 
@@ -219,3 +221,34 @@ def normalize_to_lufs(x, sample_rate, target_lufs=-14.0,
                                    valid_frames=valid_frames)
     gain = gain_for_target(loudness, target_lufs)
     return x * gain, loudness, gain
+
+
+@dataclasses.dataclass
+class BlockEnergyAccumulator:
+    """Streaming loudness state: per-cell energies accumulated chunk by
+    chunk (:func:`block_cell_energies`, the K-filter state carried), so
+    the integrated loudness needs no second pass over the audio.  Chunks
+    must be multiples of the 100 ms cell length."""
+
+    sample_rate: int
+    zi: object = None
+    cells: list = dataclasses.field(default_factory=list)
+
+    @property
+    def cell_len(self):
+        return _gating_geometry(self.sample_rate)[0]
+
+    def update(self, chunk):
+        """Add ``chunk`` ``(M, C)``'s cells; returns them."""
+        cell_ms, self.zi = block_cell_energies(chunk, self.sample_rate,
+                                               zi=self.zi)
+        self.cells.append(cell_ms)
+        return cell_ms
+
+    def loudness(self, downmix="bs1770"):
+        """The gated integrated loudness of every cell so far."""
+        if downmix == "reference_mono_mean":
+            raise ValueError(
+                "reference_mono_mean downmix must be applied before "
+                "update(); pass chunk.mean(axis=1) chunks instead")
+        return loudness_from_cells(torch.cat(self.cells, dim=0))

@@ -60,6 +60,7 @@ from python_audio_mastering_tpu_torch.ops.cuda_multiband import (
 )
 
 __all__ = ["multiband_compress_rows", "multiband_compress", "crossover_split",
+           "detector_stats_fused",
            "BAND_BALLISTICS_MS", "BALLISTICS", "VARIANTS", "detector_lookpad",
            "crossover_ops", "ctrl_tail_from_tail"]
 
@@ -133,6 +134,26 @@ def _fused_stats_from_ctrl(xb, t, sample_rate, thresholds_db, ratios, hop,
         tuple(a for a, _ in BAND_BALLISTICS_MS),
         tuple(r for _, r in BAND_BALLISTICS_MS), hop, ctrl_tail, look_ctrl,
         valid_ctrl, global_ctrl_pos0)
+
+
+def detector_stats_fused(x, low, high, sample_rate, thresholds_db, ratios,
+                         hop=1, ctrl_tail=None, channel_major=False):
+    """The worker split's detector from ``(N, C)`` audio and its low and
+    high bands (``(C, N)`` with ``channel_major``), ``mid = x − low −
+    high`` formed only inside the squared energies, the state carried at
+    the control rate: ``ctrl_tail`` ``(3, look_ctrl)`` is the previous
+    chunk's last hop-bucket sums per band.  Returns ``(stats dict of (t,
+    3) tensors: max_att, above, inc, dec; new_ctrl_tail (3,
+    look_ctrl))``."""
+    time_ax = 1 if channel_major else 0
+    rows = [(b * b).mean(dim=1 - time_ax) for b in (low, x - low - high,
+                                                      high)]
+    xb = bucket_sums(torch.stack(rows), hop)
+    stats, tail = _fused_stats_from_ctrl(
+        xb, xb.shape[1], sample_rate, thresholds_db, ratios, hop,
+        ctrl_tail, detector_lookpad(sample_rate, hop) // hop)
+    return ({k: stats[k].T for k in ("max_att", "above", "inc", "dec")},
+            tail)
 
 
 def _run_ballistics_bt(stacked_bt, sample_rate, hop, ballistics, att0,

@@ -4,11 +4,12 @@ Counterpart of ``python_audio_mastering_tpu.parallel.mesh``.  A JAX mesh
 is an array of devices that one process drives; here each position of the
 mesh is one process, a rank of ``torch.distributed``'s default group,
 driving one device.  A :class:`Mesh` names its axes, knows this rank's
-coordinates and device, and carries the collectives the sequence-parallel
-chain (``parallel.sequence``) needs along an axis:
+coordinates and device, and carries the collectives that sequence
+parallelism (``parallel.sequence``) and data parallelism (the album of
+``parallel.batch``, the automaster's step) need along an axis:
 
-* :meth:`Mesh.all_gather` of small tensors (stacked on a new leading axis
-  in axis order);
+* :meth:`Mesh.all_gather` of tensors (stacked on a new leading axis in
+  axis order) and :meth:`Mesh.all_gather_object` of picklable objects;
 * :meth:`Mesh.from_prev` / :meth:`Mesh.from_next`: the neighbour's tensor
   one step down / up the axis, zeros at the edge (JAX's ``ppermute`` with
   the pairs ``(i, i+1)`` / ``(i+1, i)``), built on ``all_gather``: every
@@ -28,26 +29,32 @@ cards) or from :func:`launch`, which spawns one process per mesh device
 over a ``file://`` store in a temporary directory (no network) and is how
 the tests and ``chip_smoke.py`` run the mesh on the CPU or on one card.
 
-Sharding helpers over the tracks axis (JAX ``tracks_sharding`` /
-``replicated_sharding``) belong with ``master_album(mesh=)``, which the
-port does not have yet.
+:func:`tracks_sharding` and :func:`replicated_sharding` are the port's
+form of JAX's ``NamedSharding(mesh, P("tracks"))`` and ``P()``: a
+:class:`Sharding` says which rows of a leading tracks axis each rank holds
+(its :meth:`Sharding.shard` takes this rank's), which is how the album
+(``parallel.batch``) and the automaster (``models.automaster``) shard
+their tracks over the ranks (data parallelism).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from python_audio_mastering_tpu_torch.utils.tracing import span
 
 __all__ = ["Mesh", "make_mesh", "make_mesh_2d", "launch", "call_each",
-           "default_device"]
+           "default_device", "mesh_device", "Sharding", "tracks_sharding",
+           "replicated_sharding"]
 
 # the device a launched rank was given (launch sets it in the child)
 _LAUNCHED_DEVICE = None
@@ -79,7 +86,7 @@ class Mesh:
     def size(self, axis=None) -> int:
         """Ranks along ``axis`` (all of them when None)."""
         if axis is None:
-            return dist.get_world_size()
+            return math.prod(self.shape)
         return self.shape[self._axis(axis)]
 
     def index(self, axis) -> int:
@@ -111,6 +118,17 @@ class Mesh:
             out = [torch.empty_like(src) for _ in range(n)]
             dist.all_gather(out, src, group=self._group(axis))
             return torch.stack(out).to(t.device)
+
+    def all_gather_object(self, obj, axis=None):
+        """Every rank's picklable ``obj`` along ``axis`` (along every axis
+        when None), a list in rank order."""
+        n = self.size(axis)
+        if n == 1:
+            return [obj]
+        with span("collective/all_gather_object"):
+            out = [None] * n
+            dist.all_gather_object(out, obj, group=self._group(axis))
+            return out
 
     def from_prev(self, t, axis):
         """The previous rank's ``t`` along ``axis``; zeros on the first."""
@@ -145,6 +163,16 @@ class Mesh:
         return self._reduce(t, axis, dist.ReduceOp.MAX, "pmax")
 
 
+def mesh_device(dev, mesh) -> torch.device:
+    """An entry point's device on this rank: a bare ``"cuda"`` is the
+    mesh's card."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return (mesh.device if mesh.device.type == "cuda"
+                else torch.device("cuda", torch.cuda.current_device()))
+    return dev
+
+
 def default_device() -> torch.device:
     """This rank's device: the one :func:`launch` gave it, else
     ``cuda:{LOCAL_RANK}`` where there is a card, else the CPU."""
@@ -172,7 +200,7 @@ def _require_group():
             "under torchrun, or through parallel.mesh.launch")
 
 
-def make_mesh(axis_name: str = "seq", devices=None) -> Mesh:
+def make_mesh(axis_name: str = "tracks", devices=None) -> Mesh:
     """A 1-D mesh over every rank of the default group.  ``devices``: one
     device per rank (this rank takes its own), :func:`default_device`
     when None."""
@@ -215,6 +243,61 @@ def make_mesh_2d(tracks: int = 0, axis_names=("tracks", "seq"),
                             (cols[rank % seq], rows[rank // seq]), device,
                             dist.get_backend())
     return _MESHES[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Which rows of a leading (tracks) axis each rank of ``mesh`` holds:
+    split evenly along ``axis`` in rank order (JAX ``P(axis)``), or every
+    row on every rank when ``axis`` is None (JAX ``P()``)."""
+
+    mesh: Mesh
+    axis: str | None = None
+
+    def _rows(self, coords, n):
+        if self.axis is None:
+            return range(n)
+        d = self.mesh.size(self.axis)
+        if n % d:
+            raise ValueError(
+                f"{n} tracks do not split evenly over the {d} ranks of axis "
+                f"{self.axis!r}")
+        i = coords[self.mesh._axis(self.axis)]
+        return range(i * (n // d), (i + 1) * (n // d))
+
+    def devices_indices_map(self, shape) -> dict:
+        """``{rank: index}`` for an array of ``shape``: each rank's slice
+        of the leading axis, the other axes whole, as JAX's
+        ``NamedSharding.devices_indices_map`` gives it per device."""
+        rest = (slice(None),) * (len(shape) - 1)
+        out = {}
+        for rank in range(self.mesh.size()):
+            rows = self._rows(np.unravel_index(rank, self.mesh.shape),
+                              shape[0])
+            lead = (slice(None) if self.axis is None
+                    else slice(rows.start, rows.stop))
+            out[rank] = (lead,) + rest
+        return out
+
+    def rows(self, n: int) -> range:
+        """The rows of an ``n``-row axis this rank holds."""
+        return self._rows(self.mesh.coords, n)
+
+    def shard(self, x):
+        """This rank's rows of ``x`` (numpy, a tensor or a list)."""
+        rows = self.rows(len(x))
+        return x[rows.start:rows.stop]
+
+
+def tracks_sharding(mesh: Mesh, axis_name: str = "tracks") -> Sharding:
+    """Shard the leading (tracks) axis over ``axis_name``; the rest whole."""
+    mesh._axis(axis_name)
+    return Sharding(mesh, axis_name)
+
+
+def replicated_sharding(mesh: Mesh) -> Sharding:
+    """Every rank holds every row."""
+    return Sharding(mesh, None)
 
 
 def call_each(calls):

@@ -115,6 +115,7 @@ from python_audio_mastering_tpu_torch.parallel.batch import (
 from python_audio_mastering_tpu_torch.parallel.mesh import (
     make_mesh,
     make_mesh_2d,
+    mesh_device,
 )
 
 __all__ = ["master_track_sharded", "master_album_sharded"]
@@ -554,15 +555,6 @@ def _prepare(params, config, sp_ballistics, device, what):
     return dev
 
 
-def _mesh_device(dev, mesh):
-    """The entry point's device on this rank: a bare ``"cuda"`` is the
-    mesh's card."""
-    if dev.type == "cuda" and dev.index is None:
-        return (mesh.device if mesh.device.type == "cuda"
-                else torch.device("cuda", torch.cuda.current_device()))
-    return dev
-
-
 def _meters_dict(cells, measured, gain_db, tp, n, cell):
     """The R128 meter family of ``master_streamed(return_meters=True)``
     from the gathered cells (scaled by gain²) and the true peak."""
@@ -607,7 +599,7 @@ def master_track_sharded(audio, params: MasteringParams, config: ChainConfig,
         mesh = make_mesh(axis)
     else:
         axis = mesh.axis_names[0]
-    dev = _mesh_device(dev, mesh)
+    dev = mesh_device(dev, mesh)
     check_fp32_matmul(dev)
     d, idx = mesh.size(axis), mesh.index(axis)
     audio = np.asarray(audio)
@@ -668,7 +660,7 @@ def master_album_sharded(tracks, params, config: ChainConfig, mesh=None,
         mesh = make_mesh_2d()
     taxis, saxis = mesh.axis_names
     dt_m, ds_m = mesh.shape
-    dev = _mesh_device(dev, mesh)
+    dev = mesh_device(dev, mesh)
     check_fp32_matmul(dev)
     batch, lengths = pad_tracks(tracks)
     t0, n, c = batch.shape

@@ -319,3 +319,29 @@ def test_automaster_defaults_to_the_card(tmp_path):
     assert fitted is None
     assert msgs[-1].startswith("ERROR:") and "CUDA" in msgs[-1], msgs
     assert not (tmp_path / "out.wav").exists()
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_folded_step_makes_one_chain_call(shared):
+    """A batch folds into the album's block axis: one chain call a step,
+    K1 once (a group a θ row without ``shared``) and K4 twice, whatever
+    T; each track's loss as :meth:`loss` gives it alone."""
+    tracks = np.stack([make_signal(int(FS * SECONDS), fs=FS, seed=i) * 0.3
+                       for i in range(3)])
+    targets = np.stack([_target(t) for t in tracks])
+    _, pm = _models()
+    theta0 = (np.zeros(LATENT) if shared else
+              np.random.default_rng(4).standard_normal((3, LATENT)) * 0.3)
+    for t in (1, 3):
+        theta = torch.tensor(theta0 if shared else theta0[:t],
+                             requires_grad=True)
+        cmb.reset_launch_counts()
+        per_track = pm.batch_loss(theta, torch.from_numpy(tracks[:t]),
+                                  torch.from_numpy(targets[:t]), shared)
+        assert cmb.plain_calls() == {
+            "front_chain_ref": 1 if shared else t, "kweight_cells_ref": 2}
+        for i in range(t):
+            alone = pm.loss(theta if shared else theta[i], tracks[i],
+                            torch.from_numpy(targets[i]))
+            got, want = per_track[i].item(), alone.item()
+            assert abs(got - want) <= 1e-12 * abs(want)
