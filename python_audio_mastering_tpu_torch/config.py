@@ -156,6 +156,9 @@ class ChainConfig:
     sample_rate: int = 44100
     variant: str = "worker"          # "worker" | "legacy" (monolith service)
     dtype: str = "float32"
+    # IIR execution: "auto" | "scan" | "blocked" (see channel_major and
+    # ops.iir.uses_scan)
+    filter_method: str = "auto"
     block_size: int = 512
     comp_hop: int = 1
     comp_block_ctrl: int | None = None
@@ -173,12 +176,26 @@ class ChainConfig:
     def torch_dtype(self):
         return getattr(torch, self.dtype)
 
+    def channel_major(self, n_frames: int) -> bool:
+        """The JAX package's gate of its rows body (``_master_cm`` and the
+        streamed runners' rows chunk): the worker variant, a
+        blocked-capable ``filter_method`` and at least ``4 ·
+        block_size`` frames.  Where it fails, the JAX package runs its
+        row-major body, in which each filter stage picks the exact scan or
+        the blocked filter by ``ops.iir.uses_scan``; the port keeps its
+        rows body and switches those stages to the scan kernel
+        (``models.chain.MasteringChain.stage_scans``).  JAX's ``layout``
+        knob is not ported."""
+        return (self.variant == "worker"
+                and self.filter_method in ("auto", "blocked")
+                and n_frames >= 4 * self.block_size)
+
     @classmethod
     def gpu_default(cls, sample_rate=44100):
-        """The JAX package's ``tpu_default`` knobs: block 384, hop-8
-        detector, 2048-step ballistics control blocks."""
-        return cls(sample_rate=sample_rate, block_size=384, comp_hop=8,
-                   comp_block_ctrl=2048)
+        """The JAX package's ``tpu_default`` knobs: blocked filters, block
+        384, hop-8 detector, 2048-step ballistics control blocks."""
+        return cls(sample_rate=sample_rate, filter_method="blocked",
+                   block_size=384, comp_hop=8, comp_block_ctrl=2048)
 
     @classmethod
     def gpu_fast(cls, sample_rate=44100):
@@ -186,5 +203,6 @@ class ChainConfig:
         detector, 1024-step ballistics control blocks with an overlap of
         1102 (the block-parallel execution reads them, ``comp_ballistics=
         "blocked"``; the default exact ballistics do not)."""
-        return cls(sample_rate=sample_rate, block_size=384, comp_hop=16,
-                   comp_block_ctrl=1024, comp_overlap_ctrl=1102)
+        return cls(sample_rate=sample_rate, filter_method="blocked",
+                   block_size=384, comp_hop=16, comp_block_ctrl=1024,
+                   comp_overlap_ctrl=1102)

@@ -44,9 +44,11 @@ def album_params_from_jax(params) -> list:
 
 def config_from_jax(cfg) -> ChainConfig:
     """A port ``ChainConfig`` from the JAX one: the fields the port has,
-    the variant among them (``mb_kernel``, ``layout`` and
-    ``filter_method`` are execution knobs of the JAX package and are
-    dropped)."""
+    the variant and ``filter_method`` among them.  ``mb_kernel`` and
+    ``layout`` are execution knobs of the JAX package (its Pallas/XLA
+    switch and its forced row-major layout) and are dropped: the port
+    picks its kernels by device, and takes the row-major filter stages by
+    ``filter_method`` and length alone."""
     return ChainConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(ChainConfig)})
 

@@ -13,7 +13,12 @@ On the card the forward pass of every step launches the chain's kernels,
 normalisation and the loss's meter); their backward passes are plain
 torch (``ops.cuda_multiband``).  The EQ operators are built in the graph
 in float64 (``ops.iir.blocked_ops_traced``).  θ is in the config's dtype,
-float32 by default, as JAX's is without x64.
+float32 by default, as JAX's is without x64.  Under a config whose
+filter stages scan (``filter_method="scan"``, or ``"auto"`` on a short
+track; ``MasteringChain.stage_scans``, and the loss's meter by
+``ops.loudness.kweight_scans``, as JAX's loss passes ``filter_method``)
+those stages run the scan kernel K8 under autograd instead, its backward
+K8 again (``ops.sos_scan``), as JAX differentiates its ``lax.scan``.
 
 A batch of tracks is one chain call (:meth:`AutoMasterModel.batch_loss`):
 its tracks fold into the kernels' block axis as an album's do, so a step
@@ -173,7 +178,8 @@ class AutoMasterModel:
             y.permute(2, 0, 1), (0, -n % L)).reshape(c, tracks, -1, L)
         measured = loud.integrated_loudness_rows(
             rows, cfg.sample_rate, downmix=cfg.measure_downmix,
-            valid_frames=n, ops=self._chain.kweight_ops())
+            valid_frames=n, ops=self._chain.kweight_ops(),
+            scan=loud.kweight_scans(cfg.filter_method, n))
         l_loud = torch.where(torch.isfinite(measured),
                              (measured - self.target_lufs) ** 2,
                              torch.zeros_like(measured))

@@ -37,9 +37,18 @@ the kernels compute each block from that block and its incoming state,
 so the tracks fold into their block axis and each launches once for all
 of them (``parallel.batch``).
 
-Signals shorter than ``4 · block_size`` take the same rows body, padded to
-a block multiple (the JAX package sends them to a separate row-major
-body); the result is the same filter, cut back to the input length.
+The exact filter path.  Where the JAX package leaves its rows body
+(``ChainConfig.channel_major`` fails: ``filter_method="scan"``, the legacy
+variant, or fewer than ``4 · block_size`` frames) it runs a row-major
+body in which each filter stage picks the exact scan or the blocked
+filter by ``iir.sosfilt``'s rule.  The port keeps its one rows body and
+switches each stage the same way (:meth:`MasteringChain.stage_scans`): a
+stage that JAX scans runs the scan kernel K8 (``ops.sos_scan``) over the
+same rows tensor, each ``(channel, track)`` a contiguous run of ``nb·L``
+samples whose zero padding lies after its last valid sample, followed by
+the plain torch the JAX body runs there (saturation before the EQ scan,
+the width, the multiband detector and gain apply, the K-weighted cell
+sums); a stage that JAX runs blocked stays on the rows kernels.
 
 :class:`MasteringChain` holds the float64-built operators as buffers: the
 K-weighting ``T``/``G``/``W``/``A^L`` and a small cache of EQ operators
@@ -91,6 +100,7 @@ from python_audio_mastering_tpu_torch.ops.multiband import (
     crossover_ops,
     multiband_compress_rows,
 )
+from python_audio_mastering_tpu_torch.ops.sos_scan import sos_scan
 from python_audio_mastering_tpu_torch.ops.stereo import stereo_width
 from python_audio_mastering_tpu_torch.ops.waveshaper import (
     exciter,
@@ -101,10 +111,11 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import (
 )
 
 __all__ = ["master", "make_master_fn", "MasterResult", "MasteringChain",
-           "cached_chain", "eq_sos", "legacy_eq_sos", "check_supported",
-           "check_fp32_matmul", "require_device"]
+           "cached_chain", "eq_sos", "apply_eq", "legacy_eq_sos",
+           "check_supported", "check_fp32_matmul", "require_device"]
 
 _EQ_CACHE_SIZE = 16
+_EQ_SECTIONS = 4   # the worker EQ's cascade (eq_sos)
 _LIMITER_MODES = ("reference", "lookahead_truepeak")
 
 
@@ -140,6 +151,18 @@ def eq_sos(params: MasteringParams, sample_rate: int):
             else torch.cat(rows, dim=0))
 
 
+def apply_eq(x, params, config, zi=None):
+    """The worker EQ over ``(N,)`` or ``(N, C)`` audio (JAX ``apply_eq``):
+    one cascade in the signal's dtype through ``iir.sosfilt`` with the
+    config's ``filter_method`` and ``block_size`` (the exact scan, K8, or
+    the blocked filter).  Returns ``(y, zf)``."""
+    x = torch.as_tensor(x)
+    sos = torch.as_tensor(eq_sos(params, config.sample_rate)).to(
+        device=x.device, dtype=x.dtype)
+    return iir.sosfilt(sos, x, zi=zi, method=config.filter_method,
+                       block_size=config.block_size)
+
+
 @functools.lru_cache(maxsize=8)
 def legacy_eq_sos(sample_rate: int):
     """The legacy EQ's four static Butterworth filters, float64 (main.py:
@@ -166,11 +189,14 @@ def _db_gain(gain_db, dtype=torch.float32):
 
 
 def check_supported(params: MasteringParams, config: ChainConfig):
-    """Raise ``ValueError`` for a variant, a ballistics execution or a
-    limiter mode that does not exist."""
+    """Raise ``ValueError`` for a variant, a filter method, a ballistics
+    execution or a limiter mode that does not exist."""
     if config.variant not in VARIANTS:
         raise ValueError(f"unknown variant {config.variant!r}: one of "
                          f"{VARIANTS}")
+    if config.filter_method not in iir.METHODS:
+        raise ValueError(f"unknown filter_method {config.filter_method!r}: "
+                         f"one of {iir.METHODS}")
     if config.comp_ballistics not in BALLISTICS:
         raise ValueError(f"unknown comp_ballistics "
                          f"{config.comp_ballistics!r}: one of {BALLISTICS}")
@@ -287,19 +313,43 @@ class MasteringChain(nn.Module):
             self._legacy_eq[self.device] = ops
         return ops
 
-    def legacy_eq(self, xrows, params):
+    def stage_scans(self, n_frames: int):
+        """``(eq, crossovers, kweighting)``: which filter stages of a
+        signal (or chunk) of ``n_frames`` take the exact scan, as the JAX
+        package's ``master()`` picks them: none in its rows body
+        (``config.channel_major(n_frames)``); else, in its row-major body,
+        each by ``iir.sosfilt``'s rule (:func:`iir.uses_scan`), the EQ at
+        the config's block, the crossovers and the K-weighting at the
+        default 512."""
+        cfg = self.config
+        if cfg.channel_major(n_frames):
+            return False, False, False
+        m = cfg.filter_method
+        fixed = iir.uses_scan(m, n_frames, iir.DEFAULT_BLOCK)
+        return iir.uses_scan(m, n_frames, cfg.block_size), fixed, fixed
+
+    def legacy_eq(self, xrows, params, scan: bool = False):
         """The legacy EQ (JAX ``_apply_eq_legacy``) over stereo rows ``(2,
         nb, L)`` (or ``(2·T, nb, L)``, T tracks of one setting): four serial
-        stages, each a blend of its input with one blocked filter of it
-        (float64 states pass, float32 ``x @ T + s_in @ Wᵀ``).  The shelves
-        blend ``x + F·(g−1)`` for a boost and ``x·g + F·(1−g)`` for a cut
-        (a host branch on the slider; a ``where`` for a tensor slider, as
-        JAX's), the peaks ``x + F·(g−1)``."""
-        shelf_lo, peak_1k, peak_4k, shelf_hi = self.legacy_eq_ops()
+        stages, each a blend of its input with one filter of it: blocked
+        (float64 states pass, float32 ``x @ T + s_in @ Wᵀ``) or, with
+        ``scan``, the scan kernel over each row's ``nb·L`` samples.  The
+        shelves blend ``x + F·(g−1)`` for a boost and ``x·g + F·(1−g)`` for
+        a cut (a host branch on the slider; a ``where`` for a tensor
+        slider, as JAX's), the peaks ``x + F·(g−1)``."""
+        if scan:
+            stages = legacy_eq_sos(self.config.sample_rate)
+        else:
+            stages = self.legacy_eq_ops()
+        shelf_lo, peak_1k, peak_4k, shelf_hi = stages
 
-        def filtered(x, ops):
+        def filtered(x, stage):
+            if scan:
+                r = x.shape[0]
+                return sos_scan(x.reshape(r, -1), [stage])[0][0].reshape(
+                    x.shape)
             return iir.sosfilt_blocked_rows(None, x, return_state=False,
-                                            ops=ops)[0]
+                                            ops=stage)[0]
 
         def shelf(x, ops, gain_db):
             g = _db_gain(gain_db, x.dtype)
@@ -320,12 +370,14 @@ class MasteringChain(nn.Module):
         return shelf(x, shelf_hi, params.treble_boost)
 
     def multiband(self, xrows, params, state=None,
-                  return_state: bool = False, emit_mono: bool = False):
+                  return_state: bool = False, emit_mono: bool = False,
+                  scan: bool = False):
         """The 3-band compressor over rows
         (``ops.multiband.multiband_compress_rows``) with this chain's
         config and crossover operators; an album's ``(C, T, nb, L)`` takes
         a sequence of T params.  ``state``/``return_state``: the carried
-        multiband state dict of streaming."""
+        multiband state dict of streaming.  ``scan``: the exact crossovers
+        (see :meth:`stage_scans`)."""
         cfg = self.config
         tp = params if xrows.ndim == 4 else [params]
 
@@ -336,26 +388,30 @@ class MasteringChain(nn.Module):
             xrows, cfg.sample_rate,
             thresholds_db=sliders("low_thresh", "mid_thresh", "high_thresh"),
             ratios=sliders("low_ratio", "mid_ratio", "high_ratio"),
-            hop=cfg.comp_hop, ballistics=cfg.comp_ballistics, state=state,
+            hop=cfg.comp_hop, block_ctrl=cfg.comp_block_ctrl,
+            overlap_ctrl=cfg.comp_overlap_ctrl,
+            ballistics=cfg.comp_ballistics, state=state,
             return_state=return_state, emit_mono=emit_mono,
-            ops=self.crossover_ops(), variant=cfg.variant,
-            block_ctrl=cfg.comp_block_ctrl,
-            overlap_ctrl=cfg.comp_overlap_ctrl)
+            ops=None if scan else self.crossover_ops(), variant=cfg.variant,
+            scan=scan)
 
-    def front_groups(self, tracks_params, legacy_eq: bool = False):
+    def front_groups(self, tracks_params, legacy_eq: bool = False,
+                     scan: bool = False):
         """The tracks of an album grouped by their front settings (EQ
         sliders, saturation, width), which ``front_chain`` takes one of per
         launch: ``[(params, track indices, EQ operators), ...]``.  A run
         computes them once and holds the operators to its end.
-        ``legacy_eq``: groups of the one-shot legacy front (no EQ
-        operators: its filters are static).  Tensor sliders group by the
+        ``legacy_eq``: groups of the one-shot legacy front, and ``scan``:
+        of the scanned front (no EQ operators: the first's filters are
+        static, the second needs none).  Tensor sliders group by the
         params object (the automaster's shared θ is one group, a θ per
         track one group a track), their operators built in the graph."""
         groups = {}
+        no_ops = legacy_eq or scan
         if tracks_params[0].has_tensors():
             for i, p in enumerate(tracks_params):
                 groups.setdefault(id(p), (p, []))[1].append(i)
-            return [(p, idx, None if legacy_eq else self.eq_ops(p))
+            return [(p, idx, None if no_ops else self.eq_ops(p))
                     for p, idx in groups.values()]
         for i, p in enumerate(tracks_params):
             if legacy_eq:
@@ -366,19 +422,24 @@ class MasteringChain(nn.Module):
                     self.config.dtype).tobytes()
             key = (eq, float(p.saturation), float(p.width))
             groups.setdefault(key, (p, []))[1].append(i)
-        return [(p, idx, None if legacy_eq else self.eq_ops(p))
+        return [(p, idx, None if no_ops else self.eq_ops(p))
                 for p, idx in groups.values()]
 
-    def _front_group(self, x4, params, ops, zi, return_state, emit):
+    def _front_group(self, x4, params, ops, zi, return_state, emit,
+                     legacy_eq=False, scan=False):
         """:meth:`front` of ``(C, T, nb, L)`` tracks that share ``params``:
         one states pass over the ``C·T`` sequences, one kernel launch over
-        ``(C, T·nb, L)`` (the one-shot legacy front when ``ops`` is None).
-        Returns ``(y, mono (T, nb, L) or None, zf)``."""
+        ``(C, T·nb, L)``; or the one-shot legacy front (``legacy_eq``), or
+        the scanned front (``scan``).  Returns ``(y, mono (T, nb, L) or
+        None, zf)``."""
         c, tracks, nb, L = x4.shape
-        if ops is None:
-            return self._legacy_front_group(x4, params, emit)
+        if legacy_eq:
+            return self._legacy_front_group(x4, params, emit, scan)
         coefs = exciter_coefs(params.saturation, self.config.variant,
                               self.config.torch_dtype())
+        if scan:
+            return self._scan_front_group(x4, params, coefs, zi,
+                                          return_state, emit)
         xs = exciter(x4, coefs).reshape(c * tracks, nb, L)
         s_in, zf, _ = iir.sosfilt_states_rows(
             None, xs, zi=zi, return_state=return_state, ops=ops)
@@ -391,21 +452,40 @@ class MasteringChain(nn.Module):
             ym = ym.reshape(tracks, nb, L)
         return y.reshape(x4.shape), ym, zf
 
-    def _legacy_front_group(self, x4, params, emit):
+    def _scan_front_group(self, x4, params, coefs, zi, return_state, emit):
+        """The scanned front of ``(C, T, nb, L)`` tracks that share
+        ``params`` (JAX ``master``'s row-major body): the exciter, the EQ
+        cascade by the scan kernel over the ``C·T`` runs of ``nb·L``
+        samples (``zi`` ``(K, 2, C·T)``), the width, plain torch around
+        it.  Returns ``(y, mono or None, zf)``."""
+        c, tracks, nb, L = x4.shape
+        xs = exciter(x4, coefs).reshape(c * tracks, nb * L)
+        sos = eq_sos(params, self.config.sample_rate)
+        if isinstance(sos, torch.Tensor):
+            sos = sos.to(self.device)
+        y, (zf,) = sos_scan(xs, [sos], [zi])
+        y = stereo_width(y[0].reshape(x4.shape), params.width,
+                         channel_axis=0)
+        return y, (y.mean(dim=0) if emit else None), (
+            zf if return_state else zi)
+
+    def _legacy_front_group(self, x4, params, emit, scan=False):
         """The one-shot legacy front of ``(C, T, nb, L)`` tracks that share
         ``params`` (JAX ``master``, legacy): ``saturate_legacy`` → the
-        legacy EQ (stereo only; other inputs pass unprocessed) → width,
-        plain torch.  Returns ``(y, mono or None, None)``."""
+        legacy EQ (stereo only; other inputs pass unprocessed; scanned with
+        ``scan``) → width, plain torch.  Returns ``(y, mono or None,
+        None)``."""
         c, tracks, nb, L = x4.shape
         x = saturate_legacy(x4, params.saturation)
         if c == 2:
-            x = self.legacy_eq(x.reshape(c * tracks, nb, L),
-                               params).reshape(x4.shape)
+            x = self.legacy_eq(x.reshape(c * tracks, nb, L), params,
+                               scan=scan).reshape(x4.shape)
         y = stereo_width(x, params.width, channel_axis=0)
         return y, (y.mean(dim=0) if emit else None), None
 
     def front(self, xrows, params, state=None, return_state: bool = False,
-              emit_mono: bool = False, groups=None, legacy_eq: bool = False):
+              emit_mono: bool = False, groups=None, legacy_eq: bool = False,
+              scan: bool = False):
         """saturate → EQ → width over rows (``chain._front``).
 
         The EQ states come from the SATURATED signal; the kernel reads the
@@ -420,7 +500,9 @@ class MasteringChain(nn.Module):
         on a gathered copy of the group's tracks when there are several.
 
         ``legacy_eq``: the one-shot legacy front instead
-        (:meth:`_legacy_front_group`), which carries no state.
+        (:meth:`_legacy_front_group`), which carries no state.  ``scan``:
+        the EQ by the scan kernel (:meth:`_scan_front_group`, or the
+        legacy EQ's filters scanned).
 
         Returns ``y``, ``(y, ym)`` with ``emit_mono``, and ``eq_zf``
         appended with ``return_state``.
@@ -429,17 +511,17 @@ class MasteringChain(nn.Module):
         x4 = xrows if album else xrows[:, None]
         c, tracks, nb, L = x4.shape
         groups = groups or self.front_groups(params if album else [params],
-                                             legacy_eq)
+                                             legacy_eq, scan)
         emit = emit_mono and c > 1
         if len(groups) == 1:
             p, _, ops = groups[0]
             y, ym, eq_zf = self._front_group(x4, p, ops, state, return_state,
-                                             emit)
+                                             emit, legacy_eq, scan)
         else:
             y = torch.empty_like(x4)
             ym = x4.new_empty((tracks, nb, L)) if emit else None
-            stateless = groups[0][2] is None     # the one-shot legacy front
-            k = None if stateless else groups[0][2].k
+            stateless = legacy_eq     # the one-shot legacy front
+            k = None if stateless else _EQ_SECTIONS
             zi4 = (None if state is None or stateless
                    else state.reshape(k, 2, c, tracks))
             zf4 = (x4.new_empty((k, 2, c, tracks))
@@ -449,7 +531,8 @@ class MasteringChain(nn.Module):
                 zi = (None if zi4 is None else
                       zi4[:, :, :, sel].reshape(k, 2, c * len(idx)))
                 yg, ymg, zfg = self._front_group(
-                    x4[:, sel].contiguous(), p, ops, zi, return_state, emit)
+                    x4[:, sel].contiguous(), p, ops, zi, return_state, emit,
+                    legacy_eq, scan)
                 y[:, sel] = yg
                 if emit:
                     ym[sel] = ymg
@@ -530,26 +613,27 @@ class MasteringChain(nn.Module):
         want_mono = (first.lufs_enabled and c > 1
                      and cfg.measure_downmix == "reference_mono_mean")
         legacy = cfg.variant == "legacy"
-        groups = self.front_groups(tp, legacy)
+        eq_scan, xo_scan, kw_scan = self.stage_scans(n)
+        groups = self.front_groups(tp, legacy, eq_scan)
+        fr = dict(groups=groups, legacy_eq=legacy, scan=eq_scan)
         meter_rows = None
         if first.multiband:
-            xr = self.multiband(self.front(xr, tp, groups=groups,
-                                           legacy_eq=legacy),
-                                tp, emit_mono=want_mono)
+            xr = self.multiband(self.front(xr, tp, **fr), tp,
+                                emit_mono=want_mono, scan=xo_scan)
             if want_mono:
                 xr, meter_rows = xr
         elif want_mono:
-            xr, meter_rows = self.front(xr, tp, emit_mono=True,
-                                        groups=groups, legacy_eq=legacy)
+            xr, meter_rows = self.front(xr, tp, emit_mono=True, **fr)
         else:
-            xr = self.front(xr, tp, groups=groups, legacy_eq=legacy)
+            xr = self.front(xr, tp, **fr)
 
         if first.lufs_enabled:
             meter = meter_rows[None] if meter_rows is not None else xr
             if cfg.measure_downmix == "reference_mono_mean":
                 meter = meter.mean(dim=0, keepdim=True)
             cell_ms, _, _ = block_cell_energies_rows(
-                meter, cfg.sample_rate, ops=self.kweight_ops())
+                meter, cfg.sample_rate, ops=self.kweight_ops(),
+                scan=kw_scan)
             cell = _gating_geometry(cfg.sample_rate)[0]
             vf = ([n] * tracks if valid_frames is None
                   else [min(int(v), n) for v in valid_frames])
@@ -585,9 +669,9 @@ def master(audio, params: MasteringParams, config: ChainConfig,
     over its first ``valid_frames`` samples, so the gated LUFS equals the
     unpadded track's.  ``device``: where to run, the card unless the
     caller passes ``device="cpu"``; raises when no card is there (see
-    :func:`require_device`).  Every length takes the rows body: a signal
-    shorter than ``4 · block_size`` is padded to whole blocks like any
-    other.
+    :func:`require_device`).  Every length takes the rows body, padded to
+    whole blocks; its filter stages take the exact scan where the JAX
+    package's ``master()`` does (:meth:`MasteringChain.stage_scans`).
     """
     device = require_device(device, "master")
     chain = MasteringChain(config).to(device)

@@ -1,9 +1,8 @@
-"""Signal ops: filter design, blocked IIR, waveshapers, dynamics, loudness,
-meters, resampling and the CUDA kernels (``ops.cuda_multiband``,
-``ops.ballistics``).  Re-exports the JAX package's ``ops`` names but its
-``sosfilt*`` filters, which the port does not have (ROADMAP queue 1
-item 4); the bare ``resample`` function is not re-exported, as it would
-shadow the ``ops.resample`` submodule."""
+"""Signal ops: filter design, blocked and exact IIR, waveshapers, dynamics,
+loudness, meters, resampling and the CUDA kernels (``ops.cuda_multiband``,
+``ops.ballistics``, ``ops.sos_scan``).  Re-exports the JAX package's
+``ops`` names; the bare ``resample`` function is not re-exported, as it
+would shadow the ``ops.resample`` submodule."""
 
 from python_audio_mastering_tpu_torch.ops.biquad import (
     butter_sos,
@@ -18,6 +17,9 @@ from python_audio_mastering_tpu_torch.ops.biquad import (
 )
 from python_audio_mastering_tpu_torch.ops.iir import (
     cascade_state_space,
+    sosfilt,
+    sosfilt_blocked,
+    sosfilt_scan,
     state_to_zi,
     zi_to_state,
 )
@@ -57,6 +59,7 @@ __all__ = [
     "rbj_peak_sos", "rbj_highpass_sos", "deman_high_shelf_sos",
     "deman_high_pass_sos", "butter_sos", "sos_identity",
     "cascade_state_space", "zi_to_state", "state_to_zi",
+    "sosfilt_scan", "sosfilt_blocked", "sosfilt",
     "saturate", "saturate_legacy", "soft_limiter", "soft_limiter_legacy",
     "stereo_width",
     "kweight_sos", "integrated_loudness", "normalize_to_lufs",

@@ -23,7 +23,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KernelLibrary", "library", "ptr", "raise_on", "upload"]
+__all__ = ["KernelLibrary", "library", "ptr", "raise_on", "upload",
+           "check_kernel_arg", "check_channel_major_arg"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -35,6 +36,7 @@ _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # x, t, wt, s_in, y, mono, C, nb, L, S, dry, wet, drive, width, stream
     "pam_front_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
@@ -57,6 +59,11 @@ _SIGNATURES = {
     # rounds, stream
     "pam_replay_bnd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P],
+    # x, sos, nsec, zi, n_valid, y, zf, ysec, F, R, N, kmax, stream
+    "pam_sos_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
+                         _P],
+    "pam_sos_scan_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
+                         _P],
 }
 
 
@@ -174,3 +181,22 @@ def raise_on(name, err):
     """Raise if a kernel entry returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def check_kernel_arg(kernel):
+    """The JAX package's ``kernel`` switch (``"auto"``, ``"pallas"``,
+    ``"xla"``, ``"pallas_interpret"``): the port picks its route by the
+    tensors' device, so only ``"auto"`` is taken."""
+    if kernel != "auto":
+        raise ValueError(f"kernel={kernel!r}: the port picks its kernels by "
+                         "device (CUDA kernels on the card, their plain "
+                         "versions on the CPU); only 'auto' is taken")
+
+
+def check_channel_major_arg(channel_major):
+    """The JAX package's ``channel_major`` flag: its ``(C, N)`` body is on
+    the ROADMAP's "Do not port" list, so only ``False`` is taken."""
+    if channel_major:
+        raise ValueError("channel_major=True: the JAX package's (C, N) "
+                         "channel-major body is not ported (ROADMAP, "
+                         "'Do not port'); pass (N, C) audio")

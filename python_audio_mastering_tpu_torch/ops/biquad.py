@@ -141,8 +141,10 @@ _KW_HP_FC = 38.13547087602444
 
 
 def deman_high_shelf_sos(sample_rate, gain_db=_KW_SHELF_G, q=_KW_SHELF_Q,
-                         fc=_KW_SHELF_FC):
-    """Stage-1 K-weighting high shelf (+4 dB above ~1.5 kHz)."""
+                         fc=_KW_SHELF_FC, dtype=torch.float64):
+    """Stage-1 K-weighting high shelf (+4 dB above ~1.5 kHz), float64
+    numpy.  ``dtype`` is taken for the JAX signature and, as there, not
+    read: the K-weighting is designed in float64 and cast where it runs."""
     k = math.tan(math.pi * fc / sample_rate)
     vh = 10.0 ** (gain_db / 20.0)
     vb = vh ** 0.4996667741545416

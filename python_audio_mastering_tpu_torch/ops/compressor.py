@@ -42,13 +42,13 @@ __all__ = ["cumsum_mxu", "gain_computer_stats", "gain_computer_stats_bt",
 COARSE_FACTOR = 64   # the coarse pre-scan's decimation (JAX default)
 
 
-def cumsum_mxu(x, dim=-1, block=512):
-    """Inclusive cumsum along ``dim`` as a two-stage partition: a
+def cumsum_mxu(x, axis=-1, block=512):
+    """Inclusive cumsum along ``axis`` as a two-stage partition: a
     ``(nb, block) @ triu(ones)`` product within blocks of ``block``
     elements, then an exclusive carry of the block totals.  Short inputs
     (at most ``2 · block``) take ``torch.cumsum``.  Runs in ``x``'s dtype
     (the detector passes float64)."""
-    dim = dim % x.ndim
+    dim = axis % x.ndim
     if x.shape[dim] <= 2 * block:
         return torch.cumsum(x, dim=dim)
     x = x.movedim(dim, -1)
@@ -153,7 +153,7 @@ def stats_from_buckets(xb, t, sample_rate, thresholds_db, ratios,
     ext64 = ext.to(torch.float64).reshape(bands, sigs, -1)
     csum = torch.cat([torch.zeros((bands, sigs, 1), dtype=torch.float64,
                                   device=dev),
-                      cumsum_mxu(ext64, dim=2)], dim=2)
+                      cumsum_mxu(ext64, axis=2)], dim=2)
     steps = torch.arange(t, dtype=torch.float64, device=dev) * hop
 
     ms_rows, att_f, rel_f = [], [], []

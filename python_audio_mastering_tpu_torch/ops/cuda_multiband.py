@@ -27,7 +27,8 @@ and launches its kernel for a CUDA tensor or raises: there is no fallback
 on the card.  Each counts its kernel launches in ``<wrapper>.launches``
 (only where it launches the kernel); :func:`reset_launch_counts` and
 :func:`launch_counts` read and clear them for every kernel of the port,
-the ballistics kernels of ``ops.ballistics`` included.
+the ballistics kernels of ``ops.ballistics`` and the scan kernel of
+``ops.sos_scan`` included.
 
 ``front_chain`` and ``kweight_cells`` also run under autograd (the
 automaster differentiates the chain through them): given an input that
@@ -51,6 +52,10 @@ import torch
 from python_audio_mastering_tpu_torch.ops import _kernels, ballistics
 from python_audio_mastering_tpu_torch.ops._kernels import ptr as _ptr
 from python_audio_mastering_tpu_torch.ops._kernels import raise_on as _raise_on
+from python_audio_mastering_tpu_torch.ops.sos_scan import (
+    sos_scan,
+    sos_scan_ref,
+)
 from python_audio_mastering_tpu_torch.ops.stereo import stereo_width
 from python_audio_mastering_tpu_torch.ops.waveshaper import (
     exciter,
@@ -558,10 +563,10 @@ band_energies.launches = 0
 band_gain_apply.launches = 0
 _WRAPPERS = (front_chain, kweight_cells, band_energies, band_gain_apply,
              ballistics.pass1_hull, ballistics.pass1_runs, ballistics.replay,
-             ballistics.replay_bnd)
+             ballistics.replay_bnd, sos_scan)
 
 
-_PLAIN_TWINS = (front_chain_ref, kweight_cells_ref)
+_PLAIN_TWINS = (front_chain_ref, kweight_cells_ref, sos_scan_ref)
 
 
 def reset_launch_counts():

@@ -1,6 +1,14 @@
-"""Blocked IIR (SOS cascade) execution over the rows form ``(C, nb, L)``.
+"""IIR (SOS cascade) execution: blocked over the rows form ``(C, nb, L)``,
+and the row-major filters of ``(N,)`` / ``(N, C)`` audio with their
+dispatcher.
 
-Counterpart of the rows-form half of ``python_audio_mastering_tpu.ops.iir``.
+Counterpart of ``python_audio_mastering_tpu.ops.iir`` (but its ``(C, N)``
+channel-major functions, on the ROADMAP's "Do not port" list).  The exact
+filter, :func:`sosfilt_scan`, is the direct-form II transposed recurrence
+on the scan kernel K8 (``ops.sos_scan``); :func:`sosfilt_blocked` and
+:func:`sosfilt_blocked_multi` run the blocked decomposition below over
+rows of ``(N, C)`` audio; :func:`sosfilt` picks one by JAX ``sosfilt``'s
+rule (:func:`uses_scan`).
 A biquad cascade is the linear recurrence ``s[n] = A s[n-1] + B x[n]``,
 ``y[n] = C s[n-1] + D x[n]``.  Cut the signal into blocks of ``L`` samples:
 
@@ -52,6 +60,11 @@ import functools
 import numpy as np
 import torch
 
+from python_audio_mastering_tpu_torch.ops.sos_scan import (
+    sos_scan,
+    sos_scan_ref,
+)
+
 __all__ = [
     "BlockedOps",
     "blocked_ops",
@@ -67,6 +80,15 @@ __all__ = [
     "recompute_rows",
     "to_rows",
     "from_rows",
+    "sosfilt_scan",
+    "sosfilt_scan_ref",
+    "sosfilt_blocked",
+    "sosfilt_blocked_multi",
+    "sosfilt_blocked_multi_rows",
+    "sosfilt",
+    "uses_scan",
+    "DEFAULT_BLOCK",
+    "METHODS",
 ]
 
 
@@ -229,6 +251,8 @@ def blocked_ops(sos, block_size, device="cpu", dtype=torch.float32):
     """Blocked operators of a concrete ``(K, 6)`` cascade, float64-built
     on the host (cached there) and put on ``device``: ``T``/``W`` cast to
     ``dtype``, ``G``/``A^L`` kept in float64."""
+    if isinstance(sos, torch.Tensor):
+        sos = sos.detach().cpu().numpy()
     sos = np.ascontiguousarray(sos, np.float64)
     t, g, w, al = _blocked_operators_static(sos.tobytes(), sos.shape[0],
                                             int(block_size))
@@ -421,8 +445,8 @@ def _states_from_summaries(t_vec, zi, ops, dtype, return_state,
     return s_in, state_to_zi(s_last.T, ops.k).to(dtype)
 
 
-def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None,
-                        n_valid=None):
+def sosfilt_states_rows(sos, xrows, zi=None, n_valid=None,
+                        return_state=True, ops=None):
     """Per-block incoming states of one cascade over rows ``(C, nb, L)``.
 
     One ``rows @ G`` read of the signal plus the scan-free boundary
@@ -449,9 +473,8 @@ def sosfilt_states_rows(sos, xrows, zi=None, return_state=True, ops=None,
     return s_in, zf, ops
 
 
-def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None,
-                              return_state=True, ops_list=None,
-                              n_valid=None):
+def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None, n_valid=None,
+                              return_state=True, ops_list=None):
     """Per-block incoming states of F cascades over rows ``(C, nb, L)``,
     from ONE shared float64 ``rows @ [G_1 | … | G_F]`` read of the signal
     (the multiband crossovers: the band kernels recompute each block's
@@ -485,8 +508,8 @@ def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None,
     return tuple(s_ins), tuple(zfs)
 
 
-def sosfilt_blocked_rows(sos, xrows, zi=None, return_state=True, ops=None,
-                         n_valid=None):
+def sosfilt_blocked_rows(sos, xrows, zi=None, n_valid=None,
+                         return_state=True, ops=None):
     """Plain blocked filter over rows ``(C, nb, L)``: the states pass, then
     ``y = rows @ T + s_in @ Wᵀ``.  Returns ``(yrows, zf)``."""
     c, nb, L = xrows.shape
@@ -589,3 +612,127 @@ def to_rows(x, block_size=NC_BLOCK):
 def from_rows(yrows, n):
     """Rows ``(C, nb, L)`` back to ``(N, C)`` audio, cut at ``n``."""
     return yrows.reshape(yrows.shape[0], -1)[:, :n].T
+
+
+# ---------------------------------------------------------------------------
+# The row-major filters of ``(N,)`` / ``(N, C)`` audio and their dispatcher
+# ---------------------------------------------------------------------------
+
+DEFAULT_BLOCK = 512     # JAX sosfilt's block_size default
+METHODS = ("auto", "scan", "blocked")
+
+
+def uses_scan(method, n_frames, block_size=DEFAULT_BLOCK):
+    """JAX ``sosfilt``'s choice: the exact scan for ``"scan"``, and for
+    ``"auto"`` below ``4 · block_size`` frames (where the blocked setup
+    does not pay); the blocked filter otherwise."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}: one of {METHODS}")
+    return method == "scan" or (method == "auto"
+                                and n_frames < 4 * block_size)
+
+
+def _columns(x):
+    """``(N,)`` or ``(N, C)`` audio as ``(C, N)`` columns; ``squeeze``."""
+    x = torch.as_tensor(x)
+    squeeze = x.ndim == 1
+    return (x[None] if squeeze else x.T).contiguous(), squeeze
+
+
+def _scan_nc(scan, sos, x, zi):
+    xc, squeeze = _columns(x)
+    y, (zf,) = scan(xc, [sos], None if zi is None else [zi])
+    y = y[0]
+    return (y[0], zf[:, :, 0]) if squeeze else (y.T, zf)
+
+
+def sosfilt_scan(sos, x, zi=None):
+    """Direct-form II transposed SOS filter, the exact recurrence (JAX
+    ``sosfilt_scan``): kernel K8 (``ops.sos_scan``) on a CUDA tensor, its
+    plain version on a CPU one.
+
+    Args:
+      sos: ``(K, 6)`` sections ``[b0, b1, b2, 1, a1, a2]`` (cast to
+        ``x``'s dtype).
+      x: ``(N,)`` or ``(N, C)`` signal, float32 or float64.
+      zi: optional initial state ``(K, 2)`` (1-D x) or ``(K, 2, C)``.
+
+    Returns ``(y, zf)``, ``y`` shaped like ``x`` and ``zf`` like ``zi``.
+    """
+    return _scan_nc(sos_scan, sos, x, zi)
+
+
+def sosfilt_scan_ref(sos, x, zi=None):
+    """:func:`sosfilt_scan` through K8's plain version on any device."""
+    return _scan_nc(sos_scan_ref, sos, x, zi)
+
+
+def _blocked_nc(sos_list, x, zi_list, block_size, return_state):
+    xc, squeeze = _columns(x)
+    c, n = xc.shape
+    L = min(block_size, max(8, n))
+    rows = to_rows(xc.T, L)
+    traced = [isinstance(s, torch.Tensor) and s.requires_grad
+              for s in sos_list]
+    ops = [blocked_ops_traced(s, L, xc.dtype) if tr
+           else blocked_ops(s, L, xc.device, xc.dtype)
+           for s, tr in zip(sos_list, traced)]
+    ys, zfs = sosfilt_blocked_multi_rows(None, rows, zi_list, n_valid=n,
+                                         return_state=return_state,
+                                         ops_list=ops)
+    ys = [from_rows(y, n) for y in ys]
+    if squeeze:
+        ys = [y[:, 0] for y in ys]
+        zfs = [None if z is None else z[:, :, 0] for z in zfs]
+    return tuple(ys), tuple(zfs)
+
+
+def sosfilt_blocked(sos, x, zi=None, block_size=512, return_state=True):
+    """Blocked execution of an SOS cascade over ``(N,)`` or ``(N, C)``
+    audio (JAX ``sosfilt_blocked``): blocks of ``L = min(block_size,
+    max(8, N))`` samples, the float64 states pass and ``rows @ T + s_in @
+    Wᵀ`` (:func:`sosfilt_blocked_rows`); the final state is the one after
+    the N samples.  A coefficient tensor that requires grad takes the
+    traced operators.  Returns ``(y, zf)`` as :func:`sosfilt_scan`
+    (``zf`` is ``zi`` when not ``return_state``)."""
+    (y,), (zf,) = _blocked_nc([sos], x, None if zi is None else [zi],
+                              block_size, return_state)
+    return y, zf
+
+
+def sosfilt_blocked_multi(sos_list, x, zi_list=None, block_size=512,
+                          return_state=True):
+    """F static SOS cascades over the same ``(N, C)`` audio, one shared
+    states read (JAX ``sosfilt_blocked_multi``).  Returns ``(ys, zfs)``:
+    tuples of per-filter outputs and scipy-layout final states."""
+    return _blocked_nc(list(sos_list), x, zi_list, block_size, return_state)
+
+
+def sosfilt_blocked_multi_rows(sos_list, xrows, zi_list=None, n_valid=None,
+                               return_state=True, ops_list=None):
+    """F static cascades over rows ``(C, nb, L)`` (JAX
+    ``sosfilt_blocked_multi_rows``): one float64 states pass for all
+    (:func:`sosfilt_states_multi_rows`), then each output ``rows @ T +
+    s_in @ Wᵀ`` in plain torch.  Returns tuples of per-filter ``(C, nb,
+    L)`` outputs and scipy-layout final states (taken after ``n_valid``
+    samples)."""
+    c, nb, L = xrows.shape
+    if ops_list is None:
+        ops_list = [blocked_ops(s, L, xrows.device, xrows.dtype)
+                    for s in sos_list]
+    s_ins, zfs = sosfilt_states_multi_rows(
+        None, xrows, zi_list, n_valid=n_valid, return_state=return_state,
+        ops_list=ops_list)
+    return (tuple(recompute_rows(xrows, s, o)
+                  for s, o in zip(s_ins, ops_list)), zfs)
+
+
+def sosfilt(sos, x, zi=None, method="auto", block_size=512,
+            return_state=True):
+    """Dispatch between the exact scan (:func:`sosfilt_scan`, K8) and the
+    blocked filter (:func:`sosfilt_blocked`) by JAX ``sosfilt``'s rule
+    (:func:`uses_scan`)."""
+    if uses_scan(method, torch.as_tensor(x).shape[0], block_size):
+        return sosfilt_scan(sos, x, zi)
+    return sosfilt_blocked(sos, x, zi, block_size=block_size,
+                           return_state=return_state)

@@ -7,6 +7,10 @@ Counterpart of the rows-form half of
   blocked IIR whose per-block states come from the plain-torch states pass
   and whose outputs are recomputed, squared and bucket-summed by the
   ``kweight_cells`` kernel — the K-weighted signal never reaches memory;
+* on the exact filter path (``filter_method="scan"``, and ``"auto"``
+  below ``4 · 512`` frames, JAX ``sosfilt``'s rule) the K-weighting is
+  the scan kernel K8 instead (``ops.sos_scan``), the cells summed from its
+  output in plain torch;
 * 400 ms gating blocks at 75 % overlap, built from 100 ms cells;
 * −70 LUFS absolute and −10 LU relative gates as masked reductions.
 
@@ -28,14 +32,20 @@ import numpy as np
 import torch
 
 from python_audio_mastering_tpu_torch.ops import iir
+from python_audio_mastering_tpu_torch.ops._kernels import (
+    check_channel_major_arg,
+    check_kernel_arg,
+)
 from python_audio_mastering_tpu_torch.ops.biquad import (
     deman_high_pass_sos,
     deman_high_shelf_sos,
 )
 from python_audio_mastering_tpu_torch.ops.cuda_multiband import kweight_cells
+from python_audio_mastering_tpu_torch.ops.sos_scan import sos_scan
 
 __all__ = [
     "kweight_sos",
+    "kweight_scans",
     "channel_weights",
     "block_cell_energies_rows",
     "integrated_loudness_rows",
@@ -77,7 +87,8 @@ def _gating_geometry(sample_rate):
 
 
 def block_cell_energies_rows(xrows, sample_rate, zi=None, valid_frames=None,
-                             return_state=False, ops=None):
+                             return_state=False, kernel="auto", ops=None,
+                             scan=False):
     """Per-cell mean-square K-weighted energies of rows ``(C, nb, L)``, or
     of an album's ``(C, T, nb, L)`` (T tracks, each its own signal).
 
@@ -91,27 +102,41 @@ def block_cell_energies_rows(xrows, sample_rate, zi=None, valid_frames=None,
     given.  ``zi``/``return_state``: the carried K-filter state of chunked
     streaming, ``(K, 2, C·T)`` for an album.  ``valid_frames``: cells that
     reach past it are masked out of the gating (zero-padded tails), and
-    ``zf`` is the state after it.
+    ``zf`` is the state after it.  ``kernel``: JAX's switch, ``"auto"``
+    only (the device picks the route).  ``scan``: the exact K-weighting
+    instead (K8 over every ``(channel, track)`` run of ``nb·L`` samples,
+    read in place; the cells are means of its squared output).
 
     Returns ``(cell_ms (num_cells, C), cell_mask or None, zf)``; for an
     album ``cell_ms`` is ``(T, num_cells, C)``.
     """
+    check_kernel_arg(kernel)
     album = xrows.ndim == 4
     x4 = xrows if album else xrows[:, None]
     c, tracks, nb, L = x4.shape
     n = nb * L
     cell, _ = _gating_geometry(sample_rate)
-    h = math.gcd(cell, L)
     n_cells = n // cell
-    s_in, zf, ops = iir.sosfilt_states_rows(
-        kweight_sos(sample_rate), x4.reshape(c * tracks, nb, L), zi=zi,
-        return_state=return_state, ops=ops, n_valid=valid_frames)
-    buck = kweight_cells(x4.reshape(c, tracks * nb, L),
-                         s_in.reshape(c, tracks * nb, -1), ops.t, ops.w, h)
-    per_cell = cell // h
-    cells = buck.reshape(c, tracks, n // h)[:, :, : n_cells * per_cell]
-    cell_ms = cells.reshape(c, tracks, n_cells, per_cell).sum(dim=3).permute(
-        1, 2, 0) / cell
+    if scan:
+        kx, (z_scan,) = sos_scan(
+            x4.reshape(c * tracks, n), [kweight_sos(sample_rate)],
+            [zi], n_valid=valid_frames)
+        zf = z_scan if return_state else zi
+        z = kx[0].reshape(c, tracks, n)[:, :, : n_cells * cell] ** 2
+        cell_ms = z.reshape(c, tracks, n_cells, cell).mean(dim=3).permute(
+            1, 2, 0)
+    else:
+        h = math.gcd(cell, L)
+        s_in, zf, ops = iir.sosfilt_states_rows(
+            kweight_sos(sample_rate), x4.reshape(c * tracks, nb, L), zi=zi,
+            n_valid=valid_frames, return_state=return_state, ops=ops)
+        buck = kweight_cells(x4.reshape(c, tracks * nb, L),
+                             s_in.reshape(c, tracks * nb, -1), ops.t, ops.w,
+                             h)
+        per_cell = cell // h
+        cells = buck.reshape(c, tracks, n // h)[:, :, : n_cells * per_cell]
+        cell_ms = cells.reshape(c, tracks, n_cells, per_cell).sum(
+            dim=3).permute(1, 2, 0) / cell
     if not album:
         cell_ms = cell_ms[0]
     cell_mask = None
@@ -122,12 +147,16 @@ def block_cell_energies_rows(xrows, sample_rate, zi=None, valid_frames=None,
 
 
 def integrated_loudness_rows(xrows, sample_rate, downmix="bs1770",
-                             valid_frames=None, ops=None):
-    """Gated integrated loudness (LUFS, 0-d tensor) of rows ``(C, nb, L)``."""
+                             valid_frames=None, kernel="auto", ops=None,
+                             scan=False):
+    """Gated integrated loudness (LUFS, 0-d tensor) of rows ``(C, nb, L)``
+    (``(T,)`` for an album's ``(C, T, nb, L)``); ``kernel``, ``ops`` and
+    ``scan`` as in :func:`block_cell_energies_rows`."""
     if downmix == "reference_mono_mean":
         xrows = xrows.mean(dim=0, keepdim=True)
     cell_ms, cell_mask, _ = block_cell_energies_rows(
-        xrows, sample_rate, valid_frames=valid_frames, ops=ops)
+        xrows, sample_rate, valid_frames=valid_frames, kernel=kernel,
+        ops=ops, scan=scan)
     return loudness_from_cells(cell_ms, cell_mask=cell_mask)
 
 
@@ -175,9 +204,14 @@ def loudness_from_cells(cell_ms, weights=None, cell_mask=None):
     return torch.where(cnt_rel > 0, lufs, torch.full_like(lufs, -math.inf))
 
 
-def gain_for_target(loudness, target_lufs):
+def gain_for_target(loudness, target_lufs, dtype=None):
     """Linear gain that moves ``loudness`` to ``target_lufs``; 1 for a
-    silent (−inf) measurement instead of an infinite gain."""
+    silent (−inf) measurement instead of an infinite gain.  ``dtype``:
+    the target's (and so the gain's) type, as JAX's casts it; the
+    loudness's when None."""
+    if dtype is not None:
+        target_lufs = torch.as_tensor(target_lufs, dtype=dtype,
+                                      device=loudness.device)
     gain = 10.0 ** ((target_lufs - loudness) / 20.0)
     return torch.where(torch.isfinite(loudness), gain, torch.ones_like(gain))
 
@@ -187,39 +221,54 @@ def _as_audio(x):
     return x[:, None] if x.ndim == 1 else x
 
 
-def block_cell_energies(x, sample_rate, zi=None):
+def kweight_scans(filter_method, n_frames):
+    """Whether the K-weighting of ``n_frames`` takes the exact scan: JAX
+    ``block_cell_energies``' ``iir.sosfilt`` at its default block (512)."""
+    return iir.uses_scan(filter_method, n_frames, iir.DEFAULT_BLOCK)
+
+
+def block_cell_energies(x, sample_rate, zi=None, filter_method="auto"):
     """Per-cell mean-square K-weighted energies of ``(N, C)`` (or
-    ``(N,)``) audio, through the rows path and its kernel (JAX
-    ``block_cell_energies``).  Returns ``(cell_ms (N // cell, C), zf)``:
-    complete cells only, ``zf`` the K-filter state after the N samples."""
+    ``(N,)``) audio (JAX ``block_cell_energies``), through the rows path
+    and its kernel, or through the scan kernel where ``filter_method``
+    picks the scan (:func:`kweight_scans`).  Returns ``(cell_ms (N //
+    cell, C), zf)``: complete cells only, ``zf`` the K-filter state after
+    the N samples."""
     x = _as_audio(x)
     n = x.shape[0]
     cell_ms, _, zf = block_cell_energies_rows(
         iir.to_rows(x), sample_rate, zi=zi, valid_frames=n,
-        return_state=True)
+        return_state=True, scan=kweight_scans(filter_method, n))
     return cell_ms[: n // _gating_geometry(sample_rate)[0]], zf
 
 
-def integrated_loudness(x, sample_rate, downmix="bs1770", valid_frames=None):
+def integrated_loudness(x, sample_rate, downmix="bs1770", filter_method="auto",
+                        valid_frames=None):
     """Gated integrated loudness (LUFS, 0-d tensor) of ``(N, C)`` or
-    ``(N,)`` audio; ``valid_frames``: only cells inside the first
-    ``valid_frames`` samples count."""
+    ``(N,)`` audio; ``filter_method`` as in :func:`block_cell_energies`;
+    ``valid_frames``: only cells inside the first ``valid_frames`` samples
+    count."""
     x = _as_audio(x)
     n = x.shape[0]
     vf = n if valid_frames is None else min(int(valid_frames), n)
     return integrated_loudness_rows(iir.to_rows(x), sample_rate,
-                                    downmix=downmix, valid_frames=vf)
+                                    downmix=downmix, valid_frames=vf,
+                                    scan=kweight_scans(filter_method, n))
 
 
 def normalize_to_lufs(x, sample_rate, target_lufs=-14.0,
-                      downmix="reference_mono_mean", valid_frames=None):
+                      downmix="reference_mono_mean", filter_method="auto",
+                      valid_frames=None, channel_major=False):
     """Measure, then one linear gain to ``target_lufs`` (no re-measure, no
-    clip guard: a limiter follows).  Returns ``(y, measured_lufs,
+    clip guard: a limiter follows).  ``channel_major``: JAX's ``(C, N)``
+    input, not ported (only False).  Returns ``(y, measured_lufs,
     gain_linear)``."""
+    check_channel_major_arg(channel_major)
     x = torch.as_tensor(x)
     loudness = integrated_loudness(x, sample_rate, downmix=downmix,
+                                   filter_method=filter_method,
                                    valid_frames=valid_frames)
-    gain = gain_for_target(loudness, target_lufs)
+    gain = gain_for_target(loudness, target_lufs, x.dtype)
     return x * gain, loudness, gain
 
 

@@ -33,6 +33,18 @@ all three, the mid band's two filters as one 4-section cascade, then
 worker's over their squared channel means, the ballistics the same
 kernels, and ``y = low·g_low + mid·g_mid + high·g_high``.
 
+On the exact filter path (``scan``: the JAX package's row-major body with
+its scanned crossovers) the bands are the scan kernel K8's output
+(``ops.sos_scan``; one launch for the low and high pass, and the legacy
+mid band's 4-section cascade in the same launch), materialised; the
+detector is the same, from their squared channel means in plain torch,
+the ballistics the same kernels, and the gain apply plain torch.
+
+A ``hop`` that does not divide ``L``: ``band_energies`` runs at hop 1
+(per-sample channel-mean energies) and the buckets are summed after it
+by the JAX rows body's pad and reshape; the control-rate gains are
+repeated to the sample rate and ``band_gain_apply`` runs at hop 1.
+
 On a CUDA tensor the kernels launch; on a CPU tensor their plain versions
 run.  :func:`multiband_compress` and :func:`crossover_split` take
 ``(N, C)`` audio.
@@ -46,6 +58,10 @@ import numpy as np
 import torch
 
 from python_audio_mastering_tpu_torch.ops import iir
+from python_audio_mastering_tpu_torch.ops._kernels import (
+    check_channel_major_arg,
+    check_kernel_arg,
+)
 from python_audio_mastering_tpu_torch.ops.ballistics import ballistics_rates_bt
 from python_audio_mastering_tpu_torch.ops.biquad import butter_sos
 from python_audio_mastering_tpu_torch.ops.compressor import (
@@ -58,6 +74,7 @@ from python_audio_mastering_tpu_torch.ops.cuda_multiband import (
     band_energies,
     band_gain_apply,
 )
+from python_audio_mastering_tpu_torch.ops.sos_scan import sos_scan
 
 __all__ = ["multiband_compress_rows", "multiband_compress", "crossover_split",
            "detector_stats_fused",
@@ -207,12 +224,48 @@ def _legacy_bands(x4, zi, ops, return_state, n_valid):
     return (low, mid, high), zf
 
 
+def _scan_bands(x4, zi, sample_rate, low_crossover, high_crossover,
+                variant, n_valid):
+    """The crossover bands of ``(C, T, nb, L)`` rows by the scan kernel,
+    every filter in one launch over the ``C·T`` runs of ``nb·L`` samples:
+    ``((low, mid, high) each (C, T, nb·L), zf)``, the worker's mid ``x −
+    low − high``, the legacy one ``LP4(HP4(x))`` (one 4-section cascade,
+    the same operations as the two filters in turn)."""
+    c, tracks, nb, L = x4.shape
+    cols = x4.reshape(c * tracks, nb * L)
+    sos = list(_crossover_sos(sample_rate, low_crossover, high_crossover))
+    zis = [zi.get("lp"), zi.get("hp")]
+    if variant == "legacy":
+        sos.append(_mid_sos(sample_rate, low_crossover, high_crossover))
+        zis.append(None if zi.get("mid_hp") is None else torch.cat(
+            [torch.as_tensor(zi["mid_hp"]), torch.as_tensor(zi["mid_lp"])]))
+    ys, zfs = sos_scan(cols, sos, zis, n_valid=n_valid)
+    shape = (c, tracks, nb * L)
+    low, high = ys[0].reshape(shape), ys[1].reshape(shape)
+    zf = {"lp": zfs[0], "hp": zfs[1]}
+    if variant == "legacy":
+        mid = ys[2].reshape(shape)
+        k = sos[0].shape[0]
+        zf.update(mid_hp=zfs[2][:k], mid_lp=zfs[2][k:])
+    else:
+        mid = cols.reshape(shape) - low - high
+    return (low, mid, high), zf
+
+
+def _upsample(gains, tracks, t, hop, n):
+    """Control-rate ``(3, T·t)`` gains repeated ``hop`` times, cut to the
+    ``n`` samples of each track: ``(3, T, n)``."""
+    return gains.reshape(3, tracks, t).repeat_interleave(hop, dim=2)[
+        :, :, :n]
+
+
 def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
                             low_crossover=250.0, high_crossover=4000.0,
-                            hop=1, ballistics="auto", state=None,
-                            return_state=False, emit_mono=False, ops=None,
-                            variant="worker", block_ctrl=None,
-                            overlap_ctrl=None, valid_frames=None):
+                            hop=1, block_ctrl=None, overlap_ctrl=None,
+                            ballistics="auto", state=None,
+                            return_state=False, kernel="auto",
+                            emit_mono=False, ops=None, variant="worker",
+                            valid_frames=None, scan=False):
     """3-band compressor over rows ``(C, nb, L)``, or over an album's
     ``(C, T, nb, L)``: T tracks, each its own signal with its own
     sliders, state and detector, in one launch of each kernel.
@@ -226,9 +279,13 @@ def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
     Args:
       thresholds_db / ratios: length-3 (low, mid, high), each value a
         scalar or, for an album, T of them.
-      hop: control decimation of the detector (a divisor of ``L``).
+      hop: control decimation of the detector (the band kernels take it
+        where it divides ``L``, else run at hop 1, see the module
+        docstring).
       ballistics: one of :data:`BALLISTICS` (see :func:`_run_ballistics_bt`);
         ``block_ctrl`` / ``overlap_ctrl`` set the blocked execution.
+      kernel: the JAX package's switch, ``"auto"`` only (the device picks
+        the route).
       state: the carried state of the previous chunk (None at the start):
         ``{"crossover": {"lp", "hp"} (+ "mid_hp", "mid_lp" for the legacy
         split), "att", "ctrl_tail"}``: zi ``(K, 2, C·T)``, ``att (3·T,)``,
@@ -240,39 +297,55 @@ def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
       variant: ``"worker"`` or ``"legacy"`` (the split).
       valid_frames: the samples of each track before its zero padding; the
         returned state is the one after them (all samples when None).
+      scan: the exact crossovers (the scan kernel, see the module
+        docstring) instead of the band kernels.
 
     Returns ``y``, then ``mono`` with ``emit_mono``, then the new state
     with ``return_state``.
     """
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
+    check_kernel_arg(kernel)
     x4 = xrows if xrows.ndim == 4 else xrows[:, None]
     c, tracks, nb, L = x4.shape
-    _check_hop(hop, L)
+    n = nb * L
     state = state or {}
     zi = state.get("crossover") or {}
-    if ops is None:
-        ops = crossover_ops(sample_rate, L, x4.device, low_crossover,
-                            high_crossover, variant, x4.dtype)
+    # the band kernels' buckets: hop where it divides L, else 1
+    k_hop = hop if L % hop == 0 else 1
     valid_ctrl = None if valid_frames is None else -(-int(valid_frames)
                                                      // hop)
-    if variant == "legacy":
+    if scan:
+        bands, zf = _scan_bands(x4, zi, sample_rate, low_crossover,
+                                high_crossover, variant, valid_frames)
+        xb = bucket_sums(torch.stack([(b * b).mean(dim=0) for b in bands]),
+                         hop)
+    elif variant == "legacy":
+        if ops is None:
+            ops = crossover_ops(sample_rate, L, x4.device, low_crossover,
+                                high_crossover, variant, x4.dtype)
         bands, zf = _legacy_bands(x4, zi, ops, return_state, valid_frames)
-        xb = torch.stack([bucket_sums((b * b).mean(dim=0).reshape(-1), hop)
-                          for b in bands])
+        xb = bucket_sums(torch.stack([(b * b).mean(dim=0).reshape(tracks, n)
+                                      for b in bands]), hop)
     else:
+        if ops is None:
+            ops = crossover_ops(sample_rate, L, x4.device, low_crossover,
+                                high_crossover, variant, x4.dtype)
         lp_sos, hp_sos = _crossover_sos(sample_rate, low_crossover,
                                         high_crossover)
         (s_in_lp, s_in_hp), (z_lp, z_hp) = iir.sosfilt_states_multi_rows(
             (lp_sos, hp_sos), x4.reshape(c * tracks, nb, L),
-            (zi.get("lp"), zi.get("hp")), return_state=return_state,
-            ops_list=ops, n_valid=valid_frames)
+            (zi.get("lp"), zi.get("hp")), n_valid=valid_frames,
+            return_state=return_state, ops_list=ops)
         zf = {"lp": z_lp, "hp": z_hp}
         rows = x4.reshape(c, tracks * nb, L)
         s_in_lp, s_in_hp = (s.reshape(c, tracks * nb, -1)
                             for s in (s_in_lp, s_in_hp))
-        xb = band_energies(rows, s_in_lp, s_in_hp, lp_sos, hp_sos, hop=hop)
-    t = xb.shape[1] // tracks
+        xb = band_energies(rows, s_in_lp, s_in_hp, lp_sos, hp_sos,
+                           hop=k_hop).reshape(3, tracks, -1)
+        if k_hop != hop:
+            xb = bucket_sums(xb, hop)
+    t = xb.shape[-1]
     look_ctrl = detector_lookpad(sample_rate, hop) // hop
     stacked, new_ctrl_tail = _fused_stats_from_ctrl(
         xb.reshape(3 * tracks, t), t, sample_rate, thresholds_db, ratios,
@@ -283,16 +356,24 @@ def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
     if valid_ctrl is not None:
         att_f = att[:, valid_ctrl - 1]
     gains = (10.0 ** (-att / 20.0)).reshape(3, tracks * t)  # control rate
-    if variant == "legacy":
-        g = gains.reshape(3, 1, tracks, nb, L // hop).repeat_interleave(
-            hop, dim=4)
-        y = bands[0] * g[0] + bands[1] * g[1] + bands[2] * g[2]
-        ym = y.mean(dim=0) if emit_mono else None
+    ym = None
+    if scan or variant == "legacy":
+        low, mid, high = (b.reshape(c, tracks, n) for b in bands)
+        g = _upsample(gains, tracks, t, hop, n)
+        if variant == "legacy":
+            y = low * g[0] + mid * g[1] + high * g[2]
+        else:
+            x3 = x4.reshape(c, tracks, n)
+            y = x3 * g[1] + low * (g[0] - g[1]) + high * (g[2] - g[1])
+        if emit_mono:
+            ym = y.mean(dim=0).reshape(x4.shape[1:])
     else:
         cols = torch.stack([gains[1], gains[0] - gains[1],
                             gains[2] - gains[1]])
+        if k_hop != hop:
+            cols = _upsample(cols, tracks, t, hop, n).reshape(3, tracks * n)
         y = band_gain_apply(rows, s_in_lp, s_in_hp, cols.contiguous(), lp_sos,
-                            hp_sos, hop=hop, emit_mono=emit_mono)
+                            hp_sos, hop=k_hop, emit_mono=emit_mono)
         if emit_mono:
             y, ym = y
             ym = ym.reshape(x4.shape[1:])
@@ -310,29 +391,27 @@ def _audio(x):
     return (x[:, None] if squeeze else x), squeeze
 
 
-def _check_hop(hop, block_size):
-    if block_size % hop:
-        raise ValueError(f"comp_hop {hop} must divide the block size "
-                         f"{block_size}")
-
-
 def multiband_compress(x, sample_rate, thresholds_db, ratios,
                        variant="worker", low_crossover=250.0,
-                       high_crossover=4000.0, hop=1, block_ctrl=None,
-                       overlap_ctrl=None, state=None, return_state=False,
-                       ballistics="auto"):
+                       high_crossover=4000.0, filter_method="auto", hop=1,
+                       block_ctrl=None, overlap_ctrl=None, state=None,
+                       return_state=False, ballistics="auto",
+                       channel_major=False):
     """The 3-band compressor of ``(N, C)`` or ``(N,)`` audio (the JAX
     package's ``multiband_compress``), through the rows body
-    (:func:`multiband_compress_rows`) at blocks of 384 samples (``hop``
-    must divide them).
+    (:func:`multiband_compress_rows`) at blocks of 384 samples.
 
+    ``filter_method``: the crossovers take the exact scan where JAX's do
+    (``"scan"``, or ``"auto"`` below ``4 · 512`` frames).
     ``state``: the carried ``{"crossover", "att", "ctrl_tail"}`` of a
     previous chunk, or the JAX general path's ``{"crossover", "att",
     "tail"}`` (its sample-rate tail becomes the control-rate one).
+    ``channel_major``: JAX's ``(C, N)`` input, not ported (only False).
     Returns ``y``, or ``(y, new_state)`` with ``return_state`` (the state
     after exactly N samples; a chunk that goes on should hold whole
     control steps).
     """
+    check_channel_major_arg(channel_major)
     x2, squeeze = _audio(x)
     n = x2.shape[0]
     if state is not None and state.get("tail") is not None:
@@ -341,9 +420,10 @@ def multiband_compress(x, sample_rate, thresholds_db, ratios,
         del state["tail"]
     out = multiband_compress_rows(
         iir.to_rows(x2), sample_rate, thresholds_db, ratios,
-        low_crossover, high_crossover, hop=hop, ballistics=ballistics,
-        state=state, return_state=return_state, variant=variant,
-        block_ctrl=block_ctrl, overlap_ctrl=overlap_ctrl, valid_frames=n)
+        low_crossover, high_crossover, hop=hop, block_ctrl=block_ctrl,
+        overlap_ctrl=overlap_ctrl, ballistics=ballistics, state=state,
+        return_state=return_state, variant=variant, valid_frames=n,
+        scan=iir.uses_scan(filter_method, n, iir.DEFAULT_BLOCK))
     y, st = out if return_state else (out, None)
     y = iir.from_rows(y, n)
     y = y[:, 0] if squeeze else y
@@ -351,19 +431,25 @@ def multiband_compress(x, sample_rate, thresholds_db, ratios,
 
 
 def crossover_split(x, sample_rate, variant="worker", low_crossover=250.0,
-                    high_crossover=4000.0, zi=None):
+                    high_crossover=4000.0, filter_method="auto", zi=None):
     """Split ``(N, C)`` audio into ``(low, mid, high)`` stacked as ``(3, N,
-    C)`` (the JAX package's ``crossover_split``), through the rows form.
-    ``zi``: the carried crossover states.  Returns ``(bands, zf)``, ``zf``
-    after exactly N samples."""
+    C)`` (the JAX package's ``crossover_split``), through the rows form,
+    or through the scan kernel where ``filter_method`` picks the scan
+    (``"scan"``, or ``"auto"`` below ``4 · 512`` frames).  ``zi``: the
+    carried crossover states.  Returns ``(bands, zf)``, ``zf`` after
+    exactly N samples."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
     x2, _ = _audio(x)
     n = x2.shape[0]
     x4 = iir.to_rows(x2)[:, None]
+    zi = zi or {}
+    if iir.uses_scan(filter_method, n, iir.DEFAULT_BLOCK):
+        bands, zf = _scan_bands(x4, zi, sample_rate, low_crossover,
+                                high_crossover, variant, n)
+        return torch.stack([b[:, 0, :n].T for b in bands]), zf
     ops = crossover_ops(sample_rate, iir.NC_BLOCK, x2.device, low_crossover,
                         high_crossover, variant, x2.dtype)
-    zi = zi or {}
     if variant == "legacy":
         bands, zf = _legacy_bands(x4, zi, ops, True, n)
     else:

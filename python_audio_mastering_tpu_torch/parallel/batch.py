@@ -308,7 +308,8 @@ def master_album(tracks: Sequence[np.ndarray], params, config: ChainConfig,
     n_max = max(t.shape[0] for t in tracks)
     n_pad = -(-n_max // pad_multiple) * pad_multiple
     align = _chunk_align(config)
-    kw = dict(album=True, legacy_eq=config.variant == "legacy")
+    kw = dict(album=True, legacy_eq=config.variant == "legacy",
+              plan_frames=n_pad)
     frames = math.ceil(n_pad / align) * align
     if mesh is None:
         return run_tracks(tracks, tracks_params, config, frames,

@@ -159,29 +159,32 @@ def _fill_wire(w, tracks, start, pcm16, pool):
 
 def _fx_chunk(chunk, tracks_params, config: ChainConfig, state: StreamState,
               chain: MasteringChain, need_cells: bool = True, groups=None,
-              legacy_eq: bool = False):
+              legacy_eq: bool = False, scans=(False, False, False)):
     """Chain front (and multiband) on one ``(C, T, nb, L)`` chunk of T
     tracks with carried state, plus the chunk's loudness cells.  The
     meter's mono downmix comes from the last stage of the chunk, as in the
     one-shot chain.  ``legacy_eq``: the one-shot legacy front (a chunk that
-    is the whole signal).  Returns ``(y, new_state, cells (T, n_cells, C')
-    or None)``."""
+    is the whole signal).  ``scans``: the ``(eq, crossovers,
+    kweighting)`` stages that take the exact scan
+    (``MasteringChain.stage_scans``), each filter's state carried exactly.
+    Returns ``(y, new_state, cells (T, n_cells, C') or None)``."""
+    eq_scan, xo_scan, kw_scan = scans
     want_mono = (need_cells and chunk.shape[0] > 1
                  and config.measure_downmix == "reference_mono_mean")
     multiband = tracks_params[0].multiband
     mb_state = state.mb
     meter_rows = None
+    fr = dict(return_state=True, groups=groups, legacy_eq=legacy_eq,
+              scan=eq_scan)
     if want_mono and not multiband:
         y, meter_rows, eq_zi = chain.front(
-            chunk, tracks_params, state=state.eq_zi, return_state=True,
-            emit_mono=True, groups=groups, legacy_eq=legacy_eq)
+            chunk, tracks_params, state=state.eq_zi, emit_mono=True, **fr)
     else:
-        y, eq_zi = chain.front(chunk, tracks_params, state=state.eq_zi,
-                               return_state=True, groups=groups,
-                               legacy_eq=legacy_eq)
+        y, eq_zi = chain.front(chunk, tracks_params, state=state.eq_zi, **fr)
     if multiband:
         out = chain.multiband(y, tracks_params, state=mb_state,
-                              return_state=True, emit_mono=want_mono)
+                              return_state=True, emit_mono=want_mono,
+                              scan=xo_scan)
         if want_mono:
             y, meter_rows, mb_state = out
         else:
@@ -191,16 +194,17 @@ def _fx_chunk(chunk, tracks_params, config: ChainConfig, state: StreamState,
     meter_sig = y if meter_rows is None else meter_rows[None]
     cells, _, kw_zi = loud.block_cell_energies_rows(
         meter_sig, config.sample_rate, zi=state.kw_zi, return_state=True,
-        ops=chain.kweight_ops())
+        ops=chain.kweight_ops(), scan=kw_scan)
     return y, StreamState(eq_zi=eq_zi, mb=mb_state, kw_zi=kw_zi), cells
 
 
 def _rebuild_cells(processed, cell_list, state, config: ChainConfig,
-                   chain: MasteringChain, to_dev):
+                   chain: MasteringChain, to_dev, scan: bool = False):
     """Cells for chunks replayed from a checkpoint that holds none (one
     written by a run that needed no loudness): the whole replayed prefix
     is measured again from its processed audio, the K-filter state carried
-    from zero as the original pass would have, and ``state.kw_zi`` is
+    from zero as the original pass would have (by the scan kernel where
+    the run's K-weighting scans, ``scan``), and ``state.kw_zi`` is
     patched so the chunks after the resume point continue it."""
     if not processed or all(c is not None for c in cell_list):
         return cell_list, state
@@ -212,7 +216,7 @@ def _rebuild_cells(processed, cell_list, state, config: ChainConfig,
                      and y.shape[0] > 1) else y)
         cells, _, kw_zi = loud.block_cell_energies_rows(
             meter, config.sample_rate, zi=kw_zi, return_state=True,
-            ops=chain.kweight_ops())
+            ops=chain.kweight_ops(), scan=scan)
         rebuilt.append(cells)
     return rebuilt, dataclasses.replace(state, kw_zi=kw_zi)
 
@@ -362,7 +366,7 @@ def run_tracks(tracks, tracks_params, config: ChainConfig, chunk_frames: int,
                transfer: str = "float32", return_meters: bool = False,
                stats: dict | None = None, timings: dict | None = None,
                on_track_done=None, device="cuda", album: bool = False,
-               legacy_eq: bool = False):
+               legacy_eq: bool = False, plan_frames: int | None = None):
     """Master T tracks chunk by chunk on ``device`` (already resolved by
     the caller), every kernel launched once per chunk for all of them.
 
@@ -375,7 +379,10 @@ def run_tracks(tracks, tracks_params, config: ChainConfig, chunk_frames: int,
     progress messages' wording.  ``legacy_eq`` (a legacy config) runs the
     one-shot legacy front, as ``master()`` does, and needs the whole
     signal in one chunk; else a legacy chunk takes the worker EQ, as the
-    JAX streamed runner's does.
+    JAX streamed runner's does.  ``plan_frames``: the length whose filter
+    stages take the exact scan (``MasteringChain.stage_scans``; JAX's
+    streamed runners gate on their chunk, its one-shot album on the padded
+    album), ``chunk_frames`` when None.
 
     Returns ``(outs [(N_i, C) float32 numpy], measured (T,), gains_db (T,),
     meters list or None)``.
@@ -386,13 +393,13 @@ def run_tracks(tracks, tracks_params, config: ChainConfig, chunk_frames: int,
             pool, tracks, tracks_params, config, chunk_frames, progress_cb,
             carry_state, checkpoint_dir, checkpoint_every, transfer,
             return_meters, stats, timings, on_track_done, device, album,
-            legacy_eq)
+            legacy_eq, plan_frames)
 
 
 def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
                 progress_cb, carry_state, checkpoint_dir, checkpoint_every,
                 transfer, return_meters, stats, timings, on_track_done,
-                device, album, legacy_eq):
+                device, album, legacy_eq, plan_frames):
     if transfer not in ("float32", "pcm16"):
         raise ValueError(f"unknown transfer format {transfer!r}")
     pcm16 = transfer == "pcm16"
@@ -400,6 +407,7 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
         check_supported(p, config)
     check_fp32_matmul(device)
     chain = MasteringChain(config).to(device)
+    scans = chain.stage_scans(plan_frames or chunk_frames)
     dtype = config.torch_dtype()
     first = tracks_params[0]
     c = tracks[0].shape[1]
@@ -472,7 +480,8 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
             processed = [to_dev(y) for y in processed]
         if need_cells:
             cell_list, state = _rebuild_cells(processed, cell_list, state,
-                                              config, chain, to_dev)
+                                              config, chain, to_dev,
+                                              scans[2])
         if i0:
             cb(f"Resuming from checkpoint: {i0}/{num_chunks} chunks already "
                "processed." if album
@@ -480,7 +489,7 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
 
     # pass A; checkpoint segments are written on one ordered background
     # thread (the file of chunk i exists only after those before it)
-    groups = chain.front_groups(tracks_params, legacy_eq)
+    groups = chain.front_groups(tracks_params, legacy_eq, scans[0])
     every = max(1, int(checkpoint_every))
     writer = (ThreadPoolExecutor(max_workers=1) if checkpoint_dir else None)
     saves, seg_y, seg_c = [], [], []
@@ -491,7 +500,7 @@ def _run_tracks(pool, tracks, tracks_params, config, chunk_frames,
                                             config, state, chain,
                                             need_cells=need_cells,
                                             groups=groups,
-                                            legacy_eq=legacy_eq)
+                                            legacy_eq=legacy_eq, scans=scans)
             state = new_state if carry_state else StreamState()
             processed.append(y)
             mem["max_retained_bytes"] = max(

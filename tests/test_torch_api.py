@@ -46,9 +46,8 @@ FS = 44100
 SETTINGS = {"saturation": 20, "preset": "techno", "width": 1.3,
             "lufs": -14.0}
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# the JAX re-exports the port leaves out: the row-major filter path
-# (ROADMAP queue 1 item 4)
-NOT_PORTED = {"sosfilt", "sosfilt_scan", "sosfilt_blocked"}
+# the JAX re-exports the port leaves out: none
+NOT_PORTED = set()
 SUBPACKAGES = ("", ".ops", ".parallel", ".serving", ".io", ".models")
 
 
@@ -249,8 +248,8 @@ def _jax_reexports(sub):
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_packages_reexport_jax_names(sub):
-    """Each package's ``__init__`` re-exports the JAX package's names (but
-    the ``sosfilt*`` filters) and lists them in ``__all__``."""
+    """Each package's ``__init__`` re-exports the JAX package's names and
+    lists them in ``__all__``."""
     import importlib
 
     mod = importlib.import_module("python_audio_mastering_tpu_torch" + sub)

@@ -242,9 +242,10 @@ def test_fit_step_launches_and_plain_calls():
     cmb.reset_launch_counts()
     loss = pm.loss(theta, pm.as_audio(x),
                    am.spectral_profile(torch.from_numpy(ref), FS))
-    assert cmb.plain_calls() == {"front_chain_ref": 1, "kweight_cells_ref": 2}
+    want = {"front_chain_ref": 1, "kweight_cells_ref": 2, "sos_scan_ref": 0}
+    assert cmb.plain_calls() == want
     loss.backward()
-    assert cmb.plain_calls() == {"front_chain_ref": 1, "kweight_cells_ref": 2}
+    assert cmb.plain_calls() == want
     assert torch.all(theta.grad != 0)
 
 
@@ -339,7 +340,8 @@ def test_folded_step_makes_one_chain_call(shared):
         per_track = pm.batch_loss(theta, torch.from_numpy(tracks[:t]),
                                   torch.from_numpy(targets[:t]), shared)
         assert cmb.plain_calls() == {
-            "front_chain_ref": 1 if shared else t, "kweight_cells_ref": 2}
+            "front_chain_ref": 1 if shared else t, "kweight_cells_ref": 2,
+            "sos_scan_ref": 0}
         for i in range(t):
             alone = pm.loss(theta if shared else theta[i], tracks[i],
                             torch.from_numpy(targets[i]))

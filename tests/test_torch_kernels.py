@@ -29,6 +29,7 @@ import torch
 
 from python_audio_mastering_tpu_torch import ChainConfig, MasteringChain, MasteringParams
 from python_audio_mastering_tpu_torch.ops import ballistics as bal
+from python_audio_mastering_tpu_torch.ops.biquad import butter_sos
 from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
 from python_audio_mastering_tpu_torch.ops import iir
 from python_audio_mastering_tpu_torch.ops import loudness as loud
@@ -144,7 +145,7 @@ def test_wrappers_take_the_plain_version_on_cpu(emit_mono):
     assert cmb.launch_counts() == {
         "front_chain": 0, "kweight_cells": 0, "band_energies": 0,
         "band_gain_apply": 0, "pass1_hull": 0, "pass1_runs": 0, "replay": 0,
-        "replay_bnd": 0}
+        "replay_bnd": 0, "sos_scan": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -592,3 +593,34 @@ def test_legacy_chain_on_the_card(cuda_device, multiband):
                                           device=d)[0]):
         d = np.abs(run(cuda_device) - run("cpu"))
         assert d.max() < 5e-3 and np.sqrt(np.mean(d ** 2)) < 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sos_scan_kernel_bitwise_its_plain_version(cuda_device, dtype):
+    """K8: three cascades of 2, 2 and 4 sections in one launch over three
+    columns, each from its own state, each column's final state after its
+    own valid length, and the recorded sections: bitwise the plain
+    version on the CPU."""
+    from python_audio_mastering_tpu_torch.ops import sos_scan as k8
+
+    r = np.random.default_rng(8)
+    lp = butter_sos(4, 0.05, "lowpass")
+    hp = butter_sos(4, 0.3, "highpass")
+    mid = np.concatenate([hp, lp])
+    x = torch.from_numpy(r.standard_normal((3, 5000))).to(dtype)
+    zis = [torch.from_numpy(r.standard_normal((s.shape[0], 2, 3)) * 0.1)
+           .to(dtype) for s in (lp, hp, mid)]
+    nv = [5000, 1234, 0]
+    before = k8.sos_scan.launches
+    got_y, got_z = k8.sos_scan(x.to(cuda_device), [lp, hp, mid],
+                               [z.to(cuda_device) for z in zis], nv)
+    torch.cuda.synchronize()
+    assert k8.sos_scan.launches == before + 1
+    ref_y, ref_z = k8.sos_scan_ref(x, [lp, hp, mid], zis, nv)
+    assert torch.equal(got_y.cpu(), ref_y)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got_z, ref_z))
+    sos = k8._as_sos(mid, x)
+    rec = k8._sections(x.to(cuda_device), sos.to(cuda_device),
+                       zis[2].to(cuda_device))
+    assert torch.equal(rec.cpu(), k8._sections(x, sos, zis[2]))

@@ -129,8 +129,8 @@ def test_monolith_output_is_master_streamed(tmp_path, multiband):
     x, _ = wavio.read_wav(blob)
     cfg = monolith.legacy_config(fs)
     assert cfg.variant == "legacy" and cfg == ChainConfig(
-        sample_rate=fs, variant="legacy", block_size=384, comp_hop=8,
-        comp_block_ctrl=2048)
+        sample_rate=fs, variant="legacy", filter_method="blocked",
+        block_size=384, comp_hop=8, comp_block_ctrl=2048)
     ref, _, _ = master_streamed(x, MasteringParams.from_settings(settings),
                                 cfg, device="cpu")
     assert np.abs(out - ref).max() <= 3.052e-5

@@ -187,7 +187,7 @@ def test_cumsum_matches_jax():
     float32 one, past the 2·512 single-stage cutoff."""
     x = np.random.default_rng(1).random((3, 5000)).astype(np.float32)
     ref = np.asarray(jcomp.cumsum_mxu(jnp.asarray(x), axis=1))
-    got = compressor.cumsum_mxu(_t(x).double(), dim=1)
+    got = compressor.cumsum_mxu(_t(x).double(), axis=1)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.cumsum(x.astype(np.float64),
                                                       axis=1), rtol=1e-12)
