@@ -301,9 +301,16 @@ not divide the block:
  40  K8 over the whole track in float64 against scipy.signal.sosfilt
      (within 1e-9 of the max) and in float32 (within 1e-3), max abs and
      rms printed; each launch's time at 180 s (CUDA events; the EQ's the
-     median of 5) beside its bound and a latency estimate (4 dependent
-     float ops a section and sample at ~4 cycles, 1.98 GHz); the EQ on
-     the 2 s window, kernel and plain version
+     median of 5) beside the one-thread-a-column design's, its byte bound
+     and its latency bound
+     (the 180 s column's samples one after another, SCAN_CHAIN_CYCLES
+     each, at the SM clock nvidia-smi reads while K8 runs) and its share
+     of it; the float32 EQ within SCAN_EQ_MS_MAX; the sweep
+     (scan_sweep: k = 1, 2, 3, 4, 8 sections over one 20 s column, ns a
+     sample, float32 and float64, the earlier design's beside), float32's
+     k = 8
+     within SCAN_SWEEP_RATIO_MAX of k = 1; the EQ on the 2 s window,
+     kernel and plain version
  41  master() with filter_method="scan" (gpu_default otherwise, no device
      argument), worker multiband off and on, legacy multiband on: finite,
      |y| <= 1, the oracle within 0.15 LU of -14; K8 launched 2, 3 and 6
@@ -317,7 +324,8 @@ not divide the block:
      the JAX package's own scan-vs-blocked spread, for the legacy one
      (samples over 1e-5 printed: detector threshold flips); multiband on, on a 3 s
      prefix against the port's CPU path (< 2e-4); wall and realtime
-     factor, device time, K8's share and the idle share (torch.profiler)
+     factor, device time, K8's share (every launch of the call timed by
+     CUDA events) and the idle share (torch.profiler for the rest)
  42  the scanned master_streamed (30 s chunks, every filter state carried)
      against the one-shot scan (< 2e-4, bitwise printed); phase 35's five
      tracks as one scanned master_album in one process (D = 1): K8 three
@@ -357,8 +365,8 @@ phase 32's "approx" run, and for K1-K4 ``sp_max_abs_err``, the largest
 distance from the plain twin over every rank of phases 31-33, and
 ``dp_launches``, rank 0's in phase 35's multiband album at D = 2; K8's
 ``launches`` from phase 41's worker multiband scan master(), its
-``ms``, bound and ``window_ms`` / ``plain_ms`` from phase 40, its
-``max_abs_err`` from phase 39) and ``{"ok": true, "device": {...}}``.
+``ms``, bound, ``latency_bound_ms`` and ``window_ms`` / ``plain_ms``
+from phase 40, its ``max_abs_err`` from phase 39) and ``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
 prints, as one JSON line, the device time of K1-K4 at the main path's
@@ -3542,6 +3550,23 @@ SCAN_AM_LOSS, SCAN_AM_GRAD = 1e-4, 1e-3
 # 1.0754e-4 rms on the first 120 s of this track, on the CPU
 # (scripts/jax_scan_vs_blocked.py); the port's two are held to that spread
 LEGACY_SCAN_SPREAD = (0.25, 1.1e-4)
+SWEEP_SECTIONS = (1, 2, 3, 4, 8)   # phase 40's sweep of K8 by sections
+SWEEP_SECONDS = 20                 # over one column of this length
+# K8's dependent chain a section and sample, counted in its SASS: the y
+# add, the a1*y product, the subtraction and the z1 add, 4 cycles each
+SCAN_CHAIN_CYCLES = 16
+# K8's bars: the 4-section float32 EQ at 180 s within a quarter of the
+# one-thread-a-column design's 1139 ms, and the float32 sweep's k = 8
+# within 1.5x of k = 1
+SCAN_EQ_MS_MAX, SCAN_SWEEP_RATIO_MAX = 285.0, 1.5
+# K8's earlier design (one thread a column, its sections in a loop) on the
+# H100, 700 W: each phase-40 launch at 180 s, ms, and its sweep, ns a
+# sample (scripts/k8_probe.py; PERF.md §6)
+ONE_THREAD_MS = {"eq": "1139.31", "lp_hp": "691.9-696.9",
+           "kweight": "691.9-696.9", "legacy_mid": "not recorded"}
+ONE_THREAD_SWEEP_NS = {
+    "float32": {1: 78.65, 2: 87.84, 3: 134.90, 4: 144.23, 8: 257.74},
+    "float64": {1: 96.12, 2: 116.83, 3: 173.74, 4: 194.57, 8: 369.40}}
 
 
 def scan_bounds(n_in, n_out, section_samples):
@@ -3549,6 +3574,42 @@ def scan_bounds(n_in, n_out, section_samples):
     float32) and its operations (:data:`SCAN_OPS` a sample and section,
     on the fp32 cores)."""
     return bound(SCAN_OPS * section_samples, 4 * (n_in + n_out))
+
+
+def sm_clock_under(run):
+    """The SM clock in MHz, and its maximum, that ``nvidia-smi`` reads
+    while ``run`` keeps the card busy."""
+    query = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], stdout=subprocess.PIPE, text=True)
+    while query.poll() is None:
+        run()
+        torch.cuda.synchronize()
+    out, _ = query.communicate(timeout=60)
+    return [float(v) for v in out.split(",")]
+
+
+def scan_sweep(dev, seconds=SWEEP_SECONDS, runs=3):
+    """Phase 40's sweep: one K8 launch over one seeded column of
+    ``seconds`` at 44.1 kHz through a cascade of k sections (a Butterworth
+    low pass of order 2k at 1 kHz), for each k of :data:`SWEEP_SECTIONS`,
+    in float32 and float64: ``{dtype: {k: ns a sample}}`` (CUDA events,
+    the median of ``runs`` after a warm launch)."""
+    import scipy.signal as ss
+
+    from python_audio_mastering_tpu_torch.ops.sos_scan import sos_scan
+
+    n = seconds * FS
+    col = np.random.default_rng(40).standard_normal((1, n)) * 0.1
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        x = torch.from_numpy(col).to(dev, dtype)
+        out[str(dtype).removeprefix("torch.")] = {
+            k: median_of(lambda: cuda_ms(lambda: sos_scan(x, [sos]), reps=1),
+                         runs=runs) * 1e6 / n
+            for k in SWEEP_SECTIONS
+            for sos in [ss.butter(2 * k, 1000.0, fs=FS, output="sos")]}
+    return out
 
 
 def scan_launches(o, dev):
@@ -3577,6 +3638,32 @@ def scan_launches(o, dev):
             "lp_hp": (xf, list(mb._crossover_sos(FS, 250.0, 4000.0))),
             "kweight": (xf.mean(dim=0, keepdim=True), [kweight_sos(FS)]),
             "legacy_mid": (xf, [mb._mid_sos(FS, 250.0, 4000.0)])}
+
+
+@contextlib.contextmanager
+def k8_timed():
+    """Every K8 launch made in the block timed with CUDA events (the
+    launch's few-microsecond operand uploads included): yields a list that
+    receives each launch's device ms, in order, when the block ends."""
+    from python_audio_mastering_tpu_torch.ops import sos_scan as k8
+
+    real, pairs, times = k8._launch, [], []
+
+    def launch(*args, **kw):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        out = real(*args, **kw)
+        stop.record()
+        pairs.append((start, stop))
+        return out
+
+    k8._launch = launch
+    try:
+        yield times
+    finally:
+        k8._launch = real
+        torch.cuda.synchronize()
+        times.extend(a.elapsed_time(b) for a, b in pairs)
 
 
 def scan_kweighting_readings(x, dev):
@@ -3681,6 +3768,14 @@ def scan_phases(o, kernels, card):
           f"|y| {np.abs(ref).max():.3f})")
     check(d.max() <= 1e-9 * np.abs(ref).max(), "K8 float64 vs scipy")
     check(d32.max() <= 1e-3 * np.abs(ref).max(), "K8 float32 vs scipy")
+    cols, sos = ops["eq"]
+    clock, clock_max = sm_clock_under(lambda: sos_scan(cols, sos))
+    # the latency bound: a column's samples one after another, each the
+    # dependent chain's cycles, at the SM clock read while K8 runs
+    latency = n * SCAN_CHAIN_CYCLES / (clock * 1e6) * 1e3
+    print(f"phase 40 SM clock under K8 {clock:.0f} MHz (max {clock_max:.0f});"
+          f" latency bound at 180 s {latency:.2f} ms ({SCAN_CHAIN_CYCLES} "
+          f"cycles a sample, the sections overlapped)")
     for name, (cols, sos) in ops.items():
         r = cols.shape[0]
         runs = 5 if name == "eq" else 1
@@ -3688,16 +3783,27 @@ def scan_phases(o, kernels, card):
                       runs=runs)
         secs = sum(s.shape[0] for s in sos)
         bnd = scan_bounds(r * n, len(sos) * r * n, secs * r * n)
-        # the latency estimate: 4 dependent float ops a section and sample
-        # at ~4 cycles, 1.98 GHz, the sections overlapped in the thread
-        latency = n * 16 / 1.98e9 * 1e3
         print(f"phase 40 K8 {name} at 180 s ({r} columns, {len(sos)} "
               f"cascades, {secs} sections): {t:.3f} ms (CUDA events, median of"
-              f" {runs}), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}),"
-              f" latency estimate {latency:.1f} ms, {t * 1e6 / n:.1f} ns a "
-              f"sample ({card})")
+              f" {runs}; one thread a column {ONE_THREAD_MS[name]} ms), {t * 1e6 / n:.2f} ns a "
+              f"sample; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"latency bound {latency:.2f} ms, {100 * latency / t:.0f} % of "
+              f"it ({card})")
         if name == "eq":
-            rec.update(ms=t, **bnd)
+            rec.update(ms=t, **bnd, latency_bound_ms=latency)
+            check(t <= SCAN_EQ_MS_MAX, f"K8 EQ at 180 s {t:.1f} ms > "
+                                       f"{SCAN_EQ_MS_MAX} ms")
+    sweep = scan_sweep(dev)
+    for dtype, by_k in sweep.items():
+        print(f"phase 40 K8 {dtype} on one {SWEEP_SECONDS} s column, ns a "
+              f"sample by sections (one thread a column in brackets): " + ", ".join(
+                  f"k={k} {v:.2f} ({ONE_THREAD_SWEEP_NS[dtype][k]:.2f})"
+                  for k, v in by_k.items())
+              + f"; k=8 / k=1 {by_k[8] / by_k[1]:.3f} ({card})")
+    f32 = sweep["float32"]
+    check(f32[8] <= SCAN_SWEEP_RATIO_MAX * f32[1],
+          f"K8 float32 k=8 {f32[8]:.2f} ns a sample > "
+          f"{SCAN_SWEEP_RATIO_MAX} x k=1 {f32[1]:.2f}")
     cols, sos = ops["eq"]
     seg = cols[:, :w].contiguous()
     plain = cuda_ms(lambda: sos_scan_ref(seg, sos), reps=1)
@@ -3790,26 +3896,35 @@ def scan_phases(o, kernels, card):
                   f"the port's CPU path ({t_cpu:.1f} s): max abs {d:.3e}")
             check(d < 2e-4, f"{name}: card vs CPU {d} >= 2e-4")
         # a profiler window now and then holds only some of a call's
-        # launches (PERF.md, open questions): profile again, at most twice
+        # launches, and in a process that has run the earlier phases it
+        # drops K8's (PERF.md, open questions): profile again, at most
+        # twice; K8's own time comes from CUDA events around each of the
+        # call's launches, the rest of the device time from the profiler
         for attempt in range(3):
             seen = {}
-            by_name, pwall = device_profile(
-                lambda: master(x_dev, params, cfg), 1, seen)
-            dev_ms = sum(by_name.values())
-            k8_ms = sum(v for k, v in by_name.items() if "sos_scan" in k)
+            with k8_timed() as k8_times:
+                by_name, pwall = device_profile(
+                    lambda: master(x_dev, params, cfg), 1, seen)
             k8_seen = sum(v for k, v in seen.items() if "sos_scan" in k)
             if k8_seen == k8_want:
                 break
             WINDOWS["short"].append(("sos_scan", k8_seen, k8_want))
             print(f"  the profiler saw {k8_seen} of {k8_want} K8 launches "
-                  f"(try {attempt + 1})")
-        check(k8_ms > 0, f"{name}: the profiler saw no K8 launch")
+                  f"(try {attempt + 1}; {sum(seen.values())} device "
+                  f"activities in the window)")
+        # device_profile's warm call made the first half of the launches
+        check(len(k8_times) == 2 * k8_want,
+              f"{name}: {len(k8_times)} K8 launches timed, not "
+              f"{2 * k8_want}")
+        k8_ms = sum(k8_times[k8_want:])
+        dev_ms = k8_ms + sum(v for k, v in by_name.items()
+                             if "sos_scan" not in k)
         print(f"phase 41 {name}, input on the card: wall {pwall:.1f} ms (x"
               f"{SECONDS * 1e3 / pwall:.0f} realtime), device time "
-              f"{dev_ms:.1f} ms a call, K8 {k8_ms:.1f} ms of it ({k8_seen} of "
-              f"{k8_want} launches in the window), device idle "
-              f"{100.0 * (1 - dev_ms / pwall):.1f} % (torch.profiler) "
-              f"({card})")
+              f"{dev_ms:.1f} ms a call, K8 {k8_ms:.1f} ms of it ({k8_want} "
+              f"launches, CUDA events; the profiler saw {k8_seen}), device "
+              f"idle {100.0 * (1 - dev_ms / pwall):.1f} % (torch.profiler "
+              f"for the rest) ({card})")
     print("phase 41 ok", flush=True)
 
     # phase 42 --------------------------------------------------------------

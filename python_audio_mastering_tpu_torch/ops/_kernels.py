@@ -59,11 +59,11 @@ _SIGNATURES = {
     # rounds, stream
     "pam_replay_bnd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P],
-    # x, sos, nsec, zi, n_valid, y, zf, ysec, F, R, N, kmax, stream
+    # x, sos, nsec, zi, n_valid, y, zf, ysec, F, R, N, kmax, smem, stream
     "pam_sos_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
-                         _P],
+                         _I, _P],
     "pam_sos_scan_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
-                         _P],
+                         _I, _P],
 }
 
 

@@ -1,4 +1,5 @@
-"""K8: the exact SOS cascade recurrence, one thread a column.
+"""K8: the exact SOS cascade recurrence, one CTA a column, a warp a
+section.
 
 Counterpart of the JAX package's ``iir.sosfilt_scan`` (an XLA
 ``lax.scan``, not a Pallas kernel): direct-form II transposed, per sample
@@ -14,6 +15,14 @@ CUDA tensor (or raises) and runs its plain version :func:`sos_scan_ref`
 for a CPU tensor; the two agree bit for bit.  One launch runs F cascades
 over the same R columns (the crossovers' low and high pass), each column
 from its own ``zi``, its final state taken after its own valid length.
+
+The kernel gives each column a CTA and each section a walker warp;
+section ``j − 1``'s output reaches section ``j`` through a ring of tiles
+in shared memory, x's tiles come in and the output's go out by bulk
+(TMA) copies, so the sections overlap.  :func:`launch_plan` is its
+geometry (tile, ring depth, warps, shared memory) and :func:`_tile_split`
+the split of each tile around its 16-byte aligned middle that the copies
+need; both are the kernel's arithmetic in Python, for the tests.
 
 The plain version is a torch loop over time, vectorised over the
 columns and, as a wavefront, over the sections: at step ``s`` section
@@ -40,6 +49,8 @@ differentiable.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -48,11 +59,60 @@ from python_audio_mastering_tpu_torch.ops._kernels import ptr as _ptr
 from python_audio_mastering_tpu_torch.ops._kernels import raise_on as _raise_on
 from python_audio_mastering_tpu_torch.ops._kernels import upload
 
-__all__ = ["sos_scan", "sos_scan_ref", "SECTIONS_MAX"]
+__all__ = ["sos_scan", "sos_scan_ref", "SECTIONS_MAX", "launch_plan"]
 
-SECTIONS_MAX = 8   # the kernel's registers; longer cascades run in pieces
-_KMAX = (2, 4, 8)  # the kernel's compiled section counts
+SECTIONS_MAX = 8   # the kernel's walker warps; longer cascades run in pieces
 _DTYPES = (torch.float32, torch.float64)
+# the kernel's constants (csrc/sos_scan.cu)
+_TILE_BYTES = 4096   # a ring slot's tile
+_DEPTH = 4           # slots a ring
+_ALIGN = 16          # bulk copies: addresses and sizes
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One K8 launch's geometry: ``tile`` samples a ring slot, ``depth``
+    slots a ring, ``warps`` a CTA (a walker a section, the producer and
+    the drainer) and ``smem_bytes`` of dynamic shared memory (``k + 1``
+    rings of ``depth`` slots of ``tile + 16 / elem`` elements, then a
+    full and an empty mbarrier a slot)."""
+
+    tile: int
+    depth: int
+    warps: int
+    smem_bytes: int
+
+
+def launch_plan(k, dtype):
+    """The geometry of a launch of at most ``k`` sections in ``dtype``;
+    the kernel refuses any other shared-memory size."""
+    if not 1 <= k <= SECTIONS_MAX or dtype not in _DTYPES:
+        raise ValueError(f"K8 takes 1 to {SECTIONS_MAX} sections in "
+                         f"float32 or float64, got {k} in {dtype}")
+    elem = torch.finfo(dtype).bits // 8
+    tile = _TILE_BYTES // elem
+    slot = (tile + _ALIGN // elem) * elem
+    return LaunchPlan(tile=tile, depth=_DEPTH, warps=k + 2,
+                      smem_bytes=(k + 1) * _DEPTH * (slot + 2 * 8))
+
+
+def _tile_split(n, phase, dtype):
+    """How the kernel copies a column of ``n`` samples whose sample 0
+    lies ``phase`` elements past a 16-byte boundary: for each tile
+    ``[t0, t1)``, ``(head, body, tail)`` ranges, the body the aligned
+    middle (one bulk copy, 16-byte aligned start and size), head and tail
+    the samples around it (plain loads and stores); a tile with no
+    aligned 16 bytes is all head."""
+    plan = launch_plan(1, dtype)
+    vec = _ALIGN // (torch.finfo(dtype).bits // 8)
+    out = []
+    for t0 in range(0, n, plan.tile):
+        t1 = min(t0 + plan.tile, n)
+        a, b = t0 + (vec - phase) % vec, t1 - (phase + t1) % vec
+        if b <= a:
+            a = b = t1
+        out.append(((t0, a), (a, b), (b, t1)))
+    return out
 
 
 def _as_sos(sos, like):
@@ -195,11 +255,12 @@ def sos_scan_ref(x, sos_list, zi_list=None, n_valid=None):
 def _launch(x, sos_list, zis, nv, record=False):
     """One K8 launch: cascades of at most :data:`SECTIONS_MAX` sections
     (with ``record``, one cascade, and its sections' outputs ``(K, R, N)``
-    returned third)."""
+    returned third, the output being the last of them)."""
     r, n = x.shape
     f_count = len(sos_list)
     ks = [s.shape[0] for s in sos_list]
-    kmax = next(k for k in _KMAX if k >= max(ks))
+    kmax = max(ks)
+    plan = launch_plan(kmax, x.dtype)
     sos = x.new_zeros((f_count, kmax, 6))
     zi = x.new_zeros((f_count, kmax, 2, r))
     for f, (s, z) in enumerate(zip(sos_list, zis)):
@@ -207,21 +268,25 @@ def _launch(x, sos_list, zis, nv, record=False):
         zi[f, :ks[f]] = z
     nsec = upload(ks, torch.int32, x.device)
     nvt = upload(nv, torch.int64, x.device)
-    y = x.new_empty((f_count, r, n))
     zf = torch.empty_like(zi)
-    ysec = x.new_empty((kmax, r, n)) if record else None
+    if record:   # one cascade: its last section's record is the output
+        ysec = x.new_empty((kmax, r, n))
+        y = ysec[-1:]
+    else:
+        ysec, y = None, x.new_empty((f_count, r, n))
     lib = _kernels.library().lib
     fn = (lib.pam_sos_scan_f32 if x.dtype == torch.float32
           else lib.pam_sos_scan_f64)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(_ptr(x), _ptr(sos), _ptr(nsec), _ptr(zi), _ptr(nvt),
-                 _ptr(y), _ptr(zf), None if ysec is None else _ptr(ysec),
-                 f_count, r, n, kmax, stream)
+                 None if record else _ptr(y), _ptr(zf),
+                 _ptr(ysec) if record else None, f_count, r, n, kmax,
+                 plan.smem_bytes, stream)
     _raise_on("sos_scan", err)
     sos_scan.launches += 1
     zfs = [zf[f, :k] for f, k in enumerate(ks)]
-    return (y, zfs, ysec[:ks[0]]) if record else (y, zfs)
+    return (y, zfs, ysec) if record else (y, zfs)
 
 
 def _scan_nograd(x, sos_list, zis, nv):

@@ -524,7 +524,7 @@ def test_band_energies_kernel_matches_plain_at_every_block_and_hop(
 @pytest.mark.cuda
 @pytest.mark.parametrize("source", ["ballistics.cu", "band_gain_apply.cu",
                                     "front_chain.cu", "band_energies.cu",
-                                    "kweight_cells.cu"])
+                                    "kweight_cells.cu", "sos_scan.cu"])
 def test_kernel_sources_do_not_spill(cuda_device, source):
     """ptxas -v on the rewritten sources: every kernel in them reports 0
     bytes of spill stores and loads."""
@@ -624,3 +624,123 @@ def test_sos_scan_kernel_bitwise_its_plain_version(cuda_device, dtype):
     rec = k8._sections(x.to(cuda_device), sos.to(cuda_device),
                        zis[2].to(cuda_device))
     assert torch.equal(rec.cpu(), k8._sections(x, sos, zis[2]))
+
+
+def _scan_operands(rows, n, k, dtype, seed, dev, offset=1):
+    """``rows`` columns of ``n`` samples, CPU and card copies, each a view
+    ``offset`` elements into its storage (so a row starts off a 16-byte
+    boundary wherever ``(offset + r * n) * elem`` is not a multiple of
+    16), a stable
+    cascade of ``k`` sections (second-order low passes) and ``rows``
+    initial states."""
+    r = np.random.default_rng(seed)
+    buf = torch.from_numpy(r.standard_normal(rows * n + offset)).to(dtype)
+    x, xd = (b[offset:].view(rows, n) for b in (buf, buf.to(dev)))
+    sos = np.concatenate([butter_sos(2, w) for w in np.linspace(0.05, 0.4,
+                                                                 k)])
+    zi = torch.from_numpy(r.standard_normal((k, 2, rows)) * 0.1).to(dtype)
+    return x, xd, sos, zi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_case", ["under_a_tile", "a_tile_and_one",
+                                    "two_tiles", "odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+def test_sos_scan_kernel_bitwise_by_sections(cuda_device, k, dtype, n_case):
+    """K8 at k sections, in one launch, bitwise its plain version: N
+    under one tile, one sample over a tile and an odd N (``N * elem`` not
+    a multiple of 16), rows off 16-byte boundaries; two whole tiles with
+    every row and output aligned (float32's four-sample loads and
+    stores); final states taken at valid lengths 0, 1, mid-tile, a tile
+    edge and N."""
+    from python_audio_mastering_tpu_torch.ops import sos_scan as k8
+
+    tile = k8.launch_plan(k, dtype).tile
+    n = {"under_a_tile": tile // 2 + 3, "a_tile_and_one": tile + 1,
+         "two_tiles": 2 * tile, "odd": 5001}[n_case]
+    nv = [0, 1, min(tile // 2 + 1, n), min(tile, n), n]
+    x, xd, sos, zi = _scan_operands(len(nv), n, k, dtype, k, cuda_device,
+                                    offset=int(n_case != "two_tiles"))
+    before = k8.sos_scan.launches
+    got_y, (got_z,) = k8.sos_scan(xd, [sos], [zi.to(cuda_device)], nv)
+    torch.cuda.synchronize()
+    assert k8.sos_scan.launches == before + 1
+    ref_y, (ref_z,) = k8.sos_scan_ref(x, [sos], [zi], nv)
+    assert torch.equal(got_y.cpu(), ref_y)
+    assert torch.equal(got_z.cpu(), ref_z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_sos_scan_kernel_records_every_section(cuda_device, k, dtype):
+    """The record path (every section's output, as the gradient's adjoint
+    cascade of 2K <= 8 sections launches it, the largest shared memory at
+    k = 8) in one launch, bitwise the plain version's."""
+    from python_audio_mastering_tpu_torch.ops import sos_scan as k8
+
+    x, xd, sos, zi = _scan_operands(3, 5001, k, dtype, 20 + k, cuda_device)
+    sos_t = k8._as_sos(sos, x)
+    before = k8.sos_scan.launches
+    rec = k8._sections(xd, sos_t.to(cuda_device), zi.to(cuda_device))
+    torch.cuda.synchronize()
+    assert k8.sos_scan.launches == before + 1
+    assert torch.equal(rec.cpu(), k8._sections(x, sos_t, zi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sos_scan_kernel_long_cascade_in_pieces(cuda_device, dtype):
+    """A 12-section cascade: two launches (8 sections, then 4 on their
+    output), output, final states and recorded sections bitwise the plain
+    version's."""
+    from python_audio_mastering_tpu_torch.ops import sos_scan as k8
+
+    x, xd, sos, zi = _scan_operands(2, 3001, 12, dtype, 12, cuda_device)
+    nv = [3001, 1500]
+    before = k8.sos_scan.launches
+    got_y, (got_z,) = k8.sos_scan(xd, [sos], [zi.to(cuda_device)], nv)
+    torch.cuda.synchronize()
+    assert k8.sos_scan.launches == before + 2
+    ref_y, (ref_z,) = k8.sos_scan_ref(x, [sos], [zi], nv)
+    assert torch.equal(got_y.cpu(), ref_y)
+    assert torch.equal(got_z.cpu(), ref_z)
+    sos_t = k8._as_sos(sos, x)
+    rec = k8._sections(xd, sos_t.to(cuda_device), zi.to(cuda_device))
+    assert k8.sos_scan.launches == before + 4
+    assert torch.equal(rec.cpu(), k8._sections(x, sos_t, zi))
+
+
+@pytest.mark.cuda
+def test_sos_scan_kernel_refuses_a_wrong_launch(cuda_device):
+    """The C entry refuses a shared-memory size other than its plan's,
+    more than 8 sections, and y and ysec both given or both missing; the
+    wrapper raises on a refused launch."""
+    from python_audio_mastering_tpu_torch.ops import _kernels
+    from python_audio_mastering_tpu_torch.ops import sos_scan as k8
+
+    x = torch.zeros((1, 64), device=cuda_device)
+    sos = torch.tensor([[1.0, 0, 0, 1, 0, 0]], device=cuda_device)
+    nsec = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    zi = torch.zeros((1, 1, 2, 1), device=cuda_device)
+    nv = torch.full((1,), 64, dtype=torch.int64, device=cuda_device)
+    y, zf = torch.empty_like(x), torch.empty_like(zi)
+    fn = _kernels.library().lib.pam_sos_scan_f32
+    ptr = _kernels.ptr
+    stream = torch.cuda.current_stream().cuda_stream
+    good = k8.launch_plan(1, torch.float32).smem_bytes
+
+    def launch(y_ptr, ysec_ptr, kmax=1, smem=good):
+        return fn(ptr(x), ptr(sos), ptr(nsec), ptr(zi), ptr(nv), y_ptr,
+                  ptr(zf), ysec_ptr, 1, 1, 64, kmax, smem, stream)
+
+    assert launch(ptr(y), None) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, x)
+    for bad in (launch(ptr(y), None, smem=good + 16),
+                launch(ptr(y), None, kmax=9, smem=good),
+                launch(ptr(y), ptr(y)), launch(None, None)):
+        assert bad != 0
+    with pytest.raises(RuntimeError, match="sos_scan kernel launch failed"):
+        k8._raise_on("sos_scan", launch(None, None))

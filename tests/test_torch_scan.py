@@ -389,3 +389,86 @@ def test_scan_kernel_refuses_devices_without_one():
     x = torch.zeros((2, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         k8.sos_scan(x, [SOS])
+
+
+# ---------------------------------------------------------------------------
+# The scan kernel's launch plan and tile split (its arithmetic in Python)
+# ---------------------------------------------------------------------------
+
+_ELEM = {torch.float32: 4, torch.float64: 8}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", list(range(1, k8.SECTIONS_MAX + 1)))
+def test_scan_launch_plan(k, dtype):
+    """Tile, ring depth, warps and shared memory of every launch the
+    kernel takes: a 4 KiB tile of whole 16-byte chunks, at least two slots
+    a ring (the pipeline's phase parity), a walker warp a section and the
+    producer and drainer, and ``k + 1`` rings of padded slots with their
+    two mbarriers within the H100's 232 448 bytes a block."""
+    plan = k8.launch_plan(k, dtype)
+    elem = _ELEM[dtype]
+    assert plan.tile * elem == 4096 and plan.tile % (16 // elem) == 0
+    assert plan.depth >= 2 and plan.warps == k + 2
+    slot = (plan.tile + 16 // elem) * elem
+    assert slot % 16 == 0
+    assert plan.smem_bytes == (k + 1) * plan.depth * (slot + 16)
+    assert plan.smem_bytes <= 232448      # the H100's shared memory a block
+
+
+def test_scan_launch_plan_refuses_what_the_kernel_cannot_take():
+    for k, dtype in ((0, torch.float32), (k8.SECTIONS_MAX + 1, torch.float64),
+                     (2, torch.float16)):
+        with pytest.raises(ValueError, match="K8 takes"):
+            k8.launch_plan(k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 1024, 1025, 2048, 5001,
+                               3 * 1024 + 7])
+def test_scan_tile_split(n, dtype):
+    """The kernel's copies of a column of n samples at every offset from
+    a 16-byte boundary: the tiles cover ``[0, n)`` in order, each once;
+    a tile's body starts on a 16-byte boundary and is whole 16-byte
+    chunks; its head and tail are under 16 bytes each unless the tile
+    holds no aligned 16 bytes (then it is all head)."""
+    elem = _ELEM[dtype]
+    vec = 16 // elem
+    tile = k8.launch_plan(1, dtype).tile
+    for phase in range(vec):
+        split = k8._tile_split(n, phase, dtype)
+        assert len(split) == -(-n // tile)
+        t = 0
+        for i, (head, body, tail) in enumerate(split):
+            assert head[0] == t == i * tile
+            assert head[1] == body[0] and body[1] == tail[0]
+            t = tail[1]
+            assert t == min((i + 1) * tile, n)
+            if body[1] > body[0]:
+                assert (phase + body[0]) % vec == 0
+                assert (body[1] - body[0]) % vec == 0
+                assert head[1] - head[0] < vec and tail[1] - tail[0] < vec
+            else:
+                assert tail[1] - tail[0] == 0 and head[1] - head[0] < 2 * vec
+        assert t == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_scan_twin_split_at_tile_edges(edge, dtype):
+    """The plain version split at the kernel's tile edge (tile - 1, tile,
+    tile + 1), the second part from the first's final state, and a final
+    state taken there by the valid length: bitwise the whole run."""
+    tile = k8.launch_plan(4, dtype).tile
+    cut = tile + edge
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 2 * tile + 5)) * 0.3).to(
+        dtype)
+    zi = torch.from_numpy(rng.standard_normal((4, 2, 2)) * 0.1).to(dtype)
+    whole, (zf,) = k8.sos_scan_ref(x, [SOS], [zi])
+    first, (z_cut,) = k8.sos_scan_ref(x[:, :cut], [SOS], [zi])
+    second, (z_end,) = k8.sos_scan_ref(x[:, cut:], [SOS], [z_cut])
+    assert torch.equal(torch.cat([first, second], dim=2), whole)
+    assert torch.equal(z_end, zf)
+    at_cut, (z_nv,) = k8.sos_scan_ref(x, [SOS], [zi], n_valid=cut)
+    assert torch.equal(at_cut, whole) and torch.equal(z_nv, z_cut)
