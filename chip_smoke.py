@@ -14,7 +14,9 @@ automaster, the engine's and the CLI's (phases 26-30), sequence
 parallelism on one, two and four ranks (phases 31-34), and data
 parallelism (the album's tracks and the automaster's batch over ranks)
 and the fast profile (phases 35-38), the exact filter path on the scan
-kernel and a comp_hop that does not divide the block (phases 39-44), after
+kernel and a comp_hop that does not divide the block (phases 39-44), and
+the boundary walk K5 on the runs it meets and on four program materials
+(phase 45), after
 building its CUDA kernels from the sources in the checkout and checking
 each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
@@ -45,9 +47,11 @@ Phases:
   8  band_gain_apply kernel (3xTF32 on the tensor cores) vs plain (fp32
      cuBLAS), emit_mono off and on: max |diff| / max |plain| <= 1e-4
   9  ballistics on the track's own detector targets (3, 992256): K5's two
-     launches (hull pass, run walk) bitwise equal to their plain twins at
-     full T, and the hull statistics (collapsed share, runs, longest
-     run); K5 bitwise equal to the serial walk pass1_bnd_ref on the first
+     launches (hull pass with its stop words, run walk) bitwise equal to
+     their plain twins at full T, and the walk's statistics per band
+     (collapsed, frozen and live blocks, runs, the longest run and its
+     live blocks, the most live blocks of a run); K5 bitwise equal to the
+     serial walk pass1_bnd_ref on the first
      65 536 steps (a Python loop of one step per iteration, too slow at
      full T); replay and replay_bnd (every fixed-point round as a
      one-round launch, and all rounds in one launch, ctrl included)
@@ -67,7 +71,9 @@ Phases:
  12  multiband timings: master(), process_audio, the ballistics in serial
      and collapse mode, each kernel vs its plain version (and the
      yardstick product for the band kernels); replay_bnd as one launch
-     for the whole fixed point
+     for the whole fixed point; K5's two launches alone and its latency
+     bound (the longest run's live steps, K5_CHAIN_CYCLES each, at the SM
+     clock nvidia-smi reads under K5)
  13  where the time goes: torch.profiler over 5 calls of master(),
      multiband on and off: device time per call, the kernels that take
      it, and the share of the wall the device is idle
@@ -161,15 +167,17 @@ track with the bench settings:
      store (no device argument) with a 30 s WAV: processed/ key, "done"
      flag, within 3.052e-5 of master_streamed
  24  the ballistics executions on the track's targets (3, 992256), the
-     worker chain's and the legacy chain's (its real mid band): K5's hull
-     statistics; comp_ballistics "scan" bitwise "auto"; "blocked"
+     worker chain's and the legacy chain's (its real mid band): K5's walk
+     statistics per band (phase 9's: frozen, live, the longest run's live
+     blocks); comp_ballistics "scan" bitwise "auto"; "blocked"
      (2048-step blocks, the 4410-step overlap) on its (1455, 6458)
      windows, padded to 6528, bitwise its plain twins' result on the CPU;
      blocked vs exact printed in dB (max, rms) and linear rms
  25  timings with the card's name and power limit: legacy master()
      multiband off and on (CUDA events, median of 5) and its
-     torch.profiler device time and idle share; the device time of the
-     ballistics in "auto", "scan" and "blocked" on both chains' targets
+     torch.profiler device time and idle share, K5's share of it with
+     multiband; the device time of the ballistics in "auto", "scan" and
+     "blocked" on both chains' targets
 
 The automaster (``models.automaster``, the system's training path), K1
 and K4 under autograd, on the 180 s track with ``gpu_default``:
@@ -345,6 +353,24 @@ not divide the block:
      gradient against the CPU's float64 (the plain version), within 1e-4
      of the loss and 1e-3 of max |grad|
 
+The boundary walk K5 on the runs it meets:
+
+ 45  K5 alone (its two launches, CUDA events, queued behind a sleeping
+     kernel so the host's issue time stays out) on the worker and the
+     legacy chain's targets (3, 992256), bitwise its plain twins at full
+     T, and on the legacy mid band (one run of mostly frozen blocks)
+     bitwise the serial walk at full T (numpy float32 scalars on the
+     CPU): ms, steps walked, the longest chain's steps, ns a step of it,
+     the latency bound (K5_CHAIN_CYCLES a step, counted in the SASS by
+     scripts/k5_probe.py, at the SM clock read under K5) and its share;
+     K5 on the legacy targets within 0.5 ms.  The four program materials
+     of scripts/bal_materials.py (bench_raw, pink, pulse, sustained: 180 s
+     raw signals into the crossovers, K2 and the detector): the walk's
+     statistics per band, K5 bitwise its plain twins, K5 alone on each
+     band, the fixed point's rounds and whether it certifies, serial ==
+     collapse bitwise, and the device time of ballistics_rates_bt in each
+     mode (CUDA events, queued); both modes on both chains' targets too
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -366,7 +392,10 @@ distance from the plain twin over every rank of phases 31-33, and
 ``dp_launches``, rank 0's in phase 35's multiband album at D = 2; K8's
 ``launches`` from phase 41's worker multiband scan master(), its
 ``ms``, bound, ``latency_bound_ms`` and ``window_ms`` / ``plain_ms``
-from phase 40, its ``max_abs_err`` from phase 39) and ``{"ok": true, "device": {...}}``.
+from phase 40, its ``max_abs_err`` from phase 39; K5's
+``latency_bound_ms`` from phase 12 and ``worker_events_ms`` /
+``legacy_events_ms`` with their latency bounds from phase 45) and
+``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
 prints, as one JSON line, the device time of K1-K4 at the main path's
@@ -408,6 +437,11 @@ BALLISTICS = ("pass1_bnd", "replay", "replay_bnd")
 MB_COUNTED = ("band_energies", "band_gain_apply", *K5_LAUNCHES, "replay",
               "replay_bnd")
 K5_PLAIN_STEPS = 65536
+# K5's dependent chain a step, counted in the run walker's SASS
+# (scripts/k5_probe.py): the state's add (5 cycles after it), the attack
+# clamp (5 after the add), the release clamp written over it under the
+# compare's predicate (7 after the first clamp) of ballistics_step
+K5_CHAIN_CYCLES = 17
 CHUNK_BLOCKS = 2940        # the streamed runner's chunk, 1 128 960 frames
 K4_HOPS = (6, 192)         # h at 44.1 kHz (the chain's) and at 48 kHz
 K7_LONG_T = 8388608        # steps a band: more than the grid's shared memory
@@ -608,6 +642,22 @@ def detector_targets(xb, params, hop, dev):
     return m.contiguous(), ca, cr, torch.zeros(rows, device=dev)
 
 
+def walk_line(st, nblk):
+    """One band's :func:`ballistics.walk_stats` as a line of text."""
+    return (f"{st['collapsed']} of {nblk} blocks collapsed "
+            f"({100.0 * st['collapsed'] / nblk:.1f} %), {st['frozen']} frozen"
+            f" (passed over), {st['live']} live (walked); {st['runs']} runs "
+            f"of non-collapsed blocks, the longest {st['longest']} blocks, "
+            f"{st['longest_live']} of them live; the most live blocks of a "
+            f"run {st['chain']} ({st['chain'] * 128} steps walked in a row)")
+
+
+def k5_latency_ms(steps, clock_mhz):
+    """K5's latency bound: ``steps`` dependent steps (the live steps of the
+    longest run) of :data:`K5_CHAIN_CYCLES` each at the SM clock."""
+    return steps * K5_CHAIN_CYCLES / (clock_mhz * 1e6) * 1e3
+
+
 def yardstick(a, b):
     """``library_ms``: one torch.matmul of the product's operands."""
     return median_of(lambda: cuda_ms(lambda: torch.matmul(a, b)))
@@ -683,7 +733,8 @@ def kernel_ms(fn, name, calls=10):
 
 def profile_calls(fn, calls=5, top=12):
     """Print the device time per call of ``fn``, its wall per call, the
-    device's idle share of the wall and the ``top`` device activities."""
+    device's idle share of the wall and the ``top`` device activities;
+    returns ``{device activity name: ms per call}``."""
     by_name, wall = device_profile(fn, calls)
     device = sum(by_name.values())
     check(device > 0.0, "the profiler recorded no device time")
@@ -692,6 +743,7 @@ def profile_calls(fn, calls=5, top=12):
           f"of the wall")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ms:8.4f} ms {100.0 * ms / device:5.1f} %  {name[:90]}")
+    return by_name
 
 
 def check_bitwise(what, got, ref):
@@ -999,6 +1051,7 @@ def main():
     dp_phases(kernels, card)
     fast_phase(o, kernels, card)
     scan_phases(o, kernels, card)
+    k5_phase(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **kernels[name]}
@@ -1068,25 +1121,22 @@ def multiband_phases(o, kernels):
     print(f"phase 9 targets {tuple(m.shape)}: {int((m > 0).sum())} steps "
           f"above threshold")
     hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
-    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
-    lo_p, hi_p = bal.pass1_hull_ref(m, ca, cr, hmax)
-    check_bitwise("phase 9 K5 pass1_hull lo", lo, lo_p)
-    check_bitwise("phase 9 K5 pass1_hull hi", hi, hi_p)
+    hull = bal.pass1_hull(m, ca, cr, hmax)
+    hull_p = bal.pass1_hull_ref(m, ca, cr, hmax)
+    for what, got, ref in zip(("lo", "hi", "stops"), hull, hull_p):
+        check_bitwise(f"phase 9 K5 pass1_hull {what}", got, ref)
     check_bitwise("phase 9 K5 pass1_runs",
-                  bal.pass1_runs(m, ca, cr, att0, lo, hi),
-                  bal.pass1_runs_ref(m, ca, cr, att0, lo, hi))
-    nblk = lo.shape[1]
-    hull_stats = bal.hull_runs(lo, hi)
-    for band, (n_coll, n_runs, longest) in zip(("low", "mid", "high"),
-                                               hull_stats):
-        print(f"phase 9 K5 hull, {band} band: {n_coll} of {nblk} blocks "
-              f"collapsed ({100.0 * n_coll / nblk:.1f} %), {n_runs} runs of "
-              f"non-collapsed blocks, the longest {longest} blocks "
-              f"({longest * bal.BLOCK} steps)")
-    walked = sum(nblk - n for n, _, _ in hull_stats)
+                  bal.pass1_runs(m, ca, cr, att0, *hull),
+                  bal.pass1_runs_ref(m, ca, cr, att0, *hull))
+    nblk = hull[0].shape[1]
+    hull_stats = bal.walk_stats(*hull)
+    for band, st in zip(("low", "mid", "high"), hull_stats):
+        print(f"phase 9 K5 hull, {band} band: {walk_line(st, nblk)}")
+    walked = sum(st["live"] for st in hull_stats)
+    chain_steps = bal.BLOCK * max(st["chain"] for st in hull_stats)
     bnd = bal.pass1_bnd(m, ca, cr, att0)
     check_bitwise("phase 9 K5 pass1_bnd vs its plain twin (full T)", bnd,
-                  bal.pass1_runs_ref(m, ca, cr, att0, lo_p, hi_p))
+                  bal.pass1_runs_ref(m, ca, cr, att0, *hull_p))
     cut = m[:, :K5_PLAIN_STEPS].contiguous()
     check_bitwise(f"phase 9 K5 pass1_bnd vs the serial walk pass1_bnd_ref "
                   f"(first {K5_PLAIN_STEPS} steps)",
@@ -1258,7 +1308,7 @@ def multiband_phases(o, kernels):
                                             hop=hop, emit_mono=True),
             k3_bnd, True),
         # K5's two launches; operations: two steps per step of the hull
-        # pass, one per step of the walked blocks
+        # pass, one per step of the live blocks walked
         "pass1_bnd": (
             lambda: bal.pass1_runs(m, ca, cr, att0,
                                    *bal.pass1_hull(m, ca, cr, hmax)),
@@ -1299,8 +1349,16 @@ def multiband_phases(o, kernels):
     print(f"phase 12 band_energies hop=3 alone: {k2_h3:.4f} ms")
     for name, fn in (("pass1_hull", lambda: bal.pass1_hull(m, ca, cr, hmax)),
                      ("pass1_runs", lambda: bal.pass1_runs(m, ca, cr, att0,
-                                                           lo, hi))):
+                                                           *hull))):
         print(f"phase 12 K5 {name} alone: {kernel_ms(fn, name):.4f} ms")
+    clock, _ = sm_clock_under(lambda: bal.pass1_bnd(m, ca, cr, att0))
+    latency = k5_latency_ms(chain_steps, clock)
+    kernels["pass1_bnd"]["latency_bound_ms"] = latency
+    print(f"phase 12 K5 latency bound: the longest run's live steps "
+          f"{chain_steps} x {K5_CHAIN_CYCLES} cycles at {clock:.0f} MHz (SM "
+          f"clock under K5) = {latency:.4f} ms; K5 "
+          f"{kernels['pass1_bnd']['ms']:.4f} ms, "
+          f"{100 * latency / kernels['pass1_bnd']['ms']:.0f} % of it")
     k7_one = kernel_ms(lambda: bal.replay_bnd(m, ca, cr, att0, idx, zero,
                                               ctrl0.clone()), "replay_bnd")
     print(f"phase 12 replay_bnd: the fixed point's {rounds} rounds in one "
@@ -1636,6 +1694,30 @@ def album_operands(chain, params, x4):
         band_args=band_args, sos=sos, hop=hop, m=m, ca=ca, cr=cr, att0=att0)
 
 
+def chain_targets(o):
+    """The detector targets ``(m, ca, cr, att0)`` of both chains on the
+    track (``o`` from :func:`main_path_operands`): ``{"worker": the
+    worker chain's, from K2's band energies, "legacy": the legacy chain's,
+    from its real bands}`` (at 180 s and hop 8, 7 752 whole blocks)."""
+    from python_audio_mastering_tpu_torch import MasteringChain, MasteringParams
+    from python_audio_mastering_tpu_torch.ops import compressor as comp
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops import multiband as mb
+    from python_audio_mastering_tpu_torch.serving import monolith
+
+    dev, hop = o.xrows.device, o.hop
+    params = MasteringParams.from_settings(MB_SETTINGS)
+    chain = MasteringChain(monolith.legacy_config(FS)).to(dev)
+    xb = cmb.band_energies(*o.band_args, hop=hop)
+    front = chain.front(o.xrows, params, legacy_eq=True)
+    bands, _ = mb._legacy_bands(front[:, None], {}, chain.crossover_ops(),
+                                False, None)
+    xb_leg = torch.stack([comp.bucket_sums((b * b).mean(dim=0).reshape(-1),
+                                           hop) for b in bands])
+    return {name: detector_targets(e, params, hop, dev)
+            for name, e in (("worker", xb), ("legacy", xb_leg))}
+
+
 def check_ballistics(what, m, ca, cr, att0, serial_steps=16384):
     """K5's two launches against their plain twins at full T and against
     the serial walk on the first ``serial_steps``, K6 and K7 (all rounds
@@ -1645,13 +1727,14 @@ def check_ballistics(what, m, ca, cr, att0, serial_steps=16384):
 
     dev = m.device
     hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
-    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
-    lo_p, hi_p = bal.pass1_hull_ref(m, ca, cr, hmax)
-    check_bitwise(f"{what} K5 pass1_hull lo", lo, lo_p)
-    check_bitwise(f"{what} K5 pass1_hull hi", hi, hi_p)
-    bnd = bal.pass1_runs(m, ca, cr, att0, lo, hi)
+    hull = bal.pass1_hull(m, ca, cr, hmax)
+    hull_p = bal.pass1_hull_ref(m, ca, cr, hmax)
+    for name, got, ref in zip(("lo", "hi", "stops"), hull, hull_p):
+        check_bitwise(f"{what} K5 pass1_hull {name}", got, ref)
+    lo, hi, _ = hull
+    bnd = bal.pass1_runs(m, ca, cr, att0, *hull)
     check_bitwise(f"{what} K5 pass1_runs", bnd,
-                  bal.pass1_runs_ref(m, ca, cr, att0, lo_p, hi_p))
+                  bal.pass1_runs_ref(m, ca, cr, att0, *hull_p))
     cut = m[:, :serial_steps].contiguous()
     check_bitwise(f"{what} K5 pass1_bnd vs the serial walk (first "
                   f"{serial_steps} steps)", bal.pass1_bnd(cut, ca, cr, att0),
@@ -2255,16 +2338,9 @@ def legacy_phases(o, kernels, card):
     print("phase 23 ok", flush=True)
 
     # phase 24 --------------------------------------------------------------
-    # the detector targets of both chains on the track: the worker's from
-    # K2's band energies, the legacy one's from its real bands
     params = MasteringParams.from_settings(MB_SETTINGS)
-    xb = cmb.band_energies(*o.band_args, hop=hop)
-    front = chain.front(o.xrows, params, legacy_eq=True)
-    bands, _ = mb._legacy_bands(front[:, None], {}, chain.crossover_ops(),
-                                False, None)
-    xb_leg = torch.stack([comp.bucket_sums((b * b).mean(dim=0).reshape(-1),
-                                           hop) for b in bands])
-    t = xb.shape[1]
+    both = chain_targets(o)
+    t = both["worker"][0].shape[1]
     block = cfg.comp_block_ctrl
     overlap = comp._default_overlap(FS, 200.0, hop)
     nbk = -(-t // block)
@@ -2273,19 +2349,14 @@ def legacy_phases(o, kernels, card):
           f"band, overlap {overlap}: windows ({3 * nbk}, {overlap + block}) "
           f"padded to ({3 * nbk}, {span})")
     targets = {}
-    for chain_name, e in (("worker", xb), ("legacy", xb_leg)):
-        m, ca, cr, att0 = detector_targets(e, params, hop, dev)
-        m = m[:, :t].contiguous()
+    for chain_name, (m, ca, cr, att0) in both.items():
         stats = {"max_att": m, "ca": ca, "cr": cr}
         targets[chain_name] = (stats, att0)
         what = f"the {chain_name} chain's targets"
-        lo, hi = bal.pass1_hull(m, ca, cr,
-                                torch.maximum(att0, m.amax(dim=1)))
-        for band, (n_coll, n_runs, longest) in zip(
-                ("low", "mid", "high"), bal.hull_runs(lo, hi)):
-            print(f"phase 24 {what}, {band} band: {n_coll} of {lo.shape[1]}"
-                  f" blocks collapsed, {n_runs} runs, the longest {longest}"
-                  f" blocks")
+        hull = bal.pass1_hull(m, ca, cr, torch.maximum(att0, m.amax(dim=1)))
+        for band, st in zip(("low", "mid", "high"), bal.walk_stats(*hull)):
+            print(f"phase 24 {what}, {band} band: "
+                  f"{walk_line(st, hull[0].shape[1])}")
         run = {b: mb._run_ballistics_bt(stats, FS, hop, b, att0, block)
                for b in ("auto", "scan", "blocked")}
         check_bitwise(f"phase 24 {what}: comp_ballistics scan == auto",
@@ -2319,7 +2390,15 @@ def legacy_phases(o, kernels, card):
               f"{SECONDS} s (x{SECONDS * 1e3 / t_ms:.0f} realtime, input on "
               f"the card; CUDA events, median of 5) ({card})")
         print(f"phase 25 profile of legacy master() multiband {mbon}:")
-        profile_calls(lambda: chain(x_dev, params), calls=5)
+        by_name = profile_calls(lambda: chain(x_dev, params), calls=5)
+        if mbon:
+            k5 = sum(v for k, v in by_name.items() if "pam::pass1_" in k)
+            print(f"phase 25 K5 (pass1_hull + pass1_runs) in the legacy "
+                  f"multiband master(): {k5:.4f} ms of "
+                  f"{sum(by_name.values()):.4f} ms of device time "
+                  f"({100.0 * k5 / sum(by_name.values()):.1f} %; the walk "
+                  f"of every step: {K5_WALK_EVERY_STEP_LEGACY_MS} of "
+                  f"17.606, 61 %) ({card})")
     for chain_name, (stats, att0) in targets.items():
         for b in ("auto", "scan", "blocked"):
             by_name, wall = device_profile(
@@ -4042,6 +4121,206 @@ def scan_phases(o, kernels, card):
           f"scan automaster: loss {d_loss}, gradient {d_grad}")
     check(bool((g != 0).all()), f"a gradient component is 0: {g}")
     print("phase 44 ok", flush=True)
+
+
+# K5 on the runs it meets (phase 45): the four program materials of
+# scripts/bal_materials.py (which imports jax), raw signals fed straight
+# into the multiband detector, its generators copied here
+MATERIALS = ("bench_raw", "pink", "pulse", "sustained")
+# K5 when it walked every step of a run, frozen blocks too, on the 180 s
+# legacy targets, ms (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+K5_WALK_EVERY_STEP_LEGACY_MS = 10.766
+
+
+def materials(n=SECONDS * FS, fs=FS):
+    """scripts/bal_materials.py's four signals, ``{name: (n, 2) float32}``,
+    from its one generator seeded 0, drawn in its order."""
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / fs
+
+    def bench_raw():
+        sig = (0.4 * np.sin(2 * np.pi * 55 * t)
+               + 0.2 * np.sin(2 * np.pi * 880 * t)
+               + 0.1 * np.sin(2 * np.pi * 4200 * t)
+               + 0.05 * rng.standard_normal(n))
+        env = 0.4 + 0.6 * (0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * t)) ** 2
+        return np.stack([sig * env, np.roll(sig * env, 29)], axis=1)
+
+    def pink():
+        w = rng.standard_normal(n + 1)
+        f = np.fft.rfft(w)
+        f /= np.maximum(np.sqrt(np.arange(f.size)), 1.0)
+        p = np.fft.irfft(f)[:n]
+        p = 0.5 * p / np.abs(p).max()
+        return np.stack([p, np.roll(p, 13)], axis=1)
+
+    def pulse():
+        beat = int(fs * 0.5)
+        envp = np.exp(-5.0 * ((np.arange(n) % beat) / beat))
+        sig = envp * (np.sin(2 * np.pi * 60 * t)
+                      + 0.3 * rng.standard_normal(n))
+        sig = 0.8 * sig / np.abs(sig).max()
+        return np.stack([sig, np.roll(sig, 7)], axis=1)
+
+    def sustained():
+        env2 = (0.55 + 0.1 * np.sin(2 * np.pi * 0.2 * t)
+                + 0.05 * np.sin(2 * np.pi * 3.1 * t))
+        sig = env2 * (np.sin(2 * np.pi * 220 * t)
+                      + 0.5 * np.sin(2 * np.pi * 3300 * t))
+        return np.stack([sig, np.roll(sig, 11)], axis=1)
+
+    return {name: fn().astype(np.float32) for name, fn in zip(
+        MATERIALS, (bench_raw, pink, pulse, sustained))}
+
+
+def material_targets(x, o):
+    """The multiband detector's targets ``(m, ca, cr, att0)`` of a raw
+    ``(n, 2)`` signal, as scripts/bal_materials.py forms them: the
+    crossovers and K2 at the chain's hop on the signal itself (no front),
+    the bench settings' thresholds and ratios."""
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops import iir
+
+    dev = o.xrows.device
+    nb = -(-x.shape[0] // L)
+    xrows = torch.nn.functional.pad(torch.from_numpy(x.T.copy()).to(dev),
+                                    (0, nb * L - x.shape[0])).reshape(2, nb, L)
+    (s_lp, s_hp), _ = iir.sosfilt_states_multi_rows(
+        o.sos, xrows, ops_list=o.chain.crossover_ops())
+    xb = cmb.band_energies(xrows, s_lp, s_hp, *o.sos, hop=o.hop)
+    return detector_targets(xb, o.mb_params, o.hop, dev)
+
+
+def queued_ms(fn, reps=20, runs=3):
+    """Device ms a call of ``fn`` by CUDA events, the ``reps`` calls queued
+    behind a sleeping kernel so that the host's time to issue them stays
+    out of the reading: the median of ``runs``."""
+    fn()
+    torch.cuda.synchronize()
+
+    def once():
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        torch.cuda._sleep(50_000_000)   # ~25 ms: the host issues meanwhile
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    return statistics.median(once() for _ in range(runs))
+
+
+def serial_walk_np(row, ca, cr, att0):
+    """One band's serial walk in numpy float32 scalars, one step a Python
+    iteration, each product and sum rounded to float32 on its own as
+    ``ballistics_step``: the outgoing state of every 128-step block."""
+    a, r, att = np.float32(ca), np.float32(cr), np.float32(att0)
+    zero = np.float32(0.0)
+    out = np.empty(len(row) // 128, np.float32)
+    for i, mi in enumerate(row.astype(np.float32)):
+        if att <= mi:
+            att = min(np.float32(att + np.float32(mi * a)), mi)
+        else:
+            att = max(np.float32(att - np.float32(mi * r)), zero)
+        if i % 128 == 127:
+            out[i // 128] = att
+    return out
+
+
+def k5_phase(o, kernels, card):
+    """Phase 45: K5 on the runs it meets (``o`` from
+    :func:`main_path_operands`)."""
+    from python_audio_mastering_tpu_torch.ops import ballistics as bal
+
+    rec = kernels["pass1_bnd"]
+    dev = o.xrows.device
+
+    def k5(m, ca, cr, att0):
+        hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
+        return lambda: bal.pass1_runs(m, ca, cr, att0,
+                                      *bal.pass1_hull(m, ca, cr, hmax))
+
+    def timed(what, m, ca, cr, att0, clock):
+        """K5 alone on ``m`` by CUDA events against its latency bound."""
+        hull = bal.pass1_hull(m, ca, cr, torch.maximum(att0, m.amax(dim=1)))
+        stats = bal.walk_stats(*hull)
+        chain = bal.BLOCK * max(st["chain"] for st in stats)
+        walked = bal.BLOCK * sum(st["live"] for st in stats)
+        ms = queued_ms(k5(m, ca, cr, att0))
+        latency = k5_latency_ms(chain, clock)
+        per_step = (f"{ms * 1e6 / chain:.2f} ns a step of it" if chain
+                    else "no step walked")
+        print(f"phase 45 K5 on {what} {tuple(m.shape)}: {ms:.4f} ms (CUDA "
+              f"events); {walked} steps walked, {chain} in the longest "
+              f"chain, {per_step}; latency bound {latency:.4f} ms, "
+              f"{100 * latency / ms:.0f} % of it ({card})")
+        return ms, latency
+
+    targets = chain_targets(o)
+    legacy = targets["legacy"]
+    clock, clock_max = sm_clock_under(k5(*legacy))
+    print(f"phase 45 SM clock under K5 {clock:.0f} MHz (max {clock_max:.0f});"
+          f" {K5_CHAIN_CYCLES} cycles a step (scripts/k5_probe.py)")
+    for name, (m, ca, cr, att0) in targets.items():
+        hull_p = bal.pass1_hull_ref(m, ca, cr,
+                                    torch.maximum(att0, m.amax(dim=1)))
+        bnd = bal.pass1_bnd(m, ca, cr, att0)
+        check_bitwise(f"phase 45 K5 on the {name} targets vs its plain "
+                      f"twins (full T)", bnd,
+                      bal.pass1_runs_ref(m, ca, cr, att0, *hull_p))
+        for band in (1,) if name == "legacy" else ():
+            t0 = time.perf_counter()
+            ser = serial_walk_np(m[band].cpu().numpy(), float(ca[band]),
+                                 float(cr[band]), float(att0[band]))
+            check_bitwise(f"phase 45 K5 on the legacy mid band vs the serial"
+                          f" walk at full T ({time.perf_counter() - t0:.1f} s"
+                          f" on the CPU)", bnd[band].cpu(),
+                          torch.from_numpy(ser))
+        ms, latency = timed(f"the {name} chain's targets", m, ca, cr, att0,
+                            clock)
+        rec[f"{name}_events_ms"] = ms
+        rec[f"{name}_latency_bound_ms"] = latency
+    ms = rec["legacy_events_ms"]
+    print(f"phase 45 K5 on the legacy targets {ms:.4f} ms against "
+          f"{K5_WALK_EVERY_STEP_LEGACY_MS} ms for the walk of every step "
+          f"({card})")
+    check(ms <= 0.5, f"K5 on the legacy targets {ms} ms > 0.5 ms")
+    print("phase 45 the program materials (scripts/bal_materials.py), raw "
+          "signals into the multiband detector:")
+    for name, x in materials().items():
+        m, ca, cr, att0 = material_targets(x, o)
+        hull = bal.pass1_hull(m, ca, cr, torch.maximum(att0, m.amax(dim=1)))
+        nblk = hull[0].shape[1]
+        for band, st in zip(("low", "mid", "high"), bal.walk_stats(*hull)):
+            print(f"phase 45 {name}, {band} band: {walk_line(st, nblk)}")
+        check_bitwise(f"phase 45 {name}: K5 vs its plain twins (full T)",
+                      bal.pass1_bnd(m, ca, cr, att0),
+                      bal.pass1_runs_ref(m, ca, cr, att0, *bal.pass1_hull_ref(
+                          m, ca, cr, torch.maximum(att0, m.amax(dim=1)))))
+        for band, bname in enumerate(("low", "mid", "high")):
+            one = (m[band:band + 1].contiguous(), ca[band:band + 1],
+                   cr[band:band + 1], att0[band:band + 1])
+            timed(f"{name}'s {bname} band", *one, clock)
+        out, ctrl = bal._run_collapse(m, ca, cr, att0)
+        check_bitwise(f"phase 45 {name}: serial == collapse",
+                      bal._run(m, ca, cr, att0), out)
+        mode_ms = {mode: queued_ms(lambda: bal.ballistics_rates_bt(
+            m, ca, cr, att0, mode=mode)) for mode in ("serial", "collapse")}
+        print(f"phase 45 {name}: the fixed point ran {int(ctrl[bal.ROUND])} "
+              f"rounds, certified {int(ctrl[bal.CNT]) == 0}; "
+              f"ballistics_rates_bt device time (CUDA events) serial "
+              f"{mode_ms['serial']:.4f} ms, collapse "
+              f"{mode_ms['collapse']:.4f} ms ({card})")
+    for name, (m, ca, cr, att0) in targets.items():
+        _, ctrl = bal._run_collapse(m, ca, cr, att0)
+        mode_ms = {mode: queued_ms(lambda: bal.ballistics_rates_bt(
+            m, ca, cr, att0, mode=mode)) for mode in ("serial", "collapse")}
+        print(f"phase 45 the {name} chain's targets: the fixed point ran "
+              f"{int(ctrl[bal.ROUND])} rounds, certified "
+              f"{int(ctrl[bal.CNT]) == 0}; serial {mode_ms['serial']:.4f} "
+              f"ms, collapse {mode_ms['collapse']:.4f} ms ({card})")
+    print("phase 45 ok", flush=True)
 
 
 if __name__ == "__main__":

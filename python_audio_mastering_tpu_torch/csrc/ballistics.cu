@@ -18,51 +18,91 @@
 // What bounds them on the H100: a dependent chain of ~4 float ops per
 // step, never bandwidth (the timeline is 12 MB for a 3-min track).  The
 // replay and the hull pass are 128-step chains, one thread per (band,
-// block); a CTA of 64
-// threads stages its 64 blocks (contiguous in the timeline) through shared
-// memory, so the loads and stores are coalesced and each thread walks its
-// own padded row of the tile without bank conflicts.  The TPU's 8-sublane
+// block); a CTA of 64 threads stages its 64 blocks (contiguous in the
+// timeline) through shared memory, so the loads and stores are coalesced
+// and each thread walks its own padded row of the tile without bank
+// conflicts.  The TPU's 8-sublane
 // / 128-lane padding, T padded to 128^2 and the time-major block
 // transposes are not carried over: the timeline is read in place, padded
 // only to whole blocks.
 //
 // The boundary walk (K5) is a segmented exact walk.  A serial walk is a
 // chain of T dependent steps, milliseconds for a 3-min track; but most of
-// that chain is not needed, because a block often forgets its incoming
-// state: a clamp saturates (attack reaches m, release reaches 0) and every
-// incoming state leaves the block in one same state.
+// that chain is not needed.  A block often forgets its incoming state: a
+// clamp saturates (attack reaches m, release reaches 0) and every incoming
+// state leaves the block in one same state.  And a block of zero targets
+// (frozen) is the identity: for att >= 0 free of -0.0, m = 0 gives att <=
+// 0 only at att = 0, where attack is min(0 + 0*ca, 0) = 0, and above 0
+// release is max(att - 0*cr, 0) = att, bit for bit.
 //
-//   (a) pam_pass1_hull, one thread per (band, block), laid out like the
-//       replays: it walks the block's 128 steps on an interval [lo, hi] of
-//       possible incoming states, starting from [0, H], H = max(att0,
-//       max m) over the band (sound: attack gives <= m, release <= att,
-//       and no step gives < 0).  The step f(att) = att <= m ? min(att +
-//       m*ca, m) : max(att - m*cr, 0) is monotone non-decreasing on each
-//       side of its branch point: round-to-nearest addition and
-//       subtraction of a fixed operand, min and max with a fixed operand
-//       are all monotone.  So f maps [lo, min(hi, m)] into [f(lo), f(min(hi,
-//       m))] and [max(lo, m+), hi] into [f(max(lo, m+)), f(hi)] (m+ the
-//       next float above m: the release branch takes att > m), and the
-//       hull of the two holds every image (ballistics_hull_step).  A block
-//       whose interval ends with lo == hi has collapsed: its outgoing state
-//       is that float whatever comes in.  With m and att0 free of -0.0
-//       (ballistics_rates_bt adds +0.0 to them) no state is ever -0.0, so
-//       equal values are equal bits.
-//   (b) pam_pass1_runs, one warp per (band, block): a collapsed block
-//       writes its constant; a warp whose block starts a maximal run of
-//       non-collapsed blocks walks the run serially with ballistics_step,
-//       from the exact outgoing state of the collapsed block before it (or
-//       att0 for block 0), writing every boundary of the run; every other
-//       warp exits at once.  In the walk the 32 lanes load the next 128
-//       steps coalesced while the current 128 are walked, every lane
-//       walking the same values received by shuffles.  Runs go in
-//       parallel, so the serial part is the longest run, not T.
+//   (a) pam_pass1_hull, one thread per (band, block), 64 blocks a CTA, the
+//       CTA's targets staged into padded shared-memory rows by cp.async
+//       (16-byte rows of 132 floats: a quarter-warp's float4 reads hit 8
+//       distinct bank groups).  It walks the block's 128 steps on an
+//       interval [lo, hi] of possible incoming states, starting from [0,
+//       H], H = max(att0, max m) over the band (sound: attack gives <= m,
+//       release <= att, and no step gives < 0).  The step f(att) = att <=
+//       m ? min(att + m*ca, m) : max(att - m*cr, 0) is monotone
+//       non-decreasing on each side of its branch point: round-to-nearest
+//       addition and subtraction of a fixed operand, min and max with a
+//       fixed operand are all monotone.  So f maps [lo, min(hi, m)] into
+//       [f(lo), f(min(hi, m))] and [max(lo, m+), hi] into [f(max(lo, m+)),
+//       f(hi)] (m+ the next float above m: the release branch takes att >
+//       m), and the hull of the two holds every image
+//       (ballistics_hull_step).  A block whose interval ends with lo == hi
+//       has collapsed: its outgoing state is that float whatever comes in.
+//       With m and att0 free of -0.0 (ballistics_rates_bt adds +0.0 to
+//       them) no state is ever -0.0, so equal values are equal bits.  The
+//       same pass marks each block that is live (some m != 0) or collapsed
+//       as a stop: one bit a block, 32 blocks a word (a warp's ballot),
+//       blocks past the band's end set.
+//   (b) pam_pass1_runs, a cooperative grid of one CTA an SM, four warps a
+//       CTA.  First every block, 32 to a warp: a collapsed block writes
+//       its constant, and the first block of each maximal run of
+//       non-collapsed blocks goes on a run list.  Then, after a grid
+//       barrier, each run is walked by one warp, its lanes walking the
+//       same values: from the exact outgoing state of the collapsed block
+//       before it (or att0 for block 0), writing every boundary of the
+//       run.  The walk goes from stop to stop.  The blocks between two
+//       stops are frozen: the state passes through them unchanged (the
+//       identity above), so no step is walked there, and the warp's 32
+//       lanes store it to their boundaries.  A stop is a live block,
+//       walked step by step, or a collapsed block (or the band's end),
+//       where the run ends.  The next stop is found in the stop words: 32
+//       lanes read 32 words (1024 blocks) at once and a ballot picks the
+//       first set bit, word after word where a stretch is longer.
 //
 // The result is bitwise the serial walk's: collapsed constants are exact
-// by the argument above, and every run is walked from an exact state with
-// the same arithmetic.  Worst case, no block collapses: one run of the
-// whole timeline, a serial walk of all T steps plus the hull pass (about
-// one K7 round).
+// by the argument above, frozen blocks are identities, and every live
+// block is walked from an exact state with the same arithmetic.  Runs go
+// in parallel, so the serial part is the live blocks of the longest run,
+// not T.  Worst case, no block collapses or freezes: one run of the whole
+// timeline, a walk of all T steps.
+//
+// What bounds K5: the walk, a chain of dependent steps as long as the
+// live steps of the longest run (the 3-min worker track: 52 blocks, 6 656
+// steps).  Each step's chain is the add, the clamp and the select of
+// ballistics_step (17 cycles in the SASS, scripts/k5_probe.py); its
+// products and its compare are off the chain.  So the design keeps
+// everything else off the chain:
+//   - a walker warp has a scheduler to itself: run j goes to warp j /
+//     #SMs of CTA j % #SMs, so the runs spread over the SMs first, then
+//     over an SM's four schedulers (warps launched where their runs
+//     start, ~300 of them on the worker track, lost their steps' issue
+//     slots to each other where they shared a scheduler);
+//   - the 32 lanes walk the same values (no shuffle a step): the live
+//     block's 128 targets sit in a shared-memory slot, read as float4
+//     broadcasts that the unrolled walk issues ahead of their steps;
+//   - while a block is walked, the next stop, its targets (cp.async into
+//     the other of the warp's two slots, 16 bytes a lane), its hull and
+//     the stop words after it are already on their way: none of their
+//     addresses depends on the state;
+//   - the stores of a frozen stretch come after the block's walk, one a
+//     lane, and nothing else stands between two live blocks but the
+//     copies' wait and two warp barriers.
+// Its bytes (m read once, the boundaries written once) take ~4 us on a
+// 3-min track; the hull pass is parallel, one 128-step interval walk a
+// thread.
 //
 // The fixed point (K7) runs every round in one launch.  A round is cheap
 // (128 dependent steps a block, ~12 MB of targets for a 3-min track) and
@@ -130,89 +170,231 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ row,
   __syncthreads();
 }
 
+// --- K5 ------------------------------------------------------------------
+
+constexpr int kHullStride = kBalBlock + 4;  // 16-byte rows (cp.async)
+
+// Words of 32 stop bits a band.
+__device__ __forceinline__ int stop_words(int nblk) { return (nblk + 31) / 32; }
+
+__device__ __forceinline__ void copy16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
 __global__ void __launch_bounds__(kReplayRows)
 pass1_hull_kernel(const float* __restrict__ m, const float* __restrict__ ca,
                   const float* __restrict__ cr,
                   const float* __restrict__ hmax, float* __restrict__ lo_out,
-                  float* __restrict__ hi_out, const int* __restrict__ ctrl,
-                  int T) {
+                  float* __restrict__ hi_out, unsigned* __restrict__ stops,
+                  const int* __restrict__ ctrl, int T) {
   if (ctrl != nullptr && ctrl[kCtrlCnt] == 0) return;  // certified
-  __shared__ float tile[kReplayRows * kTileStride];
+  __shared__ __align__(16) float tile[kReplayRows * kHullStride];
   const int b = blockIdx.y;
   const int nblk = T / kBalBlock;
   const int blk0 = blockIdx.x * kReplayRows;
   const int rows = min(kReplayRows, nblk - blk0);
-  load_tile(m + (size_t)b * T, blk0, rows, tile);
+  const float* src = m + (size_t)b * T + (size_t)blk0 * kBalBlock;
+  // every 16-byte piece of the CTA's blocks in flight at once
+  for (int e = threadIdx.x; e < rows * (kBalBlock / 4); e += kReplayRows)
+    copy16(tile + (e / (kBalBlock / 4)) * kHullStride +
+               4 * (e % (kBalBlock / 4)),
+           src + 4 * e);
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
   const int t = threadIdx.x;
+  bool stop = true;  // past the band's end: every walk stops there
   if (t < rows) {
     const float a = ca[b];
     const float r = cr[b];
     float lo = 0.f;
     float hi = hmax[b];
-    const float* v = tile + t * kTileStride;
-#pragma unroll 8
-    for (int j = 0; j < kBalBlock; ++j)
-      ballistics_hull_step(lo, hi, v[j], a, r);
+    bool live = false;
+    const float4* v = reinterpret_cast<const float4*>(tile + t * kHullStride);
+#pragma unroll 2
+    for (int i = 0; i < kBalBlock / 4; ++i) {
+      const float4 q = v[i];
+      live |= (q.x != 0.f) | (q.y != 0.f) | (q.z != 0.f) | (q.w != 0.f);
+      ballistics_hull_step(lo, hi, q.x, a, r);
+      ballistics_hull_step(lo, hi, q.y, a, r);
+      ballistics_hull_step(lo, hi, q.z, a, r);
+      ballistics_hull_step(lo, hi, q.w, a, r);
+    }
     const size_t at = (size_t)b * nblk + blk0 + t;
     lo_out[at] = lo;
     hi_out[at] = hi;
+    stop = live || lo == hi;
+  }
+  const unsigned word = __ballot_sync(0xffffffffu, stop);
+  const int nw = stop_words(nblk);
+  const int w = blk0 / 32 + t / 32;
+  if (t % 32 == 0 && w < nw) stops[(size_t)b * nw + w] = word;
+}
+
+constexpr int kWalkWarps = 4;  // walker warps a CTA, one a scheduler
+// more than half an SM's shared memory (unused): one CTA an SM
+constexpr int kOneCtaAnSm = 120 * 1024;
+
+// The first block at or after p whose stop bit is set, from the 32 words
+// at p / 32 that the lanes hold, one each (q); -1 where they hold none.
+__device__ __forceinline__ int first_stop(unsigned q, int p, int lane) {
+  if (lane == 0) q &= ~0u << (p % 32);
+  const unsigned any = __ballot_sync(0xffffffffu, q != 0u);
+  if (any == 0u) return -1;
+  const int at = __ffs(any) - 1;
+  const unsigned word = __shfl_sync(0xffffffffu, q, at);
+  return 32 * (p / 32 + at) + __ffs(word) - 1;
+}
+
+// The lane's word of the 32 stop words at p / 32 (all set past the last).
+__device__ __forceinline__ unsigned stop_window(const unsigned* st, int nw,
+                                                int p, int lane) {
+  const int w = p / 32 + lane;
+  return w < nw ? __ldg(st + w) : ~0u;
+}
+
+// The first stop at or after p (blocks past the band's end are stops).
+__device__ __forceinline__ int next_stop(const unsigned* st, int nw, int p,
+                                         int lane) {
+  for (;; p = 32 * (p / 32 + 32)) {
+    const int s = first_stop(stop_window(st, nw, p, lane), p, lane);
+    if (s >= 0) return s;
   }
 }
 
-// warps (one per block of the timeline) a CTA: few large CTAs, so that
-// the warps holding a run are launched early
-constexpr int kRunWarps = 32;
+// One live block's 128 steps from its shared-memory slot, every lane
+// walking the same values.
+__device__ __forceinline__ float walk_block(float att, const float* slot,
+                                            float a, float r) {
+  const float4* v = reinterpret_cast<const float4*>(slot);
+#pragma unroll
+  for (int i = 0; i < kBalBlock / 4; ++i) {
+    const float4 q = v[i];
+    att = ballistics_step(att, q.x, a, r);
+    att = ballistics_step(att, q.y, a, r);
+    att = ballistics_step(att, q.z, a, r);
+    att = ballistics_step(att, q.w, a, r);
+  }
+  return att;
+}
 
-__global__ void __launch_bounds__(32 * kRunWarps)
+// A block's 128 targets into a slot: 16 bytes a lane, one copy group.
+__device__ __forceinline__ void stage_block(float* slot, const float* src,
+                                            int lane) {
+  copy16(slot + 4 * lane, src + 4 * lane);
+  copy_commit();
+}
+
+// The run that starts at block g (band-major index), walked by the whole
+// warp from stop to stop; `slots` is the warp's two 128-float slots.
+__device__ __forceinline__ void walk_run(
+    int g, const float* __restrict__ m, const float* __restrict__ ca,
+    const float* __restrict__ cr, const float* __restrict__ att0,
+    const float* __restrict__ lo, const float* __restrict__ hi,
+    const unsigned* __restrict__ stops, float* __restrict__ bnd, int nblk,
+    float* slots) {
+  const int lane = threadIdx.x % 32;
+  const int b = g / nblk;
+  const int k = g % nblk;
+  const float* l = lo + (size_t)b * nblk;
+  const float* h = hi + (size_t)b * nblk;
+  float* out = bnd + (size_t)b * nblk;
+  const float* row = m + (size_t)b * nblk * kBalBlock;
+  const int nw = stop_words(nblk);
+  const unsigned* st = stops + (size_t)b * nw;
+  const float a = ca[b];
+  const float r = cr[b];
+  float att = k == 0 ? att0[b] : l[k - 1];
+  // the run's first stop; the blocks before it are frozen
+  int s = next_stop(st, nw, k, lane);
+  for (int q = k + lane; q < s; q += 32) out[q] = att;
+  if (s >= nblk || l[s] == h[s]) return;  // the run ends there
+  stage_block(slots, row + (size_t)s * kBalBlock, lane);
+  unsigned win = stop_window(st, nw, s + 1, lane);
+  for (int cur = 0;; cur ^= 1) {
+    // s is live and its targets are on their way into slot cur; before
+    // its walk: the next stop s2, its hull, its targets (into the other
+    // slot) and the words after it
+    int s2 = first_stop(win, s + 1, lane);
+    if (s2 < 0) s2 = next_stop(st, nw, 32 * ((s + 1) / 32 + 32), lane);
+    const bool more = s2 < nblk;
+    float l2 = 0.f, h2 = 0.f;
+    __syncwarp();  // every lane is done with the slot refilled here
+    if (more) {
+      l2 = l[s2];
+      h2 = h[s2];
+      stage_block(slots + (cur ^ 1) * kBalBlock,
+                  row + (size_t)s2 * kBalBlock, lane);
+      win = stop_window(st, nw, s2 + 1, lane);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncwarp();  // every lane's part of s's targets has landed
+    att = walk_block(att, slots + cur * kBalBlock, a, r);
+    if (lane == 0) out[s] = att;
+    for (int q = s + 1 + lane; q < s2; q += 32) out[q] = att;  // frozen
+    if (!more || l2 == h2) return;  // the run ends at s2
+    s = s2;
+  }
+}
+
+// A cooperative grid of one CTA an SM (see the note above).  Phase 1:
+// every block, a warp's 32 at a time: a collapsed block writes its
+// constant, a run's first block goes on the run list (starts, count).
+// Phase 2, after the grid barrier: run j on warp j / gridDim.x of CTA j %
+// gridDim.x, so that the runs spread over the SMs first, then over an SM's
+// four schedulers, one walker warp a scheduler while the runs last.
+__global__ void __launch_bounds__(32 * kWalkWarps)
 pass1_runs_kernel(const float* __restrict__ m, const float* __restrict__ ca,
                   const float* __restrict__ cr,
                   const float* __restrict__ att0,
                   const float* __restrict__ lo, const float* __restrict__ hi,
-                  float* __restrict__ bnd, const int* __restrict__ ctrl,
-                  int T) {
+                  const unsigned* __restrict__ stops, float* __restrict__ bnd,
+                  int* starts, int* count, const int* __restrict__ ctrl,
+                  int nblk, int n_total) {
   if (ctrl != nullptr && ctrl[kCtrlCnt] == 0) return;  // certified
-  const int b = blockIdx.y;
-  const int nblk = T / kBalBlock;
-  const int k = blockIdx.x * kRunWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (k >= nblk) return;
-  const float* l = lo + (size_t)b * nblk;
-  const float* h = hi + (size_t)b * nblk;
-  float* out = bnd + (size_t)b * nblk;
-  if (l[k] == h[k]) {  // collapsed: the constant, whatever comes in
-    if (lane == 0) out[k] = l[k];
-    return;
-  }
-  if (k > 0 && l[k - 1] != h[k - 1]) return;  // inside a run: not its start
-  const float a = ca[b];
-  const float r = cr[b];
-  float att = k == 0 ? att0[b] : l[k - 1];
-  const float* row = m + (size_t)b * T;
-  float cur[4], nxt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    cur[i] = row[(size_t)k * kBalBlock + i * 32 + lane];
-  for (int j = k;; ++j) {
-    // the next block's steps and hull are read before this block's walk
-    // (read even when the run ends there), so their latency hides in it
-    const bool last = j + 1 >= nblk;
-    const float next_lo = last ? 0.f : l[j + 1];
-    const float next_hi = last ? 0.f : h[j + 1];
-    if (!last) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        nxt[i] = row[(size_t)(j + 1) * kBalBlock + i * 32 + lane];
+  __shared__ __align__(16) float ring[kWalkWarps][2][kBalBlock];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int g0 = (blockIdx.x * kWalkWarps + warp) * 32; g0 < n_total;
+       g0 += gridDim.x * kWalkWarps * 32) {
+    const int g = g0 + lane;
+    bool first = false;
+    if (g < n_total) {
+      const float lg = lo[g];
+      const float hg = hi[g];
+      if (lg == hg) {  // collapsed: the constant, whatever comes in
+        bnd[g] = lg;
+      } else {
+        first = g % nblk == 0 || lo[g - 1] == hi[g - 1];
+      }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 32; ++jj)
-        att = ballistics_step(att, __shfl_sync(0xffffffffu, cur[i], jj), a, r);
-    if (lane == 0) out[j] = att;
-    if (last || next_lo == next_hi) break;  // the run ends here
-#pragma unroll
-    for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+    const unsigned mask = __ballot_sync(0xffffffffu, first);
+    int base = 0;
+    if (lane == 0 && mask != 0u) base = atomicAdd(count, __popc(mask));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (first) starts[base + __popc(mask & ((1u << lane) - 1u))] = g;
   }
+  grid.sync();
+  const int n_runs = __ldcg(count);
+  for (int j = warp * gridDim.x + blockIdx.x; j < n_runs;
+       j += gridDim.x * kWalkWarps)
+    walk_run(__ldcg(starts + j), m, ca, cr, att0, lo, hi, stops, bnd, nblk,
+             &ring[warp][0][0]);
 }
 
 __global__ void __launch_bounds__(kReplayRows)
@@ -384,31 +566,60 @@ dim3 replay_grid(int B, int T) {
 }  // namespace
 
 // lo, hi (B, T / 128): each block's hull of outgoing states, from [0,
-// hmax[b]] coming in.  With ctrl not null it runs only when ctrl's last
-// round count is not 0.  Returns the CUDA error code of the launch (0 on
-// success).
+// hmax[b]] coming in; stops (B, stop_words(T / 128)): bit j % 32 of word
+// j / 32 set where block j is live or collapsed (or past the end).  m
+// must be 16-byte aligned.  With ctrl not null it runs only when ctrl's
+// last round count is not 0.  Returns the CUDA error code of the launch (0
+// on success).
 extern "C" int pam_pass1_hull(const float* m, const float* ca, const float* cr,
                               const float* hmax, float* lo, float* hi,
-                              const int* ctrl, int B, int T, void* stream) {
+                              unsigned* stops, const int* ctrl, int B, int T,
+                              void* stream) {
   if (bad_shape(B, T)) return (int)cudaErrorInvalidValue;
   pam::pass1_hull_kernel<<<replay_grid(B, T), pam::kReplayRows, 0,
                            (cudaStream_t)stream>>>(m, ca, cr, hmax, lo, hi,
-                                                   ctrl, T);
+                                                   stops, ctrl, T);
   return (int)cudaGetLastError();
 }
 
-// bnd (B, T / 128): each block's outgoing attenuation, from the hulls of
-// pam_pass1_hull.  Gated on ctrl as above.
+// bnd (B, T / 128): each block's outgoing attenuation, from the hulls and
+// stop words of pam_pass1_hull.  starts (at least B * ceil(T / 256) ints)
+// is scratch; count (one int) must be 0.  m must be 16-byte aligned.  A
+// cooperative launch of one-warp CTAs, as many as the card holds at once.
+// Gated on ctrl as above.
 extern "C" int pam_pass1_runs(const float* m, const float* ca, const float* cr,
                               const float* att0, const float* lo,
-                              const float* hi, float* bnd, const int* ctrl,
-                              int B, int T, void* stream) {
-  if (bad_shape(B, T)) return (int)cudaErrorInvalidValue;
-  const int nblk = T / pam::kBalBlock;
-  const dim3 grid((nblk + pam::kRunWarps - 1) / pam::kRunWarps, B);
-  pam::pass1_runs_kernel<<<grid, 32 * pam::kRunWarps, 0,
-                           (cudaStream_t)stream>>>(m, ca, cr, att0, lo, hi,
-                                                   bnd, ctrl, T);
+                              const float* hi, const unsigned* stops,
+                              float* bnd, int* starts, int* count,
+                              const int* ctrl, int B, int T, void* stream) {
+  if (bad_shape(B, T) ||
+      (long long)B * (T / pam::kBalBlock) >= (1LL << 31) - 32)
+    return (int)cudaErrorInvalidValue;
+  int nblk = T / pam::kBalBlock;
+  int n_total = B * nblk;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int smem = pam::kOneCtaAnSm;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pam::pass1_runs_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, pam::pass1_runs_kernel, 32 * pam::kWalkWarps, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (occ != 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int grid = (int)std::min<long long>(
+      sms, (n_total + 32 * pam::kWalkWarps - 1) / (32 * pam::kWalkWarps));
+  void* args[] = {&m,  &ca,     &cr,    &att0,  &lo,    &hi,   &stops,
+                  &bnd, &starts, &count, &ctrl, &nblk, &n_total};
+  err = cudaLaunchCooperativeKernel((const void*)pam::pass1_runs_kernel,
+                                    dim3(grid), dim3(32 * pam::kWalkWarps),
+                                    args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -30,30 +30,34 @@ __device__ __forceinline__ float ballistics_step(float att, float m, float ca,
   return att <= m ? attack : release;
 }
 
+// The next float above m, as nextafterf(m, +inf), without a branch.
+__device__ __forceinline__ float next_float_up(float m) {
+  const int b = __float_as_int(m);
+  const int up = b >= 0 ? b + 1 : (b == (int)0x80000000 ? 1 : b - 1);
+  return m != m || m == CUDART_INF_F ? m : __int_as_float(up);
+}
+
 // One step of the block hull pass (ballistics.cu): [lo, hi] holds every
 // state the block may be in, and is mapped to an interval that holds
 // every image.  The step is monotone non-decreasing on each side of its
 // branch point (see the note in ballistics.cu), so the interval is split
 // at m: [lo, min(hi, m)] takes the attack branch, [max(lo, m+), hi] the
-// release branch (m+ the next float above m), and each part's two ends go
-// through ballistics_step itself.  The new interval is the hull of the two
-// images.  An empty part (lo > m, or hi <= m) is left out.
+// release branch (m+ the next float above m), and the new interval is the
+// hull of the two parts' images (the plain twin steps all four ends).
+// Where the interval lies on one side of m, its ends map to the ends;
+// where it straddles m (lo <= m < hi), the attack part's upper end m maps
+// to m itself (min(m + m*ca, m) = m) and the release part's lower end is
+// m+, whose image does not depend on the interval: so two ends and m+ are
+// stepped, with no branch, bit for bit the four-end hull.
 __device__ __forceinline__ void ballistics_hull_step(float& lo, float& hi,
                                                      float m, float ca,
                                                      float cr) {
-  float nlo = CUDART_INF_F;
-  float nhi = -CUDART_INF_F;
-  if (lo <= m) {
-    nlo = ballistics_step(lo, m, ca, cr);
-    nhi = ballistics_step(fminf(hi, m), m, ca, cr);
-  }
-  if (hi > m) {
-    nlo = fminf(nlo, ballistics_step(fmaxf(lo, nextafterf(m, CUDART_INF_F)),
-                                     m, ca, cr));
-    nhi = fmaxf(nhi, ballistics_step(hi, m, ca, cr));
-  }
-  lo = nlo;
-  hi = nhi;
+  const bool straddle = lo <= m && hi > m;
+  const float s_lo = ballistics_step(lo, m, ca, cr);
+  const float s_hi = ballistics_step(hi, m, ca, cr);
+  const float s_up = ballistics_step(next_float_up(m), m, ca, cr);
+  lo = straddle ? fminf(s_lo, s_up) : s_lo;
+  hi = straddle ? fmaxf(m, s_hi) : s_hi;
 }
 
 }  // namespace pam

@@ -49,10 +49,11 @@ _SIGNATURES = {
     # x, t2, wt2, s_lp, s_hp, cols, y, mono, C, nb, L, S, h, stream
     "pam_band_gain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P],
-    # m, ca, cr, hmax, lo, hi, ctrl, B, T, stream
-    "pam_pass1_hull": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # m, ca, cr, att0, lo, hi, bnd, ctrl, B, T, stream
-    "pam_pass1_runs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # m, ca, cr, hmax, lo, hi, stops, ctrl, B, T, stream
+    "pam_pass1_hull": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # m, ca, cr, att0, lo, hi, stops, bnd, starts, count, ctrl, B, T, stream
+    "pam_pass1_runs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _P],
     # m, ca, cr, incomes, out, B, T, stream
     "pam_replay": [_P, _P, _P, _P, _P, _I, _I, _P],
     # m, ca, cr, att0, idx_ex, s_out, s_new, s_alt, ctrl, B, T, iters,

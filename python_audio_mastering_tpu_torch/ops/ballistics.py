@@ -14,9 +14,11 @@ bit for bit:
 
 * :func:`pass1_bnd` (K5) — each block's outgoing state as the serial walk
   gives it, as a segmented exact walk of two launches:
-  :func:`pass1_hull` (every block's interval of outgoing states; a block
-  whose interval is one float has collapsed) and :func:`pass1_runs` (the
-  runs of non-collapsed blocks walked serially, all runs in parallel).
+  :func:`pass1_hull` (every block's interval of outgoing states, a block
+  whose interval is one float having collapsed, and the stop words that
+  mark the live and collapsed blocks) and :func:`pass1_runs` (the runs of
+  non-collapsed blocks walked serially, all runs in parallel, frozen
+  blocks passed over with the state carried through).
   :func:`pass1_bnd_ref`, the serial walk itself, is its oracle;
 * :func:`replay` (K6) — every block replayed from its incoming state,
   per-step output;
@@ -47,8 +49,9 @@ from python_audio_mastering_tpu_torch.ops._kernels import upload
 
 __all__ = ["ballistics_rates_bt", "pass1_bnd", "pass1_bnd_ref",
            "pass1_hull", "pass1_hull_ref", "pass1_runs", "pass1_runs_ref",
-           "hull_runs", "replay", "replay_ref", "replay_bnd",
-           "replay_bnd_ref", "new_ctrl", "BLOCK", "FIXPOINT_ITERS"]
+           "walk_stats", "stop_words", "pack_stops", "unpack_stops",
+           "replay", "replay_ref", "replay_bnd", "replay_bnd_ref",
+           "new_ctrl", "BLOCK", "FIXPOINT_ITERS"]
 
 BLOCK = 128           # control steps per block (part of the algorithm)
 FIXPOINT_ITERS = 12   # certification cap before the serial fallback
@@ -108,30 +111,58 @@ def _skipped(ctrl):
     return ctrl is not None and int(ctrl[CNT]) == 0
 
 
+def stop_words(nblk):
+    """Words of 32 stop bits a band for ``nblk`` blocks (:func:`pass1_hull`)."""
+    return -(-nblk // 32)
+
+
+def pack_stops(stop):
+    """``(B, nblk)`` bools into stop words ``(B, stop_words(nblk))`` int32:
+    bit ``j % 32`` of word ``j // 32`` is block j's, the bits past the
+    last block set."""
+    b, nblk = stop.shape
+    nw = stop_words(nblk)
+    bits = torch.ones((b, nw * 32), dtype=torch.int64, device=stop.device)
+    bits[:, :nblk] = stop.to(torch.int64)
+    shift = torch.arange(32, device=stop.device)
+    words = (bits.reshape(b, nw, 32) << shift).sum(dim=2)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def unpack_stops(stops, nblk):
+    """Stop words ``(B, nw)`` back into ``(B, nblk)`` bools."""
+    shift = torch.arange(32, device=stops.device)
+    bits = (stops.to(torch.int64)[:, :, None] >> shift) & 1
+    return bits.reshape(stops.shape[0], -1)[:, :nblk] == 1
+
+
 def pass1_hull_ref(m, ca, cr, hmax, ctrl=None):
     """Plain version of :func:`pass1_hull`, every block at once."""
     b, t = m.shape
     lo = torch.zeros((b, t // BLOCK), dtype=m.dtype, device=m.device)
     if _skipped(ctrl):
-        return lo, lo.clone()
+        return lo, lo.clone(), torch.zeros(
+            (b, stop_words(t // BLOCK)), dtype=torch.int32, device=m.device)
     hi = hmax[:, None].expand_as(lo).clone()
     mb = _blocks(m)
     ca, cr = ca[:, None], cr[:, None]
     for j in range(BLOCK):
         lo, hi = _hull_step(lo, hi, mb[:, :, j], ca, cr)
-    return lo, hi
+    live = (mb != 0.0).any(dim=2)
+    return lo, hi, pack_stops(live | (lo == hi))
 
 
-def pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl=None):
+def pass1_runs_ref(m, ca, cr, att0, lo, hi, stops, ctrl=None):
     """Plain version of :func:`pass1_runs`: collapsed blocks take their
     constant, and the runs of non-collapsed blocks are walked together,
-    one block of every unfinished run per round.
+    one stop of every unfinished run per round.
 
     A block of zero targets maps every state to itself, bit for bit (the
     step is ``max(att − 0, 0)`` above 0 and ``min(0 + 0, 0)`` at 0): the
-    walk passes over a stretch of them in one round, the state carried
-    through (the kernel walks them step by step, to the same bits).  A
-    zero-padded timeline is otherwise one long serial run here."""
+    blocks between a run's stops (``stops``, :func:`pass1_hull`: live or
+    collapsed blocks) are frozen, and the walk passes over them in one
+    round with the state carried through, as the kernel does."""
     nblk = lo.shape[1]
     if _skipped(ctrl):
         return torch.zeros_like(lo)
@@ -144,12 +175,11 @@ def pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl=None):
         return bnd
     att = torch.where(k == 0, att0[band], lo[band, (k - 1).clamp_min(0)])
     mb = _blocks(m)
-    frozen = mb.amax(dim=2) == 0.0
-    # the first block at or after each block that is not frozen, or is
-    # collapsed (a run ends there), nblk for none
+    is_stop = unpack_stops(stops, nblk)
+    frozen = ~is_stop
+    # the first stop at or after each block, nblk for none
     blk = torch.arange(nblk, device=m.device).expand_as(frozen)
-    stop = torch.where(~frozen | collapsed, blk, nblk).flip(1).cummin(
-        dim=1).values.flip(1)
+    stop = torch.where(is_stop, blk, nblk).flip(1).cummin(dim=1).values.flip(1)
     ca, cr = ca[band], cr[band]
     while band.numel():
         fz = frozen[band, k]
@@ -174,17 +204,36 @@ def pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl=None):
     return bnd
 
 
-def hull_runs(lo, hi):
-    """Per band: ``(collapsed blocks, runs of non-collapsed blocks,
-    longest run in blocks)`` of a hull pass (host ints)."""
+def walk_stats(lo, hi, stops):
+    """Per band, what :func:`pass1_runs` meets (host ints): ``{"collapsed",
+    "frozen", "live", "runs", "longest", "longest_live", "chain"}``:
+    collapsed blocks, frozen blocks (passed over), live blocks (walked),
+    runs of non-collapsed blocks, the longest run in blocks and its live
+    blocks, and the most live blocks of any run (the walk's chain, in
+    blocks of 128 steps)."""
+    nblk = lo.shape[1]
+    collapsed = (lo == hi).cpu().tolist()
+    is_stop = unpack_stops(stops, nblk).cpu().tolist()
     out = []
-    for c in (lo == hi).cpu().tolist():
-        runs, longest, cur = 0, 0, 0
-        for done in c:
-            cur = 0 if done else cur + 1
-            runs += cur == 1
-            longest = max(longest, cur)
-        out.append((sum(c), runs, longest))
+    for coll, st in zip(collapsed, is_stop):
+        rec = dict.fromkeys(("collapsed", "frozen", "live", "runs", "longest",
+                             "longest_live", "chain"), 0)
+        n, live = 0, 0
+        for done, s in zip(coll + [True], st + [True]):
+            if done:
+                if n:
+                    rec["runs"] += 1
+                    if n > rec["longest"]:
+                        rec["longest"], rec["longest_live"] = n, live
+                    rec["chain"] = max(rec["chain"], live)
+                n, live = 0, 0
+                continue
+            n += 1
+            live += s
+        rec["collapsed"] = sum(coll)
+        rec["live"] = sum(s and not c for s, c in zip(st, coll))
+        rec["frozen"] = nblk - rec["collapsed"] - rec["live"]
+        out.append(rec)
     return out
 
 
@@ -286,45 +335,72 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_aligned(name, m):
+    if m.data_ptr() % 16:
+        raise ValueError(f"{name}: m must start on a 16-byte boundary "
+                         "(the kernel copies 16-byte pieces)")
+
+
 def pass1_hull(m, ca, cr, hmax, ctrl=None):
     """K5's first launch: each block's interval ``(lo, hi)`` ``(B, T/128)``
     of outgoing states over every incoming state in ``[0, hmax]``
-    (``csrc/ballistics.cu`` has the argument).  ``lo == hi``: the block has
-    collapsed to that state.  Gated on ``ctrl`` as :func:`pass1_bnd`."""
+    (``csrc/ballistics.cu`` has the argument), and the stop words ``(B,
+    stop_words(T/128))`` int32 (:func:`pack_stops`): a block is a stop
+    where it is live (a target not 0) or collapsed (``lo == hi``: the block
+    has collapsed to that state).  Gated on ``ctrl`` as
+    :func:`pass1_bnd`."""
     if m.device.type == "cpu":
         return pass1_hull_ref(m, ca, cr, hmax, ctrl)
     b, t = _check("pass1_hull", m,
                   (("ca", ca), ("cr", cr), ("hmax", hmax)))
+    _check_aligned("pass1_hull", m)
     if ctrl is not None:
         _check_ctrl("pass1_hull", ctrl, m.device)
     lo = torch.empty((b, t // BLOCK), dtype=m.dtype, device=m.device)
     hi = torch.empty_like(lo)
+    stops = torch.empty((b, stop_words(t // BLOCK)), dtype=torch.int32,
+                        device=m.device)
     lib = _kernels.library().lib
     with torch.cuda.device(m.device):
         err = lib.pam_pass1_hull(_ptr(m), _ptr(ca), _ptr(cr), _ptr(hmax),
-                                 _ptr(lo), _ptr(hi), None if ctrl is None
-                                 else _ptr(ctrl), b, t, _stream(m.device))
+                                 _ptr(lo), _ptr(hi), _ptr(stops),
+                                 None if ctrl is None else _ptr(ctrl), b, t,
+                                 _stream(m.device))
     _raise_on("pass1_hull", err)
     pass1_hull.launches += 1
-    return lo, hi
+    return lo, hi, stops
 
 
-def pass1_runs(m, ca, cr, att0, lo, hi, ctrl=None):
+def pass1_runs(m, ca, cr, att0, lo, hi, stops, ctrl=None):
     """K5's second launch: the outgoing state of every block ``(B,
     T/128)``, collapsed blocks from their constant, every run of
     non-collapsed blocks walked serially from the exact state before it,
-    all runs in parallel.  Gated on ``ctrl`` as :func:`pass1_bnd`."""
+    stop to stop (``stops`` from :func:`pass1_hull`), the frozen blocks
+    between two stops passed over, all runs in parallel.  Gated on
+    ``ctrl`` as :func:`pass1_bnd`."""
     if m.device.type == "cpu":
-        return pass1_runs_ref(m, ca, cr, att0, lo, hi, ctrl)
+        return pass1_runs_ref(m, ca, cr, att0, lo, hi, stops, ctrl)
     b, t = _check("pass1_runs", m, (("ca", ca), ("cr", cr), ("att0", att0)),
                   (("lo", lo, torch.float32), ("hi", hi, torch.float32)))
+    _check_aligned("pass1_runs", m)
+    nw = stop_words(t // BLOCK)
+    if (tuple(stops.shape) != (b, nw) or stops.dtype != torch.int32
+            or stops.device != m.device or not stops.is_contiguous()):
+        raise ValueError(f"pass1_runs: stops must be contiguous ({b}, {nw}) "
+                         f"torch.int32 on {m.device} (see pass1_hull), got "
+                         f"{tuple(stops.shape)} {stops.dtype}")
     if ctrl is not None:
         _check_ctrl("pass1_runs", ctrl, m.device)
     bnd = torch.zeros((b, t // BLOCK), dtype=m.dtype, device=m.device)
+    # the run list: at most one run every other block; its count from 0
+    starts = torch.empty((b * ((t // BLOCK + 1) // 2),), dtype=torch.int32,
+                         device=m.device)
+    count = torch.zeros((1,), dtype=torch.int32, device=m.device)
     lib = _kernels.library().lib
     with torch.cuda.device(m.device):
         err = lib.pam_pass1_runs(_ptr(m), _ptr(ca), _ptr(cr), _ptr(att0),
-                                 _ptr(lo), _ptr(hi), _ptr(bnd),
+                                 _ptr(lo), _ptr(hi), _ptr(stops), _ptr(bnd),
+                                 _ptr(starts), _ptr(count),
                                  None if ctrl is None else _ptr(ctrl), b, t,
                                  _stream(m.device))
     _raise_on("pass1_runs", err)
@@ -347,8 +423,8 @@ def pass1_bnd(m, ca, cr, att0, ctrl=None):
         the output is zeros otherwise.
     """
     hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
-    lo, hi = pass1_hull(m, ca, cr, hmax, ctrl)
-    return pass1_runs(m, ca, cr, att0, lo, hi, ctrl)
+    lo, hi, stops = pass1_hull(m, ca, cr, hmax, ctrl)
+    return pass1_runs(m, ca, cr, att0, lo, hi, stops, ctrl)
 
 
 def replay(m, ca, cr, incomes):
@@ -390,9 +466,7 @@ def replay_bnd(m, ca, cr, att0, idx_ex, s_out, ctrl, iters=FIXPOINT_ITERS,
     _check_ctrl("replay_bnd", ctrl, m.device)
     if rounds < 1:
         raise ValueError(f"replay_bnd: rounds must be >= 1, got {rounds}")
-    if m.data_ptr() % 16:
-        raise ValueError("replay_bnd: m must start on a 16-byte boundary "
-                         "(the kernel loads 16-byte chunks)")
+    _check_aligned("replay_bnd", m)
     s_new = torch.empty_like(s_out)
     s_alt = torch.empty_like(s_out) if rounds > 1 else None
     lib = _kernels.library().lib

@@ -8,8 +8,10 @@ port the kernels share one op sequence, so the collapse mode, the serial
 mode and the forced serial fallback (``iters=1``) agree bitwise, and
 bitwise with the port's step-by-step ``attenuation_scan`` fed the same
 products ``m·ca`` / ``m·cr``.  K5's segmented walk (the hull pass, then
-the runs of non-collapsed blocks) equals the serial walk bitwise, on
-those regimes and on timelines built against it.
+the runs of non-collapsed blocks, frozen blocks passed over) equals the
+serial walk bitwise, on those regimes and on timelines built against it,
+and JAX's serial walk kernel ``_pass1_bnd`` in interpret mode bitwise on
+the timelines shaped like what the walk meets (``torch_k5_cases``).
 """
 
 import functools
@@ -24,6 +26,8 @@ from python_audio_mastering_tpu.ops import compressor as jcomp
 from python_audio_mastering_tpu.ops import pallas_kernels as jpk
 from python_audio_mastering_tpu_torch.ops import ballistics as bal
 from python_audio_mastering_tpu_torch.ops import compressor
+
+from . import torch_k5_cases
 
 CA = np.float32([8 / 220.5, 8 / 441.0, 8 / 882.0])
 CR = np.float32([8 / 2205.0, 8 / 4410.0, 8 / 8820.0])
@@ -173,10 +177,11 @@ def test_segmented_walk_equals_the_serial_walk(name):
     are checked to be what they claim."""
     m, ca, cr, att0 = _padded(name)
     hmax = torch.maximum(att0, m.amax(dim=1))
-    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
+    lo, hi, stops = bal.pass1_hull(m, ca, cr, hmax)
     assert torch.equal(bal.pass1_bnd(m, ca, cr, att0),
                        bal.pass1_bnd_ref(m, ca, cr, att0)), name
-    collapsed, runs, longest = zip(*bal.hull_runs(lo, hi))
+    collapsed, runs, longest = zip(*((s["collapsed"], s["runs"], s["longest"])
+                                     for s in bal.walk_stats(lo, hi, stops)))
     nblk = lo.shape[1]
     if name == "no-collapse":
         assert collapsed == (0, 0, 0) and longest == (nblk,) * 3
@@ -203,9 +208,10 @@ def test_segmented_walk_passes_frozen_stretches(att0):
     ca = torch.tensor([1e-3, 2e-3, 4e-4])
     cr = torch.tensor([1e-4, 5e-5, 2e-4])
     a0 = torch.full((3,), att0)
-    lo, hi = bal.pass1_hull(m, ca, cr, torch.maximum(a0, m.amax(dim=1)))
+    lo, hi, stops = bal.pass1_hull(m, ca, cr,
+                                   torch.maximum(a0, m.amax(dim=1)))
     assert int((lo == hi).sum()) < 3 * nblk      # runs there are
-    assert torch.equal(bal.pass1_runs(m, ca, cr, a0, lo, hi),
+    assert torch.equal(bal.pass1_runs(m, ca, cr, a0, lo, hi, stops),
                        bal.pass1_bnd_ref(m, ca, cr, a0))
 
 
@@ -222,7 +228,7 @@ def test_hull_pass_is_sound(seed):
     ca = torch.from_numpy(rng.uniform(1e-3, 0.5, 3).astype(np.float32))
     cr = torch.from_numpy(rng.uniform(1e-4, 0.05, 3).astype(np.float32))
     hmax = m.amax(dim=1) + 1.0
-    lo, hi = bal.pass1_hull_ref(m, ca, cr, hmax)
+    lo, hi, _ = bal.pass1_hull_ref(m, ca, cr, hmax)
     assert bool((lo <= hi).all())
     collapsed = lo == hi
     for trial in range(48):
@@ -348,3 +354,95 @@ def test_rounds_refuse_a_ctrl_with_counters_set(counter):
     with pytest.raises(ValueError, match="counters must be 0"):
         bal.replay_bnd(m, ca, cr, att0, idx, s0, ctrl, rounds=3)
     assert torch.equal(ctrl, kept)
+
+
+@functools.cache
+def _k5_case(name):
+    """A case of ``torch_k5_cases`` as tensors, with its serial walk."""
+    m, att0, ca, cr = (torch.from_numpy(v)
+                       for v in torch_k5_cases.case(name))
+    return m, ca, cr, att0, bal.pass1_bnd_ref(m, ca, cr, att0)
+
+
+def _jax_serial_walk(m, ca, cr, att0):
+    """JAX's ``_pass1_bnd`` (the TPU kernel of K5) in interpret mode: bands
+    padded to 8 sublanes, T to whole 128 x 128 tiles (frozen blocks at the
+    end, which leave the boundaries before them as they are)."""
+    b, t = m.shape
+    tile = bal.BLOCK * bal.BLOCK
+    mp = np.zeros((8, -(-t // tile) * tile), np.float32)
+    mp[:b, :t] = m
+    col = [np.zeros((8, 1), np.float32) for _ in range(3)]
+    for c, v in zip(col, (ca, cr, att0)):
+        c[:b, 0] = v
+    out = jpk._pass1_bnd(jnp.asarray(mp), *map(jnp.asarray, col), tile=tile,
+                         interpret=True)
+    return np.asarray(out)[:b, :t // bal.BLOCK]
+
+
+@pytest.mark.parametrize("name", torch_k5_cases.CASES)
+def test_run_walk_passes_frozen_blocks_bitwise(name):
+    """K5's plain twins (the hull pass with its stop words, then the run
+    walk from stop to stop) on the timelines of ``torch_k5_cases``, against
+    the serial walk and JAX's ``_pass1_bnd``, bitwise; each case is what it
+    claims."""
+    m, ca, cr, att0, ref = _k5_case(name)
+    assert torch.equal(bal.pass1_bnd(m, ca, cr, att0), ref), name
+    np.testing.assert_array_equal(
+        _jax_serial_walk(m.numpy(), ca.numpy(), cr.numpy(), att0.numpy()),
+        ref.numpy(), err_msg=name)
+    lo, hi, stops = bal.pass1_hull(m, ca, cr,
+                                   torch.maximum(att0, m.amax(dim=1)))
+    stats = bal.walk_stats(lo, hi, stops)
+    nblk = lo.shape[1]
+    if name == "sparse-live":
+        assert all(s["runs"] == 1 and s["longest"] == nblk
+                   and s["frozen"] > 50 * s["live"] > 0 for s in stats)
+        assert torch_k5_cases.longest_frozen_stretch(m.numpy()) > \
+            torch_k5_cases.WINDOW
+    elif name == "all-frozen-att0":
+        assert [s["frozen"] for s in stats] == [nblk, 0, nblk]
+        assert [s["collapsed"] for s in stats] == [0, nblk, 0]
+        assert torch.equal(ref, att0[:, None].expand_as(ref))
+    else:
+        assert all(s["live"] == s["chain"] == nblk > 64 for s in stats)
+
+
+@pytest.mark.parametrize("nblk", [1, 31, 32, 33, 64, 100])
+def test_stop_words_round_trip(nblk):
+    """The stop words' layout: bit ``j % 32`` of word ``j // 32`` is block
+    j's, the bits past the last block set, and back again."""
+    rng = np.random.default_rng(nblk)
+    stop = torch.from_numpy(rng.random((3, nblk)) < 0.3)
+    words = bal.pack_stops(stop)
+    assert words.dtype == torch.int32
+    assert words.shape == (3, bal.stop_words(nblk)) == (3, -(-nblk // 32))
+    bits = [[(int(w) >> i) & 1 for w in row for i in range(32)]
+            for row in words.tolist()]
+    for b in range(3):
+        assert bits[b][:nblk] == [int(v) for v in stop[b].tolist()]
+        assert all(bits[b][nblk:])
+    assert torch.equal(bal.unpack_stops(words, nblk), stop)
+
+
+@pytest.mark.parametrize("name", CASES + ADVERSARIAL)
+def test_hull_marks_live_and_collapsed_blocks(name):
+    """The hull pass's stop words mark exactly the blocks that are live (a
+    target not 0) or collapsed."""
+    m, ca, cr, att0 = _padded(name)
+    lo, hi, stops = bal.pass1_hull(m, ca, cr,
+                                   torch.maximum(att0, m.amax(dim=1)))
+    live = (m.reshape(m.shape[0], -1, bal.BLOCK) != 0).any(dim=2)
+    assert torch.equal(bal.unpack_stops(stops, lo.shape[1]),
+                       live | (lo == hi)), name
+
+
+def test_walk_stats_counts_what_the_walk_meets():
+    """Collapsed, frozen and live blocks, the runs, the longest run and
+    its live blocks, and the most live blocks of a run, per band."""
+    lo = torch.tensor([[0., 0., 0., 1., 0., 0., 0., 0.]])
+    hi = torch.tensor([[1., 1., 1., 1., 1., 1., 2., 2.]])
+    live = torch.tensor([[1, 0, 1, 1, 1, 0, 0, 0]], dtype=torch.bool)
+    stats = bal.walk_stats(lo, hi, bal.pack_stops(live | (lo == hi)))
+    assert stats == [{"collapsed": 1, "frozen": 4, "live": 3, "runs": 2,
+                      "longest": 4, "longest_live": 1, "chain": 2}]

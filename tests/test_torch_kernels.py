@@ -36,6 +36,8 @@ from python_audio_mastering_tpu_torch.ops import loudness as loud
 from python_audio_mastering_tpu_torch.ops import multiband as mb
 from python_audio_mastering_tpu_torch.ops.waveshaper import saturate
 
+from . import torch_k5_cases
+
 L = 384
 SETTINGS = {"saturation": 25, "preset": "dubstep", "width": 1.4,
             "lufs": -14.0}
@@ -137,11 +139,11 @@ def test_wrappers_take_the_plain_version_on_cpu(emit_mono):
     assert torch.equal(bal.replay_bnd(m, ca, cr, att0, idx, inc, c1),
                        bal.replay_bnd_ref(m, ca, cr, att0, idx, inc, c2))
     assert torch.equal(c1, c2)
-    lo, hi = bal.pass1_hull(m, ca, cr, att0 + 12.0)
+    lo, hi, stops = bal.pass1_hull(m, ca, cr, att0 + 12.0)
     assert all(torch.equal(a, b) for a, b in zip(
-        (lo, hi), bal.pass1_hull_ref(m, ca, cr, att0 + 12.0)))
-    assert torch.equal(bal.pass1_runs(m, ca, cr, att0, lo, hi),
-                       bal.pass1_runs_ref(m, ca, cr, att0, lo, hi))
+        (lo, hi, stops), bal.pass1_hull_ref(m, ca, cr, att0 + 12.0)))
+    assert torch.equal(bal.pass1_runs(m, ca, cr, att0, lo, hi, stops),
+                       bal.pass1_runs_ref(m, ca, cr, att0, lo, hi, stops))
     assert cmb.launch_counts() == {
         "front_chain": 0, "kweight_cells": 0, "band_energies": 0,
         "band_gain_apply": 0, "pass1_hull": 0, "pass1_runs": 0, "replay": 0,
@@ -166,10 +168,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
     m, ca, cr, att0 = meta(_ballistics_operands(2 * 128, "cpu"))
     inc = torch.zeros((3, 2), device="meta")
     idx = torch.zeros((3, 2), dtype=torch.int64, device="meta")
+    stops = torch.zeros((3, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         bal.pass1_bnd(m, ca, cr, att0)
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        bal.pass1_runs(m, ca, cr, att0, inc, inc)
+        bal.pass1_runs(m, ca, cr, att0, inc, inc, stops)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         bal.replay(m, ca, cr, inc)
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -421,22 +424,33 @@ def test_band_kernels_match_plain(cuda_device, channels, hop):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [128, 70 * 128, 300 * 128])
-def test_ballistics_kernels_match_plain_bitwise(cuda_device, t):
+@pytest.mark.parametrize("case", [128, 70 * 128, 300 * 128,
+                                  *torch_k5_cases.CASES])
+def test_ballistics_kernels_match_plain_bitwise(cuda_device, case):
     """K5 (each of its two launches, and the two together against the
     serial walk), K6 and K7 against their plain versions on the card,
-    bitwise; T spans one block, a ragged last CTA and several CTAs."""
-    m, ca, cr, att0 = _ballistics_operands(t, cuda_device)
+    bitwise; T spans one block, a ragged last CTA and several CTAs; and the
+    timelines of ``torch_k5_cases``: frozen stretches between scattered
+    live blocks (one longer than the walker's search window), every block
+    frozen with ``att0 > 0``, a live run of 96 blocks."""
+    if isinstance(case, int):
+        m, ca, cr, att0 = _ballistics_operands(case, cuda_device)
+    else:
+        m, att0, ca, cr = (torch.as_tensor(v, device=cuda_device)
+                           for v in torch_k5_cases.case(case))
+    t = m.shape[1]
     nblk = t // bal.BLOCK
     hmax = torch.maximum(att0, m.amax(dim=1)).contiguous()
     before = cmb.launch_counts()
-    lo, hi = bal.pass1_hull(m, ca, cr, hmax)
-    lo_p, hi_p = bal.pass1_hull_ref(m, ca, cr, hmax)
+    lo, hi, stops = bal.pass1_hull(m, ca, cr, hmax)
+    lo_p, hi_p, stops_p = bal.pass1_hull_ref(m, ca, cr, hmax)
     assert torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
-    assert torch.equal(bal.pass1_runs(m, ca, cr, att0, lo, hi),
-                       bal.pass1_runs_ref(m, ca, cr, att0, lo, hi))
+    assert torch.equal(stops, stops_p)
+    assert torch.equal(bal.pass1_runs(m, ca, cr, att0, lo, hi, stops),
+                       bal.pass1_runs_ref(m, ca, cr, att0, lo, hi, stops))
     bnd = bal.pass1_bnd(m, ca, cr, att0)
-    assert torch.equal(bnd, bal.pass1_bnd_ref(m, ca, cr, att0))
+    serial = bal.pass1_bnd_ref(*(v.cpu() for v in (m, ca, cr, att0)))
+    assert torch.equal(bnd.cpu(), serial)
     after = cmb.launch_counts()
     assert after["pass1_hull"] == before["pass1_hull"] + 2
     assert after["pass1_runs"] == before["pass1_runs"] + 2
