@@ -41,10 +41,11 @@ Phases:
      plain version and, for the product kernels, one torch.matmul of the
      same operands (the yardstick, product only; CUDA events, median of
      5); kweight_cells also at the streamed runner's chunk, (1, 2940, 384)
-  7  band_energies kernel (3xTF32 on the tensor cores) vs plain,
+  7  band_energies kernel (x @ T in 3xTF32 on wgmma, the states term in
+     fp32) vs plain,
      (2, 20672, 384), at the chain's hop 8 and at hop 3 (buckets that
      cross the kernel's 64-column tiles): max |diff| / max |plain| <= 1e-4
-  8  band_gain_apply kernel (3xTF32 on the tensor cores) vs plain (fp32
+  8  band_gain_apply kernel (as band_energies) vs plain (fp32
      cuBLAS), emit_mono off and on: max |diff| / max |plain| <= 1e-4
   9  ballistics on the track's own detector targets (3, 992256): K5's two
      launches (hull pass with its stop words, run walk) bitwise equal to
@@ -70,7 +71,8 @@ Phases:
      master() within 2e-4
  12  multiband timings: master(), process_audio, the ballistics in serial
      and collapse mode, each kernel vs its plain version (and the
-     yardstick product for the band kernels); replay_bnd as one launch
+     yardstick product for the band kernels; the band kernels also at
+     the streamed runner's chunk); replay_bnd as one launch
      for the whole fixed point; K5's two launches alone and its latency
      bound (the longest run's live steps, K5_CHAIN_CYCLES each, at the SM
      clock nvidia-smi reads under K5)
@@ -399,7 +401,7 @@ from phase 40, its ``max_abs_err`` from phase 39; K5's
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
 prints, as one JSON line, the device time of K1-K4 at the main path's
-shapes, K4 at the streamed chunk, and the fixed point's K7 launches of
+shapes, K2-K4 at the streamed chunk, and the fixed point's K7 launches of
 one ``_run_collapse`` (their sum and count): run in two checkouts in one
 call, it compares two versions on one card.
 """
@@ -451,6 +453,11 @@ HBM_BYTES = 3.35e12   # H100 SXM, HBM3 bytes/s
 # multiband card vs CPU path: the JAX package's on-chip kernels-vs-XLA
 # residual from detector threshold flips (DESIGN.md:126-129)
 MB_MAX, MB_RMS = 1.2e-3, 1.3e-5
+# the band kernels on mma.sync with the states term in 3xTF32, H100 700 W
+# (PERF.md, PR 14): phases 7-8's max |diff| / max |plain|, and phase 10's
+# samples over 2e-4 from the CPU path
+MMA_SYNC_BAND_ERR = "5.9e-6-7.1e-6"
+MMA_SYNC_OVER_2E4 = 161
 FS48 = 48000
 CEILING = 10.0 ** (-1.0 / 20.0)   # the lookahead limiter's -1 dBTP
 QUALITY_LUFS = (-14.0, -8.0)
@@ -605,11 +612,13 @@ def product_flops(rows, L, S, filters=1):
     return 2.0 * rows * filters * (L * (L + 1) / 2 + S * L)
 
 
-def kweight_bounds(rows, L, S, n_bytes):
-    """``(bound, bound on the fp32 cores)`` of K4: ``x @ T`` in 3xTF32 on
-    the tensor cores and the states term ``s @ Wt`` on the fp32 cores,
-    their times added; the second all on the fp32 cores."""
-    x_ops, s_ops = 2.0 * rows * L * (L + 1) / 2, 2.0 * rows * S * L
+def kweight_bounds(rows, L, S, n_bytes, filters=1):
+    """``(bound, bound on the fp32 cores)`` of K4 (and, with two filters,
+    K2 and K3): ``x @ T`` in 3xTF32 on the tensor cores and the states
+    term ``s @ Wt`` on the fp32 cores, their times added; the second all
+    on the fp32 cores."""
+    x_ops = 2.0 * rows * filters * L * (L + 1) / 2
+    s_ops = 2.0 * rows * filters * S * L
     t_ops = (3 * x_ops / TF32_FLOPS + s_ops / FP32_FLOPS) * 1e3
     t_bytes = n_bytes / HBM_BYTES * 1e3
     return ({"bound_ms": max(t_ops, t_bytes),
@@ -827,6 +836,7 @@ def kernel_times():
     xb = cmb.band_energies(*o.band_args, hop=hop)
     m, ca, cr, att0 = detector_targets(xb, o.mb_params, hop, xb.device)
     cols = torch.ones((3, xb.shape[1]), device=xb.device)
+    chunk = tuple(v[:, :CHUNK_BLOCKS].contiguous() for v in o.band_args[:3])
     times = {
         "front_chain": kernel_ms(lambda: cmb.front_chain(*o.k1_args, True),
                                  "front_chain"),
@@ -839,6 +849,11 @@ def kernel_times():
         "band_gain_apply": kernel_ms(lambda: cmb.band_gain_apply(
             *o.band_args[:3], cols, *o.sos, hop=hop, emit_mono=True),
             "band_gain_apply"),
+        "band_energies_chunk": kernel_ms(lambda: cmb.band_energies(
+            *chunk, *o.sos, hop=hop), "band_energies"),
+        "band_gain_apply_chunk": kernel_ms(lambda: cmb.band_gain_apply(
+            *chunk, cols[:, :CHUNK_BLOCKS * (L // hop)].contiguous(),
+            *o.sos, hop=hop, emit_mono=True), "band_gain_apply"),
         "replay_bnd_fixed_point": kernel_ms(
             lambda: bal._run_collapse(m, ca, cr, att0), "replay_bnd"),
     }
@@ -1085,15 +1100,18 @@ def multiband_phases(o, kernels):
 
     # phase 7 ---------------------------------------------------------------
     # the chain's hop, then hop 3, whose buckets cross the 64-column tiles
-    err = 0.0
+    err, rel = 0.0, 0.0
     for h in (hop, 3):
         got = cmb.band_energies(*band_args, hop=h)
-        err = max(err, compare(f"phase 7 band_energies hop={h}", got,
-                               cmb.band_energies_ref(*band_args, hop=h),
-                               1e-4))
+        ref = cmb.band_energies_ref(*band_args, hop=h)
+        d = compare(f"phase 7 band_energies hop={h}", got, ref, 1e-4)
+        err, rel = max(err, d), max(rel, d / ref.abs().max().item())
         if h == hop:
             xb = got
     kernels["band_energies"]["max_abs_err"] = err
+    print(f"phase 7 band_energies max |diff| / max |plain| {rel:.3e} "
+          f"(the mma.sync kernel with the states term in 3xTF32: "
+          f"{MMA_SYNC_BAND_ERR})")
     print("phase 7 ok", flush=True)
 
     # the track's own detector targets and the gain columns
@@ -1104,7 +1122,7 @@ def multiband_phases(o, kernels):
     cols = torch.stack([g[1], g[0] - g[1], g[2] - g[1]]).contiguous()
 
     # phase 8 ---------------------------------------------------------------
-    err = 0.0
+    err, rel = 0.0, 0.0
     for emit in (False, True):
         got = cmb.band_gain_apply(*band_args[:3], cols, *sos, hop=hop,
                                   emit_mono=emit)
@@ -1112,9 +1130,13 @@ def multiband_phases(o, kernels):
                                       emit_mono=emit)
         for what, gg, rr in zip(("y", "mono"), got if emit else (got,),
                                 ref if emit else (ref,)):
-            err = max(err, compare(f"phase 8 band_gain_apply emit_mono={emit}"
-                                   f" {what}", gg, rr, 1e-4))
+            d = compare(f"phase 8 band_gain_apply emit_mono={emit} {what}",
+                        gg, rr, 1e-4)
+            err, rel = max(err, d), max(rel, d / rr.abs().max().item())
     kernels["band_gain_apply"]["max_abs_err"] = err
+    print(f"phase 8 band_gain_apply max |diff| / max |plain| {rel:.3e} "
+          f"(the mma.sync kernel with the states term in 3xTF32: "
+          f"{MMA_SYNC_BAND_ERR})")
     print("phase 8 ok", flush=True)
 
     # phase 9 ---------------------------------------------------------------
@@ -1229,7 +1251,8 @@ def multiband_phases(o, kernels):
     d_lufs = abs(float(res.measured_lufs) - float(cpu.measured_lufs))
     print(f"phase 10 card vs CPU plain path ({time.perf_counter() - t0:.1f} s"
           f" on the CPU): max abs {d_max:.3e}, rms {d_rms:.3e}, |dLUFS| "
-          f"{d_lufs:.3e}; elements over 2e-4: {int((d > 2e-4).sum())}")
+          f"{d_lufs:.3e}; elements over 2e-4: {int((d > 2e-4).sum())} (the "
+          f"band kernels on mma.sync: {MMA_SYNC_OVER_2E4})")
     check(d_max < MB_MAX, f"card vs CPU max abs {d_max} >= {MB_MAX}")
     check(d_rms < MB_RMS, f"card vs CPU rms {d_rms} >= {MB_RMS}")
     check(d_lufs < 1e-3, f"card vs CPU |dLUFS| {d_lufs} >= 1e-3")
@@ -1286,15 +1309,16 @@ def multiband_phases(o, kernels):
                         torch.cat([zeros, wt2[1]], 1)], 0)
     s_x = s_lp.shape[2]
     rows_b = xrows_b.shape[0]
-    band_flops = product_flops(rows_b, L, s_x, filters=2)
     band_in = nbytes(xf, s_lp, s_hp, t2, wt2)
     b_, t_ = m.shape
     step_flops = 4.0 * b_ * t_
-    # K2 and K3 run three TF32 products per multiply-add on the tensor cores
-    k2_bnd, k2_fp32 = product_bounds(band_flops, band_in + nbytes(xb),
-                                     tf32=True)
-    k3_bnd, k3_fp32 = product_bounds(band_flops, band_in + nbytes(cols, xf)
-                                     + 4 * nb * L, tf32=True)
+    # K2 and K3: x @ T at the 3xTF32 rate (three TF32 products a
+    # multiply-add), the states term at the fp32 rate, as K4's
+    k2_bnd, k2_fp32 = kweight_bounds(rows_b, L, s_x, band_in + nbytes(xb),
+                                     filters=2)
+    k3_bnd, k3_fp32 = kweight_bounds(rows_b, L, s_x, band_in
+                                     + nbytes(cols, xf) + 4 * nb * L,
+                                     filters=2)
     fp32_bound = {"band_energies": k2_fp32, "band_gain_apply": k3_fp32}
     timed = {
         "band_energies": (
@@ -1347,6 +1371,24 @@ def multiband_phases(o, kernels):
     k2_h3 = kernel_ms(lambda: cmb.band_energies(*band_args, hop=3),
                       "band_energies")
     print(f"phase 12 band_energies hop=3 alone: {k2_h3:.4f} ms")
+    # the streamed runner's chunk of the track
+    chunk = tuple(v[:, :CHUNK_BLOCKS].contiguous() for v in band_args[:3])
+    c_cols = cols[:, :CHUNK_BLOCKS * (L // hop)].contiguous()
+    c_in = nbytes(*chunk, t2, wt2)
+    for name, fn, out_bytes in (
+            ("band_energies", lambda: cmb.band_energies(*chunk, *sos,
+                                                        hop=hop),
+             nbytes(c_cols)),
+            ("band_gain_apply", lambda: cmb.band_gain_apply(
+                *chunk, c_cols, *sos, hop=hop, emit_mono=True),
+             nbytes(c_cols, chunk[0]) + 4 * CHUNK_BLOCKS * L)):
+        ms = kernel_ms(fn, name)
+        c_bnd, _ = kweight_bounds(2 * CHUNK_BLOCKS, L, s_x, c_in + out_bytes,
+                                  filters=2)
+        kernels[name]["chunk_ms"] = ms
+        print(f"phase 12 {name} at the streamed chunk {tuple(chunk[0].shape)}"
+              f": kernel {ms:.4f} ms, bound {c_bnd['bound_ms']:.4f} ms "
+              f"({c_bnd['bound_by']})")
     for name, fn in (("pass1_hull", lambda: bal.pass1_hull(m, ca, cr, hmax)),
                      ("pass1_runs", lambda: bal.pass1_runs(m, ca, cr, att0,
                                                            *hull))):

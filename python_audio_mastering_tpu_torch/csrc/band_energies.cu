@@ -3,151 +3,169 @@
 //
 // Replaces the TPU kernel python_audio_mastering_tpu/ops/pallas_multiband.py
 // band_energies / _energies_kernel (+ _bands_block).  It recomputes the low
-// and high bands of a tile from their incoming states as one product on the
-// tensor cores in 3xTF32 (tf32_product.cuh with F = 2, band_gain_apply's
-// product), forms mid = x - low - high, squares, sums over the channels and
-// over buckets of h adjacent columns, so no band signal ever reaches device
-// memory: the kernel reads the rows (and the tiny states) and writes three
-// control-rate rows.  What bounds it on the H100, at the main path's shapes
-// (3-min stereo track, L = 384, hop 8): its ~12.5 GFLOP of products, 0.076
-// ms at the 3xTF32 rate (0.186 ms on the fp32 CUDA cores, where the first
-// version's tile loop ran it), against ~78 MB in and out (0.023 ms at 3.35
-// TB/s).  The TPU kernel sums buckets as a product with a 0/1 matrix (a
-// matrix-unit trick); here they are plain sums from shared memory.
+// and high bands of a tile from their incoming states (tf32_wgmma.cuh: x @
+// T in 3xTF32 on wgmma, the states term in fp32), forms mid = x - low -
+// high, squares, sums over the channels and over buckets of h adjacent
+// columns, so no band signal ever reaches device memory: the kernel reads
+// the rows (and the tiny states) and writes three control-rate rows.  What
+// bounds it on the H100, at the main path's shapes (3-min stereo track, L
+// = 384, hop 8): its ~12.2 GFLOP of x @ T, 0.074 ms at the 3xTF32 rate,
+// and ~0.2 GFLOP of states term on the fp32 cores, 0.004 ms, against ~77
+// MB in and out (0.023 ms at 3.35 TB/s).  The TPU kernel sums buckets as a
+// product with a 0/1 matrix (a matrix-unit trick); here they are plain
+// sums from shared memory.
 //
-// A CTA owns kGM rows (every channel of br = kGM / C blocks), so the
-// channel sums stay inside it, and a span of W = lcm(h, 64) columns, which
-// holds whole buckets and divides L (h and 64 both divide it).  At hop 8
-// that is one column tile of the product, as band_gain_apply's grid; a hop
-// that does not divide 64 (3, 6, 12, ..) or exceeds it takes W / 64 tiles
-// in a row, and the bucket that crosses from one tile into the next
-// carries its partial sums in shared memory.  Each bucket is summed in one
-// fixed order by one thread: the result is deterministic, with no atomics.
-#include "tf32_product.cuh"
+// An item is 128 rows (every channel of br = 128 / C blocks) and a span of
+// W = lcm(h, 64) columns, which holds whole buckets and divides L (h and 64
+// both divide it).  At hop 8 that is one column tile; a hop that does not
+// divide 64 (3, 6, 12, ..) or exceeds it takes W / 64 tiles in a row, and
+// the bucket that crosses from one tile into the next carries its partial
+// sums in shared memory.  Each bucket is summed in one fixed order by one
+// thread: the result is deterministic, with no atomics.
+#include "tf32_wgmma.cuh"
 
 namespace pam {
 
-constexpr int kEMidStride = kGN + 1;  // odd: conflict-free bucket reads
-// the mid energies of a tile beside the result tile, in the ring
-static_assert(kGM * kGEStride + kGM * kEMidStride <= kGRingFloats,
-              "the mid energies fit in the ring beside the result tile");
-// the carried partial sums (low, mid, high) of each block, two buffers
-constexpr size_t kESmemBytes = kGSmemBytes + sizeof(float) * 2 * kGM * 3;
+struct EnergiesEpilogue {
+  const float* __restrict__ x;
+  float* __restrict__ out;
+  int C, nb, L, h, br;
 
-// as band_gain_apply: two CTAs of 128 rows an SM
-__global__ void __launch_bounds__(kGThreads, 512 / kGThreads)
-band_energies_kernel(const float* __restrict__ x, const float* __restrict__ t2,
-                     const float* __restrict__ wt2,
-                     const float* __restrict__ s_lp,
-                     const float* __restrict__ s_hp, float* __restrict__ out,
-                     int C, int nb, int L, int S, int br, int h, int span) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* emid = smem + kGM * kGEStride;
-  float* carry = smem + kGSmemBytes / sizeof(float);
-  const int b0 = blockIdx.y * br;
-  for (int tt = 0; tt < span / kGN; ++tt) {
-    // the spans with the most k-tiles first
-    const int j0 = (gridDim.x - 1 - blockIdx.x) * span + tt * kGN;
-    product_tile_tf32<2>(x, t2, wt2, s_lp, s_hp, C, nb, L, S, b0, br, j0,
-                         RawX{}, smem);
-    // Column energies, summed over the channels, written over the slots
-    // that only this (block, column) read: low and high into the block's
-    // first row of the result tile, mid beside it.
-    for (int e = threadIdx.x; e < br * kGN; e += kGThreads) {
-      const int bl = e / kGN;
-      const int jj = e % kGN;
-      const int b = b0 + bl;
-      if (b >= nb) break;
-      float el = 0.f, em = 0.f, eh = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float* r = smem + (bl * C + c) * kGEStride + jj;
-        const float lo = r[0];
-        const float hi = r[kGN];
-        const float mid = x[((size_t)c * nb + b) * L + j0 + jj] - lo - hi;
-        el = fmaf(lo, lo, el);
-        em = fmaf(mid, mid, em);
-        eh = fmaf(hi, hi, eh);
-      }
-      float* r0 = smem + bl * C * kGEStride + jj;
-      r0[0] = el;
-      r0[kGN] = eh;
-      emid[bl * kEMidStride + jj] = em;
+  // A warp takes kBatch of its blocks at a time, a lane two columns: the
+  // channels' sums of the three bands' squares (two channels' x loaded
+  // before either is used), then, a block at a time, through the warp's
+  // scratch, the buckets q0 .. q0 + nq - 1 that meet this tile, a lane a
+  // (band, bucket): a bucket that began in the tile before adds its
+  // carried sum, one that goes on into the next tile leaves it.
+  static constexpr int kBatch = 2;
+  struct Batch {
+    int bl[kBatch];
+    float2 xv[kBatch][2];
+  };
+
+  __device__ __forceinline__ void load(const wgb::TileCtx& t, int u0, int c,
+                                       Batch& b) const {
+    const size_t plane = (size_t)nb * L;
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      b.bl[q] = t.warp + wgb::kEpiWarps * (u0 + q);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        b.xv[q][k] = b.bl[q] < t.blocks && c + k < C
+                         ? __ldg(reinterpret_cast<const float2*>(
+                               x + (c + k) * plane +
+                               (size_t)(t.b0 + b.bl[q]) * L + t.j0 +
+                               2 * t.lane))
+                         : make_float2(0.f, 0.f);
     }
-    __syncthreads();
-    // The buckets q0 .. q1 that meet this tile, one thread each: a bucket
-    // that began in the tile before adds its carried sums, one that goes
-    // on into the next tile leaves them in the other carry buffer.
-    const float* c_in = carry + ((tt + 1) & 1) * kGM * 3;
-    float* c_out = carry + (tt & 1) * kGM * 3;
+  }
+
+  __device__ __forceinline__ void tile(const wgb::TileCtx& t) const {
     const int lh = L / h;
     const size_t T = (size_t)nb * lh;
     const float inv_c = 1.f / (float)C;
-    const int q0 = j0 / h;
-    const int nq = (j0 + kGN - 1) / h - q0 + 1;
-    for (int e = threadIdx.x; e < br * nq; e += kGThreads) {
-      const int bl = e / nq;
-      const int q = q0 + e % nq;
-      const int b = b0 + bl;
-      if (b >= nb) break;
-      const int c0 = max(q * h, j0) - j0;
-      const int c1 = min((q + 1) * h, j0 + kGN) - j0;
-      const float* r0 = smem + bl * C * kGEStride;
-      const float* rm = emid + bl * kEMidStride;
-      float el = 0.f, em = 0.f, eh = 0.f;
-      if (q * h < j0) {
-        el = c_in[bl * 3];
-        em = c_in[bl * 3 + 1];
-        eh = c_in[bl * 3 + 2];
+    const int q0 = t.j0 / h;
+    const int nq = (t.j0 + wgb::kCols - 1) / h - q0 + 1;
+    const int jj = 2 * t.lane;
+    // the buckets that go on into the next tile of the span leave their
+    // sums in one buffer, and the next tile reads them from it
+    const float* c_in = t.carry + ((t.tt + 1) & 1) * 3 * wgb::kRows;
+    float* c_out = t.carry + (t.tt & 1) * 3 * wgb::kRows;
+    for (int u0 = 0; t.warp + wgb::kEpiWarps * u0 < t.blocks; u0 += kBatch) {
+      Batch cur;
+      float2 el[kBatch], em[kBatch], eh[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q)
+        el[q] = em[q] = eh[q] = make_float2(0.f, 0.f);
+      for (int c = 0; c < C; c += 2) {
+        load(t, u0, c, cur);  // two channels' x, before either is used
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            if (cur.bl[q] >= t.blocks || c + k >= C) continue;
+            float2 lo, hi;
+            wgb::bands_at(t, (c + k) * br + cur.bl[q], lo, hi);
+            const float2 xv = cur.xv[q][k];
+            const float2 mid =
+                make_float2(xv.x - lo.x - hi.x, xv.y - lo.y - hi.y);
+            el[q] = make_float2(fmaf(lo.x, lo.x, el[q].x),
+                                fmaf(lo.y, lo.y, el[q].y));
+            em[q] = make_float2(fmaf(mid.x, mid.x, em[q].x),
+                                fmaf(mid.y, mid.y, em[q].y));
+            eh[q] = make_float2(fmaf(hi.x, hi.x, eh[q].x),
+                                fmaf(hi.y, hi.y, eh[q].y));
+          }
       }
-      for (int i = c0; i < c1; ++i) {
-        el += r0[i];
-        em += rm[i];
-        eh += r0[kGN + i];
-      }
-      if ((q + 1) * h <= j0 + kGN) {
-        const size_t o = (size_t)b * lh + q;
-        out[o] = el * inv_c;
-        out[T + o] = em * inv_c;
-        out[2 * T + o] = eh * inv_c;
-      } else {
-        c_out[bl * 3] = el;
-        c_out[bl * 3 + 1] = em;
-        c_out[bl * 3 + 2] = eh;
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        if (cur.bl[q] >= t.blocks) break;
+        float2* sc = reinterpret_cast<float2*>(t.scratch + jj);
+        sc[0] = el[q];
+        sc[wgb::kCols / 2] = em[q];
+        sc[wgb::kCols] = eh[q];
+        __syncwarp();
+        const size_t b = (size_t)t.b0 + cur.bl[q];
+        for (int u = t.lane; u < 3 * nq; u += 32) {
+          const int band = u / nq;
+          const int qq = q0 + u % nq;
+          const int c0 = max(qq * h, t.j0) - t.j0;
+          const int c1 = min((qq + 1) * h, t.j0 + wgb::kCols) - t.j0;
+          const float* e = t.scratch + band * wgb::kCols;
+          float sum =
+              qq * h < t.j0 ? c_in[band * wgb::kRows + cur.bl[q]] : 0.f;
+          for (int i = c0; i < c1; ++i) sum += e[i];
+          if ((qq + 1) * h <= t.j0 + wgb::kCols)
+            out[band * T + b * lh + qq] = sum * inv_c;
+          else
+            c_out[band * wgb::kRows + cur.bl[q]] = sum;
+        }
+        __syncwarp();  // the scratch is free for the next block
       }
     }
-    // the next tile's product synchronises before it stages into the ring
   }
+};
+
+__global__ void __launch_bounds__(wgb::kThreads, 1)
+band_energies_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const float* __restrict__ x,
+                     const float* __restrict__ packed,
+                     const float* __restrict__ wt2,
+                     const float* __restrict__ s_lp,
+                     const float* __restrict__ s_hp, float* __restrict__ out,
+                     wgb::Geometry g) {
+  EnergiesEpilogue epi{x, out, g.C, g.nb, g.L, g.h, g.br};
+  wgb::band_product(&xmap, packed, wt2, s_lp, s_hp, g, epi);
 }
 
 }  // namespace pam
 
-// out (3, nb * L / h): low, mid, high.  x and t2 must be 16-byte aligned.
-// Refuses C·nb >= 2^31 rows (never addressable).  Returns the CUDA error
-// code of the launch (0 on success).
-extern "C" int pam_band_energies(const float* x, const float* t2,
+// out (3, nb * L / h): low, mid, high.  `packed` is the crossover operator
+// of ops/cuda_multiband.py's crossover_packed and wt2 (2, S, L) the
+// transposed state operators.  Returns the CUDA error code of the launch
+// (0 on success); cudaErrorInvalidValue for a shape the kernel does not
+// take.
+extern "C" int pam_band_energies(const float* x, const float* packed,
                                  const float* wt2, const float* s_lp,
                                  const float* s_hp, float* out, int C, int nb,
                                  int L, int S, int h, void* stream) {
-  if (C < 1 || C > pam::kGM || nb < 1 || S < 1 ||
-      2 * S > pam::kGStateDepth || h < 1 || L < pam::kGN ||
-      L % pam::kGN != 0 || L % h != 0 || (long long)C * nb >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  int a = h, b = pam::kGN;  // span = lcm(h, kGN), a divisor of L
+  int a = h, b = pam::wgb::kCols;  // span = lcm(h, 64), a divisor of L
   while (b != 0) {
     const int r = a % b;
     a = b;
     b = r;
   }
-  const int span = h / a * pam::kGN;
-  const int br = pam::kGM / C;
-  const dim3 grid(L / span, (nb + br - 1) / br);
-  cudaError_t err = cudaFuncSetAttribute(
-      pam::band_energies_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)pam::kESmemBytes);
+  pam::wgb::Geometry g;
+  if (h < 1 || !pam::wgb::geometry(C, nb, L, S, h,
+                                   h / a * pam::wgb::kCols, g))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid;
+  CUtensorMap xmap;
+  cudaError_t err =
+      pam::wgb::prepare(pam::band_energies_kernel, x, g, grid, &xmap);
   if (err != cudaSuccess) return (int)err;
-  pam::band_energies_kernel<<<grid, pam::kGThreads, pam::kESmemBytes,
-                              (cudaStream_t)stream>>>(
-      x, t2, wt2, s_lp, s_hp, out, C, nb, L, S, br, h, span);
+  pam::band_energies_kernel<<<grid, pam::wgb::kThreads, pam::wgb::kSmemBytes,
+                              (cudaStream_t)stream>>>(xmap, x, packed, wt2,
+                                                      s_lp, s_hp, out, g);
   return (int)cudaGetLastError();
 }

@@ -1,26 +1,20 @@
 // The blocked-IIR product of a tile on the tensor cores, in 3xTF32, for
-// one filter (front_chain) or the two crossover filters (band_energies,
-// band_gain_apply).
+// one filter (front_chain, kweight_cells; the two crossover filters of the
+// band kernels run on tf32_wgmma.cuh).
 //
 // A block of L samples of a biquad cascade is recomputed from its incoming
 // cascade state as one product, y_blk = x_blk @ T + s_in @ Wt (T (L, L)
-// causal, Wt (S, L) the transposed state operator).  With F filters over
-// the same rows it is one product of depth K = L + F·S:
+// causal, Wt (S, L) the transposed state operator), of depth K = L + S:
 //
-//     F = 1:   y            = [x_blk | s] @ [ T  ]
-//                                            [ Wt ]
+//     y = [x_blk | s] @ [ T  ]
+//                       [ Wt ]
 //
-//     F = 2:   [low | high] = [x_blk | s_lp | s_hp] @ [ T_lp  T_hp ]
-//                                                     [ W_lp   0   ]
-//                                                     [  0    W_hp ]
+// product_tile_tf32<1> computes kGM rows and the 2·kGN output columns j0
+// .. j0 + 2·kGN - 1, and leaves them in shared memory for the kernel's
+// epilogue; the 8 warps hold 32 x 64 warp tiles.
 //
-// product_tile_tf32<F> computes kGM rows and 2·kGN output columns, j0 ..
-// j0 + 2·kGN - 1 of the one filter (F = 1) or j0 .. j0 + kGN - 1 of each
-// band (F = 2), and leaves them in shared memory for the kernel's
-// epilogue.  Either way the 8 warps hold the same 32 x 64 warp tiles.
-//
-// What bounds it on the H100: L(L+1)/2 + F·S·L multiply-adds a filter and
-// row (T's zero triangle skipped), ~75 000 at L = 384, against 8-12 bytes
+// What bounds it on the H100: L(L+1)/2 + S·L multiply-adds a row (T's
+// zero triangle skipped), ~75 000 at L = 384, against 8-12 bytes
 // of signal a row and column: the products.  They run on the tensor cores
 // (mma.sync.m16n8k8.tf32), which TF32 alone would leave at ~3 decimal
 // digits: reduced-precision products put 0.105 max abs error on the chain
@@ -31,31 +25,30 @@
 // to fp32 accuracy at a third of the TF32 rate (495 / 3 TFLOP/s dense
 // against 67 for fp32 on the CUDA cores).
 //
-// Why mma.sync and not wgmma: TF32 wgmma wants both operands K-major in
-// shared memory with swizzled descriptors and 64-row warpgroup tiles; the
-// m16n8k8 fragments are plain per-lane registers loaded from padded,
-// conflict-free shared-memory tiles, which keeps the split into big and
-// small parts a few register instructions beside each fragment load.
+// This is the previous generation's (sm_80) instruction, at the
+// 128-register cliff of two CTAs an SM; the band kernels' product moved to
+// wgmma with a warp-specialised ring (tf32_wgmma.cuh), and front_chain
+// and kweight_cells are to follow it (ROADMAP, queue 2).
 //
 // Staging: a ring of kGStages tiles in shared memory, filled with cp.async
 // (16-byte copies, rows past the last block zero-filled) kGStages - 1
 // tiles ahead of the MMAs.  T is causal (T[k][j] = 0 for j < k), so the
 // tile's columns need only the rows k < (last column + 1) of T: the other
-// k-tiles are never loaded or multiplied, and at F = 1 the warps of the
-// left 64 columns also skip the k-tiles that are zero for them alone.
-// The states and W come first, as one short tile (F·S rows, padded to 8)
+// k-tiles are never loaded or multiplied, and the warps of the left 64
+// columns also skip the k-tiles that are zero for them alone.
+// The states and W come first, as one short tile (S rows, padded to 8)
 // staged before the loop, so that its staging (plain loads and stores)
 // takes no registers beside the live accumulators.
 // A CTA holds kGM = 128 rows, so each operator tile it loads from L2
 // serves 128 rows (the fp32 tile loop that K1-K4 ran first served 32).
 //
-// The states term in fp32 (kFp32States, one filter): where W is large
+// The states term in fp32 (kFp32States): where W is large
 // beside the result, its 3xTF32 rounding dominates the product's error.
 // The K-weighting's near-unit-circle poles give max |Wt| ~70 against
 // |y| ~1, and 3xTF32 s_in @ Wt then errs by ~1.3e-5 of the max, x @ T by
 // ~1e-6 (tests/test_torch_tf32.py).  With kFp32States the states tile is
 // not multiplied on the tensor cores: once the x @ T tile is in shared
-// memory, s_in @ Wt (F·S <= 16 multiply-adds an element, ~2 % of the
+// memory, s_in @ Wt (S <= 16 multiply-adds an element, ~2 % of the
 // product at S = 4, L = 384) is added to it with fmaf on the CUDA cores.
 //
 // cp.async copies the signal raw, so a transform of x (front_chain's
@@ -89,7 +82,7 @@ constexpr int kGAStride = kGK + 4;        // A tile row: conflict-free frags
 constexpr int kGBStride = 2 * kGN + 8;    // B tile row: conflict-free frags
 constexpr int kGEStride = 2 * kGN + 4;    // result tile row
 constexpr int kGStageFloats = kGM * kGAStride + kGK * kGBStride;
-constexpr int kGStateDepth = 16;  // F·S <= 16: the states tile <= 2 k-steps
+constexpr int kGStateDepth = 16;  // S <= 16: the states tile <= 2 k-steps
 // the ring, then the row index of every tile row
 constexpr size_t kGSmemBytes =
     sizeof(float) * kGStages * kGStageFloats + sizeof(int) * kGM;
@@ -148,19 +141,19 @@ struct RawX {
   __device__ __forceinline__ float operator()(float v) const { return v; }
 };
 
-// F filters' product for rows (b0 .. b0+br-1) x (0 .. C-1) and the
-// columns above.  On return smem[t * kGEStride + n] holds row t, column n
-// of the result tile (F = 1: output column j0 + n; F = 2: column j0 + n %
-// kGN of band n / kGN, 0 low, 1 high), and the block is synchronised.
+// The filter's product for rows (b0 .. b0+br-1) x (0 .. C-1) and the
+// columns above.  On return smem[t * kGEStride + n] holds row t, output
+// column j0 + n of the result tile, and the block is synchronised.
+//   F        1 (the filter count; the two-filter product is tf32_wgmma.cuh)
 //   x        (C, nb, L)   raw rows (16-byte aligned, L % 4 == 0)
-//   t        (F, L, L)    zero-state operators (causal; 16-byte aligned)
-//   wt       (F, S, L)    state operators, transposed
-//   s0, s1   (C, nb, S)   incoming states of filter 0 and 1 (s1 unused
-//                         at F = 1)
+//   t        (L, L)       zero-state operator (causal; 16-byte aligned)
+//   wt       (S, L)       state operator, transposed
+//   s0       (C, nb, S)   incoming states
+//   s1       unused (null)
 //   xop      RawX, or a functor float -> float applied to every element
 //            of x (not to the states) before it enters the product
 //   kFp32States  s0 @ Wt in fp32 on the CUDA cores, added to the 3xTF32
-//            x @ T tile (F = 1 only; see the note above)
+//            x @ T tile (see the note above)
 // `smem` holds kGSmemBytes.
 template <int F, typename XOp, bool kFp32States = false>
 __device__ __forceinline__ void product_tile_tf32(
@@ -168,8 +161,7 @@ __device__ __forceinline__ void product_tile_tf32(
     const float* __restrict__ wt, const float* __restrict__ s0,
     const float* __restrict__ s1, int C, int nb, int L, int S, int b0,
     int br, int j0, XOp xop, float* smem) {
-  static_assert(F == 1 || F == 2, "one or two filters");
-  static_assert(F == 1 || !kFp32States, "the fp32 states term: one filter");
+  static_assert(F == 1, "one filter");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -179,10 +171,10 @@ __device__ __forceinline__ void product_tile_tf32(
   const int tg = lane & 3;
   const int rows = br * C;
   // k-tiles of T with nonzero columns in the tile, and in this warp's
-  const int n_x = (j0 + (3 - F) * kGN) / kGK;
-  const int n_x_warp = F == 1 ? (j0 + (wn + 1) * kGN) / kGK : n_x;
+  const int n_x = (j0 + 2 * kGN) / kGK;
+  const int n_x_warp = (j0 + (wn + 1) * kGN) / kGK;
   const int n_tiles = n_x + 1;       // + the states tile
-  const int ks_states = (F * S + 7) / 8;
+  const int ks_states = (S + 7) / 8;
 
   // The (channel, block) row of every tile row (-1 past the last block),
   // worked out once, since a row's channel and block take divisions by C;
@@ -213,14 +205,11 @@ __device__ __forceinline__ void product_tile_tf32(
       const int e = tid + i * kGThreads;
       const int kr = e / (2 * kGN / 4);
       const int n = 4 * (e % (2 * kGN / 4));
-      const int f = F == 2 ? n / kGN : 0;
-      const int col = F == 2 ? n % kGN : n;
-      cp_async16(Bs + kr * kGBStride + n,
-                 t + (size_t)f * L * L + (size_t)(k0 + kr) * L + j0 + col,
+      cp_async16(Bs + kr * kGBStride + n, t + (size_t)(k0 + kr) * L + j0 + n,
                  16);
     }
   };
-  // the states tile: [s0 | s1] @ blockdiag(W_0, W_1)
+  // the states tile: s0 @ Wt
   auto stage_states = [&](int stage) {
     float* As = smem + stage * kGStageFloats;
     float* Bs = As + kGM * kGAStride;
@@ -229,20 +218,13 @@ __device__ __forceinline__ void product_tile_tf32(
       const int r = e / kd;
       const int k = e % kd;
       const int row = row_idx[r];
-      float v = 0.f;
-      if (row >= 0 && k < F * S)
-        v = k < S ? s0[(size_t)row * S + k] : s1[(size_t)row * S + k - S];
-      As[r * kGAStride + k] = v;
+      As[r * kGAStride + k] =
+          row >= 0 && k < S ? s0[(size_t)row * S + k] : 0.f;
     }
     for (int e = tid; e < kd * 2 * kGN; e += kGThreads) {
       const int k = e / (2 * kGN);
       const int n = e % (2 * kGN);
-      const int f = F == 2 ? n / kGN : 0;
-      const int col = F == 2 ? n % kGN : n;
-      float v = 0.f;  // wt row k is filter 0's row k (k < S), else 1's
-      if (k < F * S && (k >= S) == (f == 1))
-        v = wt[(size_t)k * L + j0 + col];
-      Bs[k * kGBStride + n] = v;
+      Bs[k * kGBStride + n] = k < S ? wt[(size_t)k * L + j0 + n] : 0.f;
     }
   };
 
@@ -317,7 +299,7 @@ __device__ __forceinline__ void product_tile_tf32(
     const int next = i + kGStages - 1;
     if (next < n_tiles) stage_x(next - 1, next % kGStages);
     cp_async_commit();
-    if ((F == 2 || i == 0 || i - 1 < n_x_warp) && !(kFp32States && i == 0))
+    if ((i == 0 || i - 1 < n_x_warp) && !(kFp32States && i == 0))
       compute(i % kGStages, i == 0 ? ks_states : kGK / 8);
   }
   cp_async_wait<0>();

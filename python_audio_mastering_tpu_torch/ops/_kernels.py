@@ -44,9 +44,9 @@ _SIGNATURES = {
     # x, t, wt, s_in, out, part, tickets, C, nb, L, S, h, stream
     "pam_kweight_cells": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
-    # x, t2, wt2, s_lp, s_hp, out, C, nb, L, S, h, stream
+    # x, packed, wt2, s_lp, s_hp, out, C, nb, L, S, h, stream
     "pam_band_energies": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, t2, wt2, s_lp, s_hp, cols, y, mono, C, nb, L, S, h, stream
+    # x, packed, wt2, s_lp, s_hp, cols, y, mono, C, nb, L, S, h, stream
     "pam_band_gain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P],
     # m, ca, cr, hmax, lo, hi, stops, ctrl, B, T, stream

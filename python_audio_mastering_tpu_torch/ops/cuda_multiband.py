@@ -14,13 +14,17 @@ Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
   again → recombination with the control-rate gains, plus the mono
   downmix.
 
-All four compute their product on the tensor cores in 3xTF32, through the
-one product tile of ``csrc/tf32_product.cuh``: ``front_chain`` and
-``kweight_cells`` with one filter, ``band_energies`` and
-``band_gain_apply`` with the two crossover filters.  ``kweight_cells``
-adds its states term ``s_in @ Wᵀ`` in fp32 on the CUDA cores (the
-K-weighting's state operator is ~70 times the signal, and 3xTF32 would
-put ~1.3e-5 of the max on it).
+All four compute their product on the tensor cores in 3xTF32:
+``front_chain`` and ``kweight_cells`` through the one-filter product tile
+of ``csrc/tf32_product.cuh`` (``mma.sync``), ``band_energies`` and
+``band_gain_apply`` through the two crossover filters' product of
+``csrc/tf32_wgmma.cuh`` (``wgmma``, a warp-specialised ring fed by bulk
+and TMA copies, a persistent grid), whose operator is split into its TF32
+parts once, here (:func:`crossover_packed`).  ``kweight_cells`` and the
+band kernels add their states term ``s_in @ Wᵀ`` in fp32 on the CUDA
+cores (the K-weighting's state operator is ~70 times the signal, the
+crossovers' up to ~4e4, and 3xTF32 would put ~1.3e-5 and ~7e-6 of the
+max on the product).
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU,
 and launches its kernel for a CUDA tensor or raises: there is no fallback
@@ -68,8 +72,8 @@ __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
            "reset_launch_counts", "plain_calls"]
 
 # csrc/tf32_product.cuh: a tile holds 128 rows, every channel of a block
-# among them, and 128 columns of one filter (64 of each of two), and its
-# states tile filters·S <= 16 columns
+# among them, and 128 columns, and its states tile S <= 16 columns (the
+# band kernels, csrc/tf32_wgmma.cuh, hold 4 states a filter)
 _TF32_TILE_ROWS = 128
 _TF32_TILE_COLS = 128
 _TF32_STATE_DEPTH = 16
@@ -420,6 +424,67 @@ def crossover_operands(sos_lp, sos_hp, L, device, dtype=torch.float32):
                                int(L), torch.device(device), dtype)
 
 
+# csrc/tf32_wgmma.cuh: the band kernels' operator in k-tiles of 32 rows of
+# T by 64 columns of each band, each k-tile a big and a small part of
+# (128, 32) TF32 values (Tᵀ: a row a column of the two bands), swizzled
+# in 16-byte chunks as its B descriptor reads them
+_BAND_COLS = 64
+_BAND_K = 32
+_BAND_STATES = 4               # states a filter the kernels' registers hold
+_TF32_MASK = -8192             # 0xffffe000: sign, exponent, 10 bits
+
+
+def split_tf32(v):
+    """``(big, small)`` of float32 ``v``, bit for bit the kernels'
+    ``split_tf32``: ``big`` is ``v`` rounded to TF32 (ties away from
+    zero), ``small`` the TF32 cut of ``v - big``."""
+    bits = v.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & _TF32_MASK).view(torch.float32)
+    small = ((v - big).view(torch.int32) & _TF32_MASK).view(torch.float32)
+    return big, small
+
+
+def pack_crossover_operator(t2):
+    """The band kernels' operator from ``t2 (2, L, L)`` float32 (``T_lp``,
+    ``T_hp``), on ``t2``'s device: for each column tile ``jt`` (64 columns
+    of each band) the k-tiles ``kt < 2·jt + 2`` (the rows of the causal T
+    with a nonzero column in the tile), tile after tile, each k-tile the
+    big then the small part of ``B[n][k] = T_{n // 64}[32·kt + k][64·jt +
+    n % 64]`` (n < 128, k < 32), its 16-byte chunk ``c`` of row ``n``
+    stored at chunk ``c ^ (n % 8)`` (the 128-byte swizzle).  Returns a flat
+    float32 tensor of ``nt·(nt + 1)·8192`` values, ``nt = L / 64``."""
+    _, L, _ = t2.shape
+    nt, nk = L // _BAND_COLS, L // _BAND_K
+    # (f, kt, k, jt, jj) -> (jt, kt, n = f·64 + jj, k)
+    b = t2.reshape(2, nk, _BAND_K, nt, _BAND_COLS).permute(3, 1, 0, 4, 2)
+    b = b.reshape(nt, nk, 2 * _BAND_COLS, _BAND_K)
+    parts = torch.stack(split_tf32(b), dim=2)     # (jt, kt, part, n, k)
+    n = torch.arange(2 * _BAND_COLS, device=t2.device)
+    chunk = torch.arange(_BAND_K // 4, device=t2.device)
+    src = (chunk[None, :] ^ (n[:, None] % 8))     # stored chunk -> chunk
+    idx = src[:, :, None].expand(2 * _BAND_COLS, _BAND_K // 4, 4)
+    swz = parts.reshape(nt, nk, 2, 2 * _BAND_COLS, _BAND_K // 4, 4).gather(
+        4, idx.expand(nt, nk, 2, *idx.shape))
+    return torch.cat([swz[jt, :2 * jt + 2].reshape(-1)
+                      for jt in range(nt)]).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _crossover_packed(lp_bytes, hp_bytes, k, L, device):
+    t2, _ = _crossover_operands(lp_bytes, hp_bytes, k, L, device,
+                                torch.float32)
+    return pack_crossover_operator(t2)
+
+
+def crossover_packed(sos_lp, sos_hp, L, device):
+    """The band kernels' packed operator for a crossover pair (cached per
+    pair, block size and device; :func:`pack_crossover_operator`)."""
+    lp = np.ascontiguousarray(sos_lp, np.float64)
+    hp = np.ascontiguousarray(sos_hp, np.float64)
+    return _crossover_packed(lp.tobytes(), hp.tobytes(), lp.shape[0],
+                             int(L), torch.device(device))
+
+
 def _bands_ref(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp):
     """Plain band recompute ``band = rows @ T + s_in @ Wᵀ`` → low, high."""
     c, nb, L = xrows.shape
@@ -471,20 +536,24 @@ def _check_hop(L, hop):
 
 
 def _check_band_operands(name, xrows, s_in_lp, s_in_hp, sos_lp, sos_hp):
-    """Validate the band kernels' operands; returns ``(C, nb, L, S, t2,
-    wt2)``."""
+    """Validate the band kernels' operands; returns ``(C, nb, L, S,
+    packed, wt2)`` (:func:`crossover_packed`)."""
     c, nb, L = xrows.shape
     t2, wt2 = crossover_operands(sos_lp, sos_hp, L, xrows.device,
                                  xrows.dtype)
     _, _, _, s = _check_operands(name, xrows, s_in_lp, t2[0], wt2[0].T)
-    _check_tf32_operands(name, xrows, t2, s, filters=2)
+    if s > _BAND_STATES:
+        raise ValueError(f"{name}: the kernel takes at most {_BAND_STATES} "
+                         f"states a filter (the LR4 crossovers' 4), got {s}")
+    packed = crossover_packed(sos_lp, sos_hp, L, xrows.device)
+    _check_tf32_operands(name, xrows, packed, s, filters=2)
     if tuple(s_in_hp.shape) != tuple(s_in_lp.shape) or \
             s_in_hp.dtype != s_in_lp.dtype or \
             s_in_hp.device != xrows.device or not s_in_hp.is_contiguous():
         raise ValueError(f"{name}: the high-pass states must match the "
                          f"low-pass ones {tuple(s_in_lp.shape)}, contiguous "
                          f"float32 on {xrows.device}")
-    return c, nb, L, s, t2, wt2
+    return c, nb, L, s, packed, wt2
 
 
 def band_energies(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp, hop=1):
@@ -501,7 +570,7 @@ def band_energies(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp, hop=1):
     if xrows.device.type == "cpu":
         return band_energies_ref(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp,
                                  hop)
-    c, nb, L, s, t2, wt2 = _check_band_operands(
+    c, nb, L, s, packed, wt2 = _check_band_operands(
         "band_energies", xrows, s_in_lp, s_in_hp, sos_lp, sos_hp)
     _check_hop(L, hop)
     out = torch.empty((3, nb * (L // hop)), dtype=xrows.dtype,
@@ -509,7 +578,7 @@ def band_energies(xrows, s_in_lp, s_in_hp, sos_lp, sos_hp, hop=1):
     lib = _kernels.library().lib
     with torch.cuda.device(xrows.device):
         stream = torch.cuda.current_stream(xrows.device).cuda_stream
-        err = lib.pam_band_energies(_ptr(xrows), _ptr(t2), _ptr(wt2),
+        err = lib.pam_band_energies(_ptr(xrows), _ptr(packed), _ptr(wt2),
                                     _ptr(s_in_lp), _ptr(s_in_hp), _ptr(out),
                                     c, nb, L, s, int(hop), stream)
     _raise_on("band_energies", err)
@@ -531,7 +600,7 @@ def band_gain_apply(xrows, s_in_lp, s_in_hp, cols, sos_lp, sos_hp, hop=1,
     if xrows.device.type == "cpu":
         return band_gain_apply_ref(xrows, s_in_lp, s_in_hp, cols, sos_lp,
                                    sos_hp, hop, emit_mono)
-    c, nb, L, s, t2, wt2 = _check_band_operands(
+    c, nb, L, s, packed, wt2 = _check_band_operands(
         "band_gain_apply", xrows, s_in_lp, s_in_hp, sos_lp, sos_hp)
     _check_hop(L, hop)
     want = (3, nb * (L // hop))
@@ -547,7 +616,8 @@ def band_gain_apply(xrows, s_in_lp, s_in_hp, cols, sos_lp, sos_hp, hop=1,
     with torch.cuda.device(xrows.device):
         stream = torch.cuda.current_stream(xrows.device).cuda_stream
         err = lib.pam_band_gain_apply(
-            _ptr(xrows), _ptr(t2), _ptr(wt2), _ptr(s_in_lp), _ptr(s_in_hp),
+            _ptr(xrows), _ptr(packed), _ptr(wt2), _ptr(s_in_lp),
+            _ptr(s_in_hp),
             _ptr(cols), _ptr(y), None if mono is None else _ptr(mono), c, nb,
             L, s, int(hop), stream)
     _raise_on("band_gain_apply", err)

@@ -541,7 +541,10 @@ def test_band_energies_kernel_matches_plain_at_every_block_and_hop(
                                     "kweight_cells.cu", "sos_scan.cu"])
 def test_kernel_sources_do_not_spill(cuda_device, source):
     """ptxas -v on the rewritten sources: every kernel in them reports 0
-    bytes of spill stores and loads."""
+    bytes of spill stores and loads.  The band kernels are the
+    ``tf32_wgmma.cuh`` product's (their entries take its ``wgb::Geometry``):
+    with ``setmaxnreg`` the consumers hold more registers than the 96 of
+    the launch, and still spill nothing."""
     import re
 
     from python_audio_mastering_tpu_torch.ops import _kernels
@@ -553,6 +556,100 @@ def test_kernel_sources_do_not_spill(cuda_device, source):
                         section)
     assert spills, section
     assert all(a == "0" and b == "0" for a, b in spills), section
+    if source.startswith("band_"):
+        assert "wgb8Geometry" in section, section
+
+
+def _band_kernel_sass():
+    """``{kernel name: SASS}`` of the band kernels in the built library
+    (``cuobjdump -sass``, from the toolkit that built it)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from python_audio_mastering_tpu_torch.ops import _kernels
+
+    cuobjdump = Path(_kernels._nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_kernels.library().path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0]
+        for kernel in ("band_energies_kernel", "band_gain_apply_kernel"):
+            if kernel in name:
+                out[kernel] = fn
+    return out
+
+
+@pytest.mark.cuda
+def test_band_kernels_run_tf32_wgmma_and_no_mma_sync(cuda_device):
+    """The design guard of K2 and K3: their SASS holds warpgroup MMAs on
+    TF32 (``HGMMA ... TF32``, wgmma's instruction) and no ``HMMA``
+    (``mma.sync``, the previous generation's), and no local-memory
+    spills."""
+    import re
+
+    sass = _band_kernel_sass()
+    assert sorted(sass) == ["band_energies_kernel", "band_gain_apply_kernel"]
+    for kernel, text in sass.items():
+        hgmma = [line for line in text.splitlines() if "HGMMA" in line]
+        print(kernel, len(hgmma), "HGMMA;", hgmma[0].strip() if hgmma
+              else "")
+        assert hgmma and all("TF32" in line for line in hgmma), kernel
+        assert not re.search(r"\bHMMA\b", text), kernel
+        assert not re.search(r"\b(STL|LDL)\b", text), kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("channels", "nb"), [
+    (2, 1), (1, 1), (2, 63), (2, 65), (3, 43), (1, 129),
+    (2, 12 * 2940)])
+def test_band_kernels_on_the_persistent_grid(cuda_device, channels, nb):
+    """K2 and K3 over grids of one item, a partial row tile (63 blocks of
+    the 64 a stereo tile holds; 129 mono blocks), one block past a tile,
+    and the album chunk's rows (12 tracks x 2940 blocks, stereo), hop 8
+    and (K2) hop 3, against their plain twins within 1e-4 of the max."""
+    bargs, cols = _band_operands(channels, nb, cuda_device)
+    for hop in (8, 3):
+        got = cmb.band_energies(*bargs, hop=hop)
+        ref = cmb.band_energies_ref(*bargs, hop=hop)
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    got = cmb.band_gain_apply(*bargs[:3], cols, *bargs[3:], hop=8,
+                              emit_mono=True)
+    ref = cmb.band_gain_apply_ref(*bargs[:3], cols, *bargs[3:], hop=8,
+                                  emit_mono=True)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert ((g - r).abs().max() / r.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [3, 8])
+def test_band_kernels_give_the_same_bits_twice(cuda_device, hop):
+    """Every bucket and sample is summed in one fixed order by one thread
+    (no atomics, a static schedule): two launches agree bit for bit."""
+    bargs, cols = _band_operands(2, 700, cuda_device, hop=hop)
+    e1, e2 = (cmb.band_energies(*bargs, hop=hop) for _ in range(2))
+    y1, y2 = (cmb.band_gain_apply(*bargs[:3], cols, *bargs[3:], hop=hop,
+                                  emit_mono=True) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(e1, e2)
+    assert torch.equal(y1[0], y2[0]) and torch.equal(y1[1], y2[1])
+
+
+@pytest.mark.cuda
+def test_band_kernels_refuse_more_states_than_their_registers_hold(
+        cuda_device):
+    """The wgmma band kernels hold 4 states a filter (the LR4 crossovers'):
+    a 6th-order cascade (S = 6) is refused before a launch."""
+    (xrows, s_lp, s_hp, *_), cols = _band_operands(2, 9, cuda_device)
+    sos = butter_sos(6, 250.0, "lowpass", fs=44100)
+    s6 = torch.zeros((2, 9, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 4 states"):
+        cmb.band_energies(xrows, s6, s6, sos, sos, hop=8)
+    with pytest.raises(ValueError, match="at most 4 states"):
+        cmb.band_gain_apply(xrows, s6, s6, cols, sos, sos, hop=8)
 
 
 @pytest.mark.cuda

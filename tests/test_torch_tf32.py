@@ -11,7 +11,10 @@ Wt]`` for every EQ preset, and the crossover product of K2
 ``band_energies`` and K3 ``band_gain_apply`` at 44.1 and 48 kHz.  Each is
 held against the float64 product of the same operands within 1e-4 of its
 largest value, the limit ``chip_smoke.py`` holds the kernels to against
-their plain versions.  K4 ``kweight_cells`` splits its product: ``x @ T``
+their plain versions.  K2 and K3 now run on ``csrc/tf32_wgmma.cuh``,
+which splits their product as K4 does (:func:`band_product_emulated`);
+the all-3xTF32 crossover product stays as the yardstick it is held
+against.  K4 ``kweight_cells`` splits its product: ``x @ T``
 in 3xTF32 and the states term ``s @ Wt`` in fp32 (the K-weighting's state
 operator is ~70 times the signal, and its 3xTF32 rounding dominates the
 all-3xTF32 product's error); :func:`kweight_product_emulated` is that
@@ -163,6 +166,47 @@ def test_crossover_operands_hold_in_3xtf32(fs, block):
                    torch.cat([wt2[0], zeros], dim=1),
                    torch.cat([zeros, wt2[1]], dim=1)], dim=0)
     _check(f"K2/K3 crossover {fs} Hz, block {block}", a.numpy(), b.numpy())
+
+
+def band_product_emulated(x, s_lp, s_hp, t2, wt2):
+    """K2's and K3's ``[low | high]`` as ``csrc/tf32_wgmma.cuh`` forms them:
+    ``x @ T_f`` in 3xTF32, then the states term ``s_f @ Wt_f`` in fp32
+    added to it (float32 rows)."""
+    return np.concatenate([
+        kweight_product_emulated(x, s, t2[f], wt2[f])
+        for f, s in enumerate((s_lp, s_hp))], axis=1)
+
+
+@pytest.mark.parametrize("block", [128, 256, 384, 512])
+@pytest.mark.parametrize("fs", [44100, 48000])
+def test_crossover_operands_hold_with_the_states_term_in_fp32(fs, block):
+    """K2's and K3's product as the wgmma kernels split it (``x @ T`` in
+    3xTF32, the states term in fp32) holds the float64 product within
+    1e-4 of its max, and errs no more than the all-3xTF32 product of the
+    ``mma.sync`` kernels it replaced (printed beside it): the low-pass
+    state operator reaches ~4e4, and its 3xTF32 rounding dominated."""
+    sos = mb._crossover_sos(fs, 250.0, 4000.0)
+    xrows = _rows(2, 40, block, fs, seed=2)
+    (s_lp, s_hp), _ = iir.sosfilt_states_multi_rows(sos, xrows)
+    t2, wt2 = (v.numpy() for v in cmb.crossover_operands(*sos, block, "cpu"))
+    x = xrows.reshape(80, -1).numpy()
+    s_lp, s_hp = (v.reshape(80, -1).numpy() for v in (s_lp, s_hp))
+    ref = np.concatenate([x.astype(np.float64) @ t2[f]
+                          + s.astype(np.float64) @ wt2[f]
+                          for f, s in enumerate((s_lp, s_hp))], axis=1)
+    scale = np.abs(ref).max()
+    split = np.abs(band_product_emulated(x, s_lp, s_hp, t2, wt2)
+                   - ref).max() / scale
+    zeros = np.zeros_like(wt2[0])
+    whole = np.abs(product_3xtf32(
+        np.concatenate([x, s_lp, s_hp], 1),
+        np.block([[t2[0], t2[1]], [wt2[0], zeros], [zeros, wt2[1]]]))
+        - ref).max() / scale
+    print(f"K2/K3 {fs} Hz, block {block}: x @ T in 3xTF32 + fp32 states "
+          f"term {split:.3e} of the max (all in 3xTF32 {whole:.3e}; max "
+          f"|Wt| {np.abs(wt2).max():.3g})")
+    assert split <= LIMIT, split
+    assert split <= whole, (split, whole)
 
 
 @pytest.mark.parametrize("channels", [1, 2])
