@@ -23,12 +23,13 @@ Phases:
 
   0  device, torch/CUDA versions, TF32 flags (refuses without a GPU)
   1  build the kernels (nvcc, sm_90a)
-  2  front_chain kernel (3xTF32 on the tensor cores) vs plain (fp32
-     cuBLAS), (2, 20672, 384), emit_mono off and on: max abs <= 1e-4
-  3  kweight_cells kernel (x @ T in 3xTF32 on the tensor cores, the states
-     term in fp32) vs plain, (1, 20672, 384), at the chain's h = 6 and at
-     h = 192 (48 kHz's bucket, which spans column tiles): max |diff| /
-     max |plain| <= 1e-4
+  2  front_chain kernel (x @ T in 3xTF32 on wgmma after the exciter, the
+     states term in fp32) vs plain (fp32 cuBLAS), (2, 20672, 384),
+     emit_mono off and on: max abs <= 1e-4
+  3  kweight_cells kernel (x @ T in 3xTF32 on wgmma, the states term in
+     fp32) vs plain, (1, 20672, 384), at the chain's h = 6 and at h = 192
+     (48 kHz's bucket, which spans three 64-column tiles): max |diff| /
+     max |plain| <= 1e-4, and a second launch bitwise the first
   4  master() without a device argument: on the card, finite, |y| <= 1,
      BS.1770 oracle loudness within 0.15 LU of -14, both kernels
      launched, and within 2e-4 max abs / 1e-3 LU of the port's plain path
@@ -64,6 +65,7 @@ Phases:
  10  multiband master(): finite, |y| <= 1, oracle loudness within 0.15 LU
      of -14, every kernel of the path launched (replay_bnd once: the
      whole fixed point is one launch), host synchronisations
+     counted (no more than 10), the samples over 2e-4 from the CPU path
      counted, and within 1.2e-3 max abs / 1.3e-5 rms / 1e-3 LU of the
      port's plain path on the CPU (the JAX package's on-chip
      kernels-vs-XLA residual from detector threshold flips)
@@ -385,7 +387,8 @@ ran).
 
 Exits non-zero at the first failed phase.  The last two lines of output
 are the kernel record (each kernel's ``launches`` from phases 4 and 10,
-``album_launches`` / ``album_max_abs_err`` / ``album_ms`` from phases
+K1-K4's ``design``, K4's ``streamed_chunk_ms`` from phase 6, K3's
+``phase10_over_2e4`` (phase 10's samples over 2e-4), ``album_launches`` / ``album_max_abs_err`` / ``album_ms`` from phases
 18 and 21, ``legacy_launches`` from phases 22 and 23, and
 ``automaster_launches`` (one fit step) and, for K1 and K4,
 ``vjp_rel_err`` from phases 26 and 28, and ``sp_launches``, rank 0's in
@@ -453,6 +456,9 @@ HBM_BYTES = 3.35e12   # H100 SXM, HBM3 bytes/s
 # multiband card vs CPU path: the JAX package's on-chip kernels-vs-XLA
 # residual from detector threshold flips (DESIGN.md:126-129)
 MB_MAX, MB_RMS = 1.2e-3, 1.3e-5
+# phase 10's host synchronisations: no more than 10 (8 of them operator
+# uploads)
+MB_MAX_SYNCS = 10
 # the band kernels on mma.sync with the states term in 3xTF32, H100 700 W
 # (PERF.md, PR 14): phases 7-8's max |diff| / max |plain|, and phase 10's
 # samples over 2e-4 from the CPU path
@@ -507,6 +513,21 @@ REPLACES = {
     "sos_scan": "python_audio_mastering_tpu/ops/iir.py:67",
 }
 _CSRC = "python_audio_mastering_tpu_torch/csrc"
+# the tensor-core kernels' design, in the kernel record
+_WGMMA = (f"{_CSRC}/tf32_wgmma.cuh: x @ T in 3xTF32 on wgmma (the signal "
+          f"split in registers, a pre-split packed operator by bulk copies, "
+          f"the signal by TMA, a warp-specialised ring, a persistent grid), "
+          f"the states term in fp32 on epilogue warpgroups")
+DESIGNS = {
+    "front_chain": {"design": f"{_WGMMA}; one filter, 128-column tiles, "
+                              f"the exciter in the consumers' registers"},
+    "kweight_cells": {"design": f"{_WGMMA}; one filter, 64-column tiles, "
+                                f"items of lcm(h, 64) columns, buckets "
+                                f"carried across a span's tiles"},
+    "band_energies": {"design": f"{_WGMMA}; two filters, 64 columns each"},
+    "band_gain_apply": {"design": f"{_WGMMA}; two filters, 64 columns "
+                                  f"each"},
+}
 SOURCES = {
     "front_chain": f"{_CSRC}/front_chain.cu",
     "kweight_cells": f"{_CSRC}/kweight_cells.cu",
@@ -935,9 +956,11 @@ def main():
     k4_args = (mono, s_kw, kw.t, kw.w, h)
     err = 0.0
     for hh in K4_HOPS:
-        err = max(err, compare(f"phase 3 kweight_cells h={hh}",
-                               cmb.kweight_cells(*k4_args[:4], hh),
+        got = cmb.kweight_cells(*k4_args[:4], hh)
+        err = max(err, compare(f"phase 3 kweight_cells h={hh}", got,
                                cmb.kweight_cells_ref(*k4_args[:4], hh), 1e-4))
+        check_bitwise(f"phase 3 kweight_cells h={hh}, a second launch",
+                      cmb.kweight_cells(*k4_args[:4], hh), got)
     kernels["kweight_cells"] = {"max_abs_err": err}
     print("phase 3 ok", flush=True)
 
@@ -1052,6 +1075,8 @@ def main():
     c_bnd, _ = kweight_bounds(CHUNK_BLOCKS, L, s_k4,
                               nbytes(*chunk, kw.t, kw.w)
                               + 4 * CHUNK_BLOCKS * (L // h))
+    kernels["kweight_cells"].update(streamed_chunk_ms=k4_chunk,
+                                    streamed_chunk_bound_ms=c_bnd["bound_ms"])
     print(f"phase 6 kweight_cells at the streamed chunk {tuple(chunk[0].shape)}"
           f": kernel {k4_chunk:.4f} ms, bound {c_bnd['bound_ms']:.4f} ms "
           f"({c_bnd['bound_by']})")
@@ -1069,7 +1094,8 @@ def main():
     k5_phase(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], **kernels[name]}
+               "replaces": REPLACES[name], **DESIGNS.get(name, {}),
+               **kernels[name]}
               for name in NO_MB_KERNELS + MB_KERNELS + ("sos_scan",)]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
@@ -1253,6 +1279,9 @@ def multiband_phases(o, kernels):
           f" on the CPU): max abs {d_max:.3e}, rms {d_rms:.3e}, |dLUFS| "
           f"{d_lufs:.3e}; elements over 2e-4: {int((d > 2e-4).sum())} (the "
           f"band kernels on mma.sync: {MMA_SYNC_OVER_2E4})")
+    kernels["band_gain_apply"]["phase10_over_2e4"] = int((d > 2e-4).sum())
+    check(syncs <= MB_MAX_SYNCS, f"{syncs} host synchronisations in the "
+                                 f"multiband master(), over {MB_MAX_SYNCS}")
     check(d_max < MB_MAX, f"card vs CPU max abs {d_max} >= {MB_MAX}")
     check(d_rms < MB_RMS, f"card vs CPU rms {d_rms} >= {MB_RMS}")
     check(d_lufs < 1e-3, f"card vs CPU |dLUFS| {d_lufs} >= 1e-3")

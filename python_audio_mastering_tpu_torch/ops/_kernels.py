@@ -38,12 +38,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # x, t, wt, s_in, y, mono, C, nb, L, S, dry, wet, drive, width, stream
+    # x, packed, wt, s_in, y, mono, C, nb, L, S, dry, wet, drive, width,
+    # stream
     "pam_front_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                         _F, _P],
-    # x, t, wt, s_in, out, part, tickets, C, nb, L, S, h, stream
-    "pam_kweight_cells": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P],
+    # x, packed, wt, s_in, out, C, nb, L, S, h, stream
+    "pam_kweight_cells": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, packed, wt2, s_lp, s_hp, out, C, nb, L, S, h, stream
     "pam_band_energies": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, packed, wt2, s_lp, s_hp, cols, y, mono, C, nb, L, S, h, stream

@@ -14,17 +14,18 @@ Counterpart of ``python_audio_mastering_tpu.ops.pallas_multiband``:
   again → recombination with the control-rate gains, plus the mono
   downmix.
 
-All four compute their product on the tensor cores in 3xTF32:
-``front_chain`` and ``kweight_cells`` through the one-filter product tile
-of ``csrc/tf32_product.cuh`` (``mma.sync``), ``band_energies`` and
-``band_gain_apply`` through the two crossover filters' product of
-``csrc/tf32_wgmma.cuh`` (``wgmma``, a warp-specialised ring fed by bulk
-and TMA copies, a persistent grid), whose operator is split into its TF32
-parts once, here (:func:`crossover_packed`).  ``kweight_cells`` and the
-band kernels add their states term ``s_in @ Wᵀ`` in fp32 on the CUDA
-cores (the K-weighting's state operator is ~70 times the signal, the
-crossovers' up to ~4e4, and 3xTF32 would put ~1.3e-5 and ~7e-6 of the
-max on the product).
+All four compute their product on the tensor cores in 3xTF32 on Hopper's
+``wgmma``, through ``csrc/tf32_wgmma.cuh`` (a warp-specialised ring fed by
+bulk and TMA copies, a persistent grid): ``band_energies`` and
+``band_gain_apply`` the two crossover filters' product in 64 columns of
+each, ``front_chain`` the EQ's in 128-column tiles and ``kweight_cells``
+the K-weighting's in 64-column tiles.  Each operator is split into its
+TF32 parts once, here, and laid out as the kernels read it
+(:func:`pack_operator`; :func:`crossover_packed` for the band kernels,
+:func:`packed_operator` for the one-filter ones).  All four add their
+states term ``s_in @ Wᵀ`` in fp32 on the CUDA cores (the K-weighting's
+state operator is ~70 times the signal, the crossovers' up to ~4e4, and
+3xTF32 would put ~1.3e-5 and ~7e-6 of the max on the product).
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU,
 and launches its kernel for a CUDA tensor or raises: there is no fallback
@@ -52,6 +53,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from python_audio_mastering_tpu_torch.ops import _kernels, ballistics
 from python_audio_mastering_tpu_torch.ops._kernels import ptr as _ptr
@@ -71,12 +73,15 @@ __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
            "band_gain_apply", "band_gain_apply_ref", "launch_counts",
            "reset_launch_counts", "plain_calls"]
 
-# csrc/tf32_product.cuh: a tile holds 128 rows, every channel of a block
-# among them, and 128 columns, and its states tile S <= 16 columns (the
-# band kernels, csrc/tf32_wgmma.cuh, hold 4 states a filter)
+# csrc/tf32_wgmma.cuh: a tile holds 128 rows, every channel of a block
+# among them; the wrappers take L a multiple of 128 (K1's tile width) and
+# at most 16 state columns (the one-filter kernels' 16 states; the band
+# kernels hold 4 states a filter, _BAND_STATES)
 _TF32_TILE_ROWS = 128
 _TF32_TILE_COLS = 128
 _TF32_STATE_DEPTH = 16
+_FRONT_COLS = 128              # K1's column tile (csrc/front_chain.cu)
+_CELLS_COLS = 64               # K4's column tile (csrc/kweight_cells.cu)
 
 
 def front_chain_ref(xrows, s_in_eq, t_eq, w_eq, saturation, width,
@@ -137,10 +142,11 @@ def _check_operands(name, xrows, s_in, t, w):
 def _check_tf32_operands(name, xrows, t, s, filters):
     """What the tensor-core kernels take beyond :func:`_check_operands`.
 
-    They copy the rows and ``T`` in 16-byte chunks, and hold ``filters·S``
-    state columns in one short tile.  Row offsets are 64-bit and row
-    indices 32-bit: only ``C·nb >= 2^31`` rows are refused, over 1 TiB of
-    float32 signal at these block sizes, which no card can address."""
+    They copy the rows (by TMA) and the packed operator ``t`` (by bulk
+    copies) from 16-byte boundaries, and take at most ``16 / filters``
+    states a filter.  Row offsets are 64-bit and row indices 32-bit: only
+    ``C·nb >= 2^31`` rows are refused, over 1 TiB of float32 signal at
+    these block sizes, which no card can address."""
     c, nb, _ = xrows.shape
     if filters * s > _TF32_STATE_DEPTH:
         raise ValueError(f"{name}: the kernel takes at most "
@@ -200,8 +206,8 @@ def _front_chain_forward(xrows, s_in_eq, t_eq, w_eq, coefs, width,
         return front_chain_ref(xrows, s_in_eq, t_eq, w_eq, coefs, width,
                                emit_mono)
     c, nb, L, s = _check_operands("front_chain", xrows, s_in_eq, t_eq, w_eq)
-    t_eq = t_eq.contiguous()
-    _check_tf32_operands("front_chain", xrows, t_eq, s, filters=1)
+    packed = packed_operator(t_eq, _FRONT_COLS)
+    _check_tf32_operands("front_chain", xrows, packed, s, filters=1)
     y = torch.empty_like(xrows)
     mono = (torch.empty((nb, L), dtype=xrows.dtype, device=xrows.device)
             if emit_mono else None)
@@ -211,28 +217,12 @@ def _front_chain_forward(xrows, s_in_eq, t_eq, w_eq, coefs, width,
     with torch.cuda.device(xrows.device):
         stream = torch.cuda.current_stream(xrows.device).cuda_stream
         err = lib.pam_front_chain(
-            _ptr(xrows), _ptr(t_eq), _ptr(wt), _ptr(s_in_eq), _ptr(y),
+            _ptr(xrows), _ptr(packed), _ptr(wt), _ptr(s_in_eq), _ptr(y),
             None if mono is None else _ptr(mono), c, nb, L, s, dry, wet,
             drive, float(width), stream)
     _raise_on("front_chain", err)
     front_chain.launches += 1
     return (y, mono) if emit_mono else y
-
-
-_TICKETS = {}
-
-
-def _tickets(device, stream, groups):
-    """``kweight_cells``' row-group tickets on ``(device, stream)``: int32
-    zeros, at least ``groups`` of them.  The kernel's last CTA of a group
-    sets its ticket back to 0, so one buffer serves every launch on the
-    stream; it is allocated again only to grow."""
-    key = (device, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < groups:
-        buf = _TICKETS[key] = torch.zeros(groups, dtype=torch.int32,
-                                          device=device)
-    return buf
 
 
 def kweight_cells(xrows, s_in, t_kw, w_kw, hop):
@@ -259,28 +249,17 @@ def _kweight_cells_forward(xrows, s_in, t_kw, w_kw, hop):
         return kweight_cells_ref(xrows, s_in, t_kw, w_kw, hop)
     c, nb, L, s = _check_operands("kweight_cells", xrows, s_in, t_kw, w_kw)
     _check_hop(L, hop)
-    t_kw = t_kw.contiguous()
-    _check_tf32_operands("kweight_cells", xrows, t_kw, s, filters=1)
+    packed = packed_operator(t_kw, _CELLS_COLS)
+    _check_tf32_operands("kweight_cells", xrows, packed, s, filters=1)
     out = torch.empty((c, nb * (L // hop)), dtype=xrows.dtype,
                       device=xrows.device)
     wt = w_kw.T.contiguous()
-    part = tickets = None
     lib = _kernels.library().lib
     with torch.cuda.device(xrows.device):
         stream = torch.cuda.current_stream(xrows.device).cuda_stream
-        if _TF32_TILE_COLS % hop:
-            # buckets cross column tiles: the tiles' pieces of them, and a
-            # ticket a row group that finds the last tile to finish
-            groups = -(-nb // (_TF32_TILE_ROWS // c))
-            part = torch.empty((groups, L // _TF32_TILE_COLS,
-                                _TF32_TILE_ROWS, 2), dtype=torch.float32,
-                               device=xrows.device)
-            tickets = _tickets(xrows.device, stream, groups)
-        err = lib.pam_kweight_cells(_ptr(xrows), _ptr(t_kw), _ptr(wt),
-                                    _ptr(s_in), _ptr(out),
-                                    None if part is None else _ptr(part),
-                                    None if tickets is None else _ptr(tickets),
-                                    c, nb, L, s, int(hop), stream)
+        err = lib.pam_kweight_cells(_ptr(xrows), _ptr(packed), _ptr(wt),
+                                    _ptr(s_in), _ptr(out), c, nb, L, s,
+                                    int(hop), stream)
     _raise_on("kweight_cells", err)
     kweight_cells.launches += 1
     return out
@@ -424,10 +403,10 @@ def crossover_operands(sos_lp, sos_hp, L, device, dtype=torch.float32):
                                int(L), torch.device(device), dtype)
 
 
-# csrc/tf32_wgmma.cuh: the band kernels' operator in k-tiles of 32 rows of
-# T by 64 columns of each band, each k-tile a big and a small part of
-# (128, 32) TF32 values (Tᵀ: a row a column of the two bands), swizzled
-# in 16-byte chunks as its B descriptor reads them
+# csrc/tf32_wgmma.cuh: an operator in k-tiles of 32 rows of T by the
+# columns of a column tile (64 of each band, 128 or 64 of one filter),
+# each k-tile a big and a small part of (N, 32) TF32 values (Tᵀ: a row a
+# column), swizzled in 16-byte chunks as its B descriptor reads them
 _BAND_COLS = 64
 _BAND_K = 32
 _BAND_STATES = 4               # states a filter the kernels' registers hold
@@ -444,29 +423,65 @@ def split_tf32(v):
     return big, small
 
 
+def pack_operator(ts, cols):
+    """The tensor-core kernels' operator from ``ts (F, L, L)`` float32
+    (``T`` of each of F filters), on ``ts``' device, for column tiles of
+    ``cols`` columns of each filter: for each column tile ``jt`` the
+    k-tiles ``kt < (jt + 1)·cols / 32`` (the rows of the causal T with a
+    nonzero column in the tile), tile after tile, each k-tile the big then
+    the small part of ``B[n][k] = T_{n // cols}[32·kt + k][cols·jt + n %
+    cols]`` (n < F·cols, k < 32), its 16-byte chunk ``c`` of row ``n``
+    stored at chunk ``c ^ (n % 8)`` (the 128-byte swizzle).  Returns a
+    flat float32 tensor of ``q·nt·(nt + 1)·F·cols·32`` values, ``nt =
+    L / cols``, ``q = cols / 32``."""
+    f, L, _ = ts.shape
+    n_cols = f * cols
+    nt, nk, q = L // cols, L // _BAND_K, cols // _BAND_K
+    # (f, kt, k, jt, jj) -> (jt, kt, n = f·cols + jj, k)
+    b = ts.reshape(f, nk, _BAND_K, nt, cols).permute(3, 1, 0, 4, 2)
+    b = b.reshape(nt, nk, n_cols, _BAND_K)
+    parts = torch.stack(split_tf32(b), dim=2)     # (jt, kt, part, n, k)
+    n = torch.arange(n_cols, device=ts.device)
+    chunk = torch.arange(_BAND_K // 4, device=ts.device)
+    src = (chunk[None, :] ^ (n[:, None] % 8))     # stored chunk -> chunk
+    idx = src[:, :, None].expand(n_cols, _BAND_K // 4, 4)
+    swz = parts.reshape(nt, nk, 2, n_cols, _BAND_K // 4, 4).gather(
+        4, idx.expand(nt, nk, 2, *idx.shape))
+    return torch.cat([swz[jt, :q * (jt + 1)].reshape(-1)
+                      for jt in range(nt)]).contiguous()
+
+
 def pack_crossover_operator(t2):
     """The band kernels' operator from ``t2 (2, L, L)`` float32 (``T_lp``,
-    ``T_hp``), on ``t2``'s device: for each column tile ``jt`` (64 columns
-    of each band) the k-tiles ``kt < 2·jt + 2`` (the rows of the causal T
-    with a nonzero column in the tile), tile after tile, each k-tile the
-    big then the small part of ``B[n][k] = T_{n // 64}[32·kt + k][64·jt +
-    n % 64]`` (n < 128, k < 32), its 16-byte chunk ``c`` of row ``n``
-    stored at chunk ``c ^ (n % 8)`` (the 128-byte swizzle).  Returns a flat
-    float32 tensor of ``nt·(nt + 1)·8192`` values, ``nt = L / 64``."""
-    _, L, _ = t2.shape
-    nt, nk = L // _BAND_COLS, L // _BAND_K
-    # (f, kt, k, jt, jj) -> (jt, kt, n = f·64 + jj, k)
-    b = t2.reshape(2, nk, _BAND_K, nt, _BAND_COLS).permute(3, 1, 0, 4, 2)
-    b = b.reshape(nt, nk, 2 * _BAND_COLS, _BAND_K)
-    parts = torch.stack(split_tf32(b), dim=2)     # (jt, kt, part, n, k)
-    n = torch.arange(2 * _BAND_COLS, device=t2.device)
-    chunk = torch.arange(_BAND_K // 4, device=t2.device)
-    src = (chunk[None, :] ^ (n[:, None] % 8))     # stored chunk -> chunk
-    idx = src[:, :, None].expand(2 * _BAND_COLS, _BAND_K // 4, 4)
-    swz = parts.reshape(nt, nk, 2, 2 * _BAND_COLS, _BAND_K // 4, 4).gather(
-        4, idx.expand(nt, nk, 2, *idx.shape))
-    return torch.cat([swz[jt, :2 * jt + 2].reshape(-1)
-                      for jt in range(nt)]).contiguous()
+    ``T_hp``): :func:`pack_operator` in column tiles of 64 columns of each
+    band, ``nt·(nt + 1)·8192`` values, ``nt = L / 64``."""
+    return pack_operator(t2, _BAND_COLS)
+
+
+# the one-filter kernels' packed operators, by the T tensor they were
+# packed from (an entry goes with its tensor) and column tile width
+_PACKED = WeakIdKeyDictionary()
+
+
+def packed_operator(t, cols):
+    """K1's (``cols`` 128) or K4's (64) operator for ``T (L, L)``
+    (:func:`pack_operator` of one filter), on ``t``'s device.  Cached with
+    the operator: per T tensor (so per device: the chain's EQ operators of
+    ``MasteringChain.eq_ops`` and its K-weighting buffer are packed once)
+    and column width, packed again if ``t`` was written in place.  A ``t``
+    that requires grad (built in the automaster's graph every step) is
+    packed on each call, on the device, outside the graph, and not
+    cached."""
+    if t.requires_grad:
+        with torch.no_grad():
+            return pack_operator(t.detach()[None], cols)
+    cached = _PACKED.get(t)
+    if cached is None:
+        cached = _PACKED[t] = {}
+    hit = cached.get(cols)
+    if hit is None or hit[0] != t._version:
+        hit = cached[cols] = (t._version, pack_operator(t[None], cols))
+    return hit[1]
 
 
 @functools.lru_cache(maxsize=16)

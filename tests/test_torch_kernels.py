@@ -10,8 +10,8 @@ others check the wrappers' device dispatch on the CPU.  K1 and K4 under
 autograd (the kernel forward, the VJP written out in plain torch) against
 autograd through their plain twins: within 1e-5 of each gradient's max.  Kernel vs plain
 on the card: fp32 sums in another order, max abs ≤ 1e-4 (K2, K4:
-relative to the largest value; K1-K4 run their products in 3xTF32 on the
-tensor cores, close to fp32, K4 its states term in fp32); the ballistics
+relative to the largest value; K1-K4 run their products in 3xTF32 on
+``wgmma``, close to fp32, and their states term in fp32); the ballistics
 kernels K5-K7 run the plain version's float operations in its order, so
 they agree bitwise.
 The multiband chain on the card vs the CPU path: max abs < 5e-3, rms <
@@ -205,13 +205,13 @@ def test_front_chain_kernel_matches_plain(cuda_device, block, channels,
 @pytest.mark.parametrize("block", [128, 256, 384, 512])
 def test_kweight_cells_kernel_matches_plain(cuda_device, block, fs,
                                             channels):
-    """K4 (x @ T in 3xTF32, the states term in fp32) at every block size:
-    h = 6 at 44.1 kHz and 192 at 48 kHz with block 384 (buckets that cross
-    the 128-column tiles, joined by the row group's last CTA), 2 and 64 at
-    the other sizes; nb = 99 leaves a ragged last row tile, and 3 channels
-    a tile of 126 rows.  Limit: the chip smoke's, 1e-4 of the max.  A
-    second launch gives the same bits: the last CTA of each row group set
-    its ticket back to 0."""
+    """K4 (x @ T in 3xTF32 on wgmma, the states term in fp32) at every
+    block size: h = 6 at 44.1 kHz and 192 at 48 kHz with block 384
+    (buckets that cross the 64-column tiles, carried across a span's tiles
+    in shared memory), 2 and 64 at the other sizes; nb = 99 leaves a
+    ragged last row tile, and 3 channels a tile of 126 rows.  Limit: the
+    chip smoke's, 1e-4 of the max.  A second launch gives the same bits:
+    each bucket is summed in one fixed order, with no atomics."""
     args = _kweight_operands(channels, 99, cuda_device, fs, block)
     before = cmb.kweight_cells.launches
     got = cmb.kweight_cells(*args)
@@ -220,7 +220,32 @@ def test_kweight_cells_kernel_matches_plain(cuda_device, block, fs,
     ref = cmb.kweight_cells_ref(*args)
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
     assert torch.equal(cmb.kweight_cells(*args), got)
-    assert all(int(t.abs().sum()) == 0 for t in cmb._TICKETS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("channels", "nb"), [(1, 2940), (2, 2940),
+                                              (1, 257), (2, 129), (3, 43)])
+@pytest.mark.parametrize("fs", [44100, 48000])
+def test_one_filter_kernels_on_the_persistent_grid(cuda_device, fs,
+                                                   channels, nb):
+    """K1 and K4 at the streamed runner's chunk (2940 blocks: 23 mono row
+    tiles, the last of 124 blocks) and at row counts that are not a
+    multiple of a tile's (257 mono blocks of 128 a tile, 129 stereo of 64,
+    43 of 42 at three channels), against their plain twins at their
+    limits (K1 1e-4 abs with and without mono, K4 1e-4 of the max and the
+    same bits twice)."""
+    args = _front_operands(channels, nb, cuda_device, fs=fs)
+    for emit in (False, True):
+        got = cmb.front_chain(*args, emit_mono=emit)
+        ref = cmb.front_chain_ref(*args, emit_mono=emit)
+        for g, r in zip(got if emit else (got,), ref if emit else (ref,)):
+            assert (g - r).abs().max().item() <= 1e-4
+    kargs = _kweight_operands(channels, nb, cuda_device, fs)
+    got = cmb.kweight_cells(*kargs)
+    ref = cmb.kweight_cells_ref(*kargs)
+    torch.cuda.synchronize()
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    assert torch.equal(cmb.kweight_cells(*kargs), got)
 
 
 def _grads(fn, args, ups):
@@ -556,12 +581,13 @@ def test_kernel_sources_do_not_spill(cuda_device, source):
                         section)
     assert spills, section
     assert all(a == "0" and b == "0" for a, b in spills), section
-    if source.startswith("band_"):
+    if source.startswith(("band_", "front_", "kweight_")):
         assert "wgb8Geometry" in section, section
 
 
-def _band_kernel_sass():
-    """``{kernel name: SASS}`` of the band kernels in the built library
+def _kernel_sass(kernels=("band_energies_kernel",
+                          "band_gain_apply_kernel")):
+    """``{kernel name: SASS}`` of ``kernels`` in the built library
     (``cuobjdump -sass``, from the toolkit that built it)."""
     import re
     import subprocess
@@ -576,22 +602,18 @@ def _band_kernel_sass():
     out = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
-        for kernel in ("band_energies_kernel", "band_gain_apply_kernel"):
+        for kernel in kernels:
             if kernel in name:
                 out[kernel] = fn
     return out
 
 
-@pytest.mark.cuda
-def test_band_kernels_run_tf32_wgmma_and_no_mma_sync(cuda_device):
-    """The design guard of K2 and K3: their SASS holds warpgroup MMAs on
-    TF32 (``HGMMA ... TF32``, wgmma's instruction) and no ``HMMA``
-    (``mma.sync``, the previous generation's), and no local-memory
-    spills."""
+def _assert_wgmma_only(sass):
+    """Each kernel's SASS holds warpgroup MMAs on TF32 (``HGMMA ...
+    TF32``, wgmma's instruction), no ``HMMA`` (``mma.sync``, the previous
+    generation's) and no local memory."""
     import re
 
-    sass = _band_kernel_sass()
-    assert sorted(sass) == ["band_energies_kernel", "band_gain_apply_kernel"]
     for kernel, text in sass.items():
         hgmma = [line for line in text.splitlines() if "HGMMA" in line]
         print(kernel, len(hgmma), "HGMMA;", hgmma[0].strip() if hgmma
@@ -599,6 +621,43 @@ def test_band_kernels_run_tf32_wgmma_and_no_mma_sync(cuda_device):
         assert hgmma and all("TF32" in line for line in hgmma), kernel
         assert not re.search(r"\bHMMA\b", text), kernel
         assert not re.search(r"\b(STL|LDL)\b", text), kernel
+
+
+@pytest.mark.cuda
+def test_band_kernels_run_tf32_wgmma_and_no_mma_sync(cuda_device):
+    """The design guard of K2 and K3 (:func:`_assert_wgmma_only`)."""
+    sass = _kernel_sass()
+    assert sorted(sass) == ["band_energies_kernel", "band_gain_apply_kernel"]
+    _assert_wgmma_only(sass)
+
+
+@pytest.mark.cuda
+def test_one_filter_kernels_run_tf32_wgmma_and_no_mma_sync(cuda_device):
+    """The design guard of K1 and K4 (:func:`_assert_wgmma_only`): K1's
+    ``m64n128k8`` and K4's ``m64n64k8`` products."""
+    sass = _kernel_sass(("front_chain_kernel", "kweight_cells_kernel"))
+    assert sorted(sass) == ["front_chain_kernel", "kweight_cells_kernel"]
+    _assert_wgmma_only(sass)
+    assert "64x128x8" in sass["front_chain_kernel"]
+    assert "64x64x8" in sass["kweight_cells_kernel"]
+
+
+def test_no_kernel_source_runs_mma_sync():
+    """Every tensor-core product of ``csrc/`` runs on ``wgmma``
+    (``tf32_wgmma.cuh``): no source names ``mma.sync``, and the
+    ``mma.sync`` header ``tf32_product.cuh`` is gone."""
+    from python_audio_mastering_tpu_torch.ops import _kernels
+
+    cu, cuh = _kernels._sources()
+    names = [f.name for f in cu + cuh]
+    assert "tf32_product.cuh" not in names
+    assert "tf32_wgmma.cuh" in names
+    for f in cu + cuh:
+        assert "mma.sync" not in f.read_text(), f.name
+    for f in ("front_chain.cu", "kweight_cells.cu", "band_energies.cu",
+              "band_gain_apply.cu"):
+        assert '#include "tf32_wgmma.cuh"' in (
+            _kernels._SRC_DIR / f).read_text(), f
 
 
 @pytest.mark.cuda

@@ -83,10 +83,10 @@ def _emulated_and_jax(fs, channels):
 def test_kweight_cells_kernel_emulated_matches_jax_kernel(fs, channels):
     """K4 as the CUDA kernel computes it, emulated on the CPU (x @ T in
     3xTF32, the states term in fp32, the squares summed in h-buckets left
-    to right in each 128-column tile, and a bucket that crosses tiles, as
-    at L = 384 at both rates (h = 6 and 192), joined from its tiles'
-    pieces), against the JAX kernel in interpret mode: within 1e-5 of its
-    max."""
+    to right in each 64-column tile, and a bucket that crosses tiles, as
+    at L = 384 at both rates (h = 6 and 192), carried from tile to tile
+    of its span), against the JAX kernel in interpret mode: within 1e-5
+    of its max."""
     got, ref = _emulated_and_jax(fs, channels)
     assert got.shape == ref.shape
     ratio = np.abs(got - ref).max() / np.abs(ref).max()

@@ -1,26 +1,29 @@
 """The tensor-core kernels' 3xTF32 product, emulated on the CPU.
 
-``csrc/tf32_product.cuh`` splits every fp32 operand ``v`` into ``big``, ``v``
+``csrc/tf32_wgmma.cuh`` splits every fp32 operand ``v`` into ``big``, ``v``
 rounded to TF32 (add half of TF32's last place to the bits, cut the low
 13), and ``small``, the cut of ``v - big`` (``split_tf32``), and forms a
 product as ``small·big + big·small + big·big`` with fp32 accumulation.
 Here the split is numpy uint32 bit operations and the three products are
-float32 matmuls (a product of two TF32 values is exact in fp32), on the
-operands the kernels get: K1 ``front_chain``'s ``[saturate(x) | s] @ [T ;
-Wt]`` for every EQ preset, and the crossover product of K2
-``band_energies`` and K3 ``band_gain_apply`` at 44.1 and 48 kHz.  Each is
-held against the float64 product of the same operands within 1e-4 of its
+float32 matmuls (a product of two TF32 values is exact in fp32).  Every
+kernel on that header forms ``x @ T`` in 3xTF32 and adds the states term
+``s @ Wt`` in fp32 on its epilogue warps (the K-weighting's state
+operator is ~70 times the signal, the crossovers' up to ~4e4, and their
+3xTF32 rounding dominates the all-3xTF32 product's error): K1
+``front_chain`` after its exciter, applied to the signal before the
+split (:func:`front_chain_emulated`, its width and mono mean included),
+K2 ``band_energies`` and K3 ``band_gain_apply``
+(:func:`band_product_emulated`) and K4 ``kweight_cells``
+(:func:`kweight_product_emulated`, with its bucket sums carried across
+a span's 64-column tiles, :func:`bucket_sums_emulated`).  Each is held
+against the float64 computation of the same operands within 1e-4 of its
 largest value, the limit ``chip_smoke.py`` holds the kernels to against
-their plain versions.  K2 and K3 now run on ``csrc/tf32_wgmma.cuh``,
-which splits their product as K4 does (:func:`band_product_emulated`);
-the all-3xTF32 crossover product stays as the yardstick it is held
-against.  K4 ``kweight_cells`` splits its product: ``x @ T``
-in 3xTF32 and the states term ``s @ Wt`` in fp32 (the K-weighting's state
-operator is ~70 times the signal, and its 3xTF32 rounding dominates the
-all-3xTF32 product's error); :func:`kweight_product_emulated` is that
-split, held within 5e-6 of the float64 product's max.  This file imports
-no jax.
+their plain versions (K4 within 5e-6).  The all-3xTF32 products of the
+``mma.sync`` kernels these replaced stay as the yardsticks they are held
+against.  This file imports no jax.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -37,7 +40,7 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import saturate
 LIMIT = 1e-4
 K4_LIMIT = 5e-6     # K4's split: fp32-level, ~1e-6 measured
 TF32_MASK = np.uint32(0xFFFFE000)
-TILE_COLS = 128     # csrc/tf32_product.cuh: columns of a one-filter tile
+TILE_COLS = 64      # csrc/kweight_cells.cu: K4's column tile
 
 
 def split_tf32(v):
@@ -66,27 +69,28 @@ def kweight_product_emulated(x, s, t, wt):
 
 def bucket_sums_emulated(y, h):
     """K4's epilogue on float32 rows ``y (n, L)``: squares summed over
-    buckets of ``h`` columns (``(n, L/h)``).  Each 128-column tile sums
-    its part of a bucket left to right; a bucket that crosses tile edges
-    is then the sum of its tiles' pieces, left to right, as the last CTA
-    of the row group adds them."""
+    buckets of ``h`` columns (``(n, L/h)``).  A CTA's item spans lcm(h,
+    64) columns, whole buckets, in 64-column tiles taken left to right;
+    each tile adds its columns of a bucket to it left to right (fmaf, the
+    sum rounded once a column), starting from the sum carried from the
+    tile before where the bucket began there, and a bucket that goes on
+    into the next tile carries its sum there."""
     n, L = y.shape
+    span = h * TILE_COLS // math.gcd(h, TILE_COLS)
     out = np.zeros((n, L // h), np.float32)
-    pieces = {}            # (tile, bucket) -> the tile's piece of it
-    for j0 in range(0, L, TILE_COLS):
-        for q in range(j0 // h, (j0 + TILE_COLS - 1) // h + 1):
-            s = np.zeros(n, np.float32)
-            for i in range(max(q * h, j0), min((q + 1) * h, j0 + TILE_COLS)):
-                s = s + y[:, i] * y[:, i]
-            if q * h >= j0 and (q + 1) * h <= j0 + TILE_COLS:
-                out[:, q] = s
-            else:
-                pieces[j0 // TILE_COLS, q] = s
-    for q in {q for _, q in pieces}:
-        s = np.zeros(n, np.float32)
-        for tile in sorted(t for t, qq in pieces if qq == q):
-            s = s + pieces[tile, q]
-        out[:, q] = s
+    for s0 in range(0, L, span):
+        carry = None
+        for j0 in range(s0, s0 + span, TILE_COLS):
+            for q in range(j0 // h, (j0 + TILE_COLS - 1) // h + 1):
+                s = carry if q * h < j0 else np.zeros(n, np.float32)
+                for i in range(max(q * h, j0),
+                               min((q + 1) * h, j0 + TILE_COLS)):
+                    s = (s.astype(np.float64) + y[:, i].astype(np.float64)
+                         * y[:, i]).astype(np.float32)
+                if (q + 1) * h <= j0 + TILE_COLS:
+                    out[:, q] = s
+                else:
+                    carry = s
     return out
 
 
@@ -137,8 +141,9 @@ def test_split_tf32_keeps_22_bits():
 @pytest.mark.parametrize("fs", [44100, 48000])
 @pytest.mark.parametrize("preset", sorted(EQ_PRESETS))
 def test_front_chain_operands_hold_in_3xtf32(preset, fs):
-    """K1's EQ product ``[saturate(x) | s] @ [T ; Wt]`` (block 384, S = 8),
-    the operands new to 3xTF32 in the port."""
+    """K1's EQ product ``[saturate(x) | s] @ [T ; Wt]`` (block 384, S = 8)
+    all in 3xTF32, as the ``mma.sync`` kernel formed it: the yardstick of
+    :func:`test_front_chain_tile_emulated_holds_for_every_preset`."""
     params = MasteringParams.from_settings(
         {"saturation": 25, "preset": preset, "width": 1.4})
     chain = MasteringChain(ChainConfig.gpu_default(fs))
@@ -237,8 +242,88 @@ def test_kweight_operands_hold_with_the_states_term_in_fp32(fs, block,
 
 @pytest.mark.parametrize("h", [1, 2, 6, 64, 128, 192, 384])
 def test_bucket_sums_emulated_join_across_tiles(h):
-    """The emulated epilogue, with its pieces joined across 128-column tiles,
-    equals plain float64 bucket sums of the squares (to fp32 roundoff)."""
+    """The emulated epilogue, its sums carried across a span's 64-column
+    tiles (h = 6 and 192 span three, 128 two, 384 six), equals plain
+    float64 bucket sums of the squares (to fp32 roundoff)."""
     y = np.random.default_rng(h).standard_normal((5, 384)).astype(np.float32)
     ref = (y.astype(np.float64) ** 2).reshape(5, 384 // h, h).sum(axis=2)
     np.testing.assert_allclose(bucket_sums_emulated(y, h), ref, rtol=1e-5)
+
+
+def exciter_np(x, coefs):
+    """``dry·x + wet·tanh(x·drive)`` in float32, each operation rounded
+    (the kernel's ``__fmul_rn`` / ``__fadd_rn``; numpy's float32 tanh for
+    ``tanhf``)."""
+    dry, wet, drive = (np.float32(c) for c in coefs)
+    x = np.asarray(x, np.float32)
+    return dry * x + wet * np.tanh(x * drive)
+
+
+def front_chain_emulated(xrows, s_in, t, w, coefs, width, channels):
+    """K1 as ``csrc/front_chain.cu`` forms it, in float32: the exciter on
+    the signal, then ``x @ T`` in 3xTF32, the states term in fp32 added
+    to it, then the width (stereo) and the mono mean; returns ``(y, mono)``
+    of shapes ``(C·nb, L)`` and ``(nb, L)``."""
+    xs = exciter_np(xrows, coefs)
+    u = kweight_product_emulated(xs, s_in, t, np.ascontiguousarray(w.T))
+    u = u.reshape(channels, -1, u.shape[1])
+    if channels == 2:
+        half = np.float32(0.5)
+        mid = (u[0] + u[1]) * half
+        side = (u[0] - u[1]) * (half * np.float32(width))
+        y = np.stack([mid + side, mid - side])
+        return y.reshape(-1, y.shape[2]), (y[0] + y[1]) * half
+    return u.reshape(-1, u.shape[2]), u.sum(axis=0) * np.float32(
+        1.0 / channels)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("fs", [44100, 48000])
+@pytest.mark.parametrize("preset", sorted(EQ_PRESETS))
+def test_front_chain_tile_emulated_holds_for_every_preset(preset, fs,
+                                                          channels):
+    """K1's tile arithmetic on ``wgmma`` (the exciter in float32 on the
+    signal, then its split: ``x @ T`` in 3xTF32, the EQ's states term
+    (S = 8) in fp32 on the epilogue warps, the width and the mono mean),
+    emulated, holds the float64 chain of the same operands (the exciter
+    in float64 on the same float32 signal and coefficients) within 1e-4
+    of the max of y and of mono; the all-3xTF32 product of the
+    ``mma.sync`` kernel it replaced is printed beside it."""
+    from python_audio_mastering_tpu_torch.ops.waveshaper import exciter_coefs
+
+    params = MasteringParams.from_settings(
+        {"saturation": 25, "preset": preset, "width": 1.4})
+    chain = MasteringChain(ChainConfig.gpu_default(fs))
+    ops = chain.eq_ops(params)
+    xrows = _rows(channels, 40, 384, fs, seed=4)
+    coefs = exciter_coefs(params.saturation, dtype=torch.float32)
+    s_in, _, _ = iir.sosfilt_states_rows(
+        None, saturate(xrows, params.saturation), ops=ops)
+    x = xrows.reshape(channels * 40, -1).numpy()
+    s = s_in.reshape(channels * 40, -1).numpy()
+    t, w = ops.t.numpy(), ops.w.numpy()
+    assert s.shape[1] == 8
+    y, mono = front_chain_emulated(x, s, t, w, coefs, params.width, channels)
+    dry, wet, drive = (float(np.float32(c)) for c in coefs)
+    x64 = x.astype(np.float64)
+    u_flat = ((dry * x64 + wet * np.tanh(x64 * drive)) @ t.astype(np.float64)
+              + s.astype(np.float64) @ w.T.astype(np.float64))
+    u = u_flat.reshape(channels, 40, -1)
+    if channels == 2:
+        wd = float(np.float32(params.width))
+        mid, side = (u[0] + u[1]) / 2, (u[0] - u[1]) / 2 * wd
+        ref = np.stack([mid + side, mid - side])
+    else:
+        ref = u
+    ref_mono = ref.mean(axis=0)
+    ref = ref.reshape(channels * 40, -1)
+    whole = product_3xtf32(
+        np.concatenate([exciter_np(x, coefs), s], 1),
+        np.concatenate([t, np.ascontiguousarray(w.T)], 0))
+    whole_err = np.abs(whole - u_flat).max() / np.abs(u_flat).max()
+    errs = [np.abs(got - want).max() / np.abs(want).max()
+            for got, want in ((y, ref), (mono, ref_mono))]
+    print(f"K1 {preset} {fs} Hz C={channels}: y {errs[0]:.3e}, mono "
+          f"{errs[1]:.3e} of the max (all-3xTF32 product "
+          f"{whole_err:.3e})")
+    assert max(errs) <= LIMIT, errs
