@@ -3058,11 +3058,10 @@ def sp_rank(plan):
 
         sequence._meters_dict = md
         cmb.reset_launch_counts()
-        tracing.clear_trace()
         torch.cuda.synchronize()
         dist.barrier()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        with sp_recording(captured), \
+        with sp_recording(captured), tracing.recording(), \
                 tracing.span(name, sync=torch.cuda.synchronize) as timed:
             ev[0].record()
             res = call()
@@ -3323,9 +3322,9 @@ def dp_automaster(rank):
            "launches": [], "plain": []}
     for _ in range(AM_DP_STEPS):
         cmb.reset_launch_counts()
-        tracing.clear_trace()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        with tracing.span("step", sync=torch.cuda.synchronize) as timed:
+        with tracing.recording(), \
+                tracing.span("step", sync=torch.cuda.synchronize) as timed:
             ev[0].record()
             loss = step(theta, batch_, targets)
             ev[1].record()
@@ -3405,11 +3404,11 @@ def dp_rank(plan, ref_dir):
         del captured[:]
         # timed again, unrecorded: the recording holds every operand
         timings.clear()
-        tracing.clear_trace()
         torch.cuda.synchronize()
         dist.barrier()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        with tracing.span(name, sync=torch.cuda.synchronize) as timed:
+        with tracing.recording(), \
+                tracing.span(name, sync=torch.cuda.synchronize) as timed:
             ev[0].record()
             again = call(timings=timings) if name == "streamed" else call()
             ev[1].record()

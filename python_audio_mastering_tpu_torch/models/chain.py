@@ -29,7 +29,10 @@ the last kernel before it: ``band_gain_apply`` with multiband on,
 ``front_chain`` without.  The per-block filter states between kernels
 come from plain-torch states passes (``ops.iir``).  On a CUDA tensor the
 kernels launch; on a CPU tensor their plain versions run.  Nothing in the
-chain is random.
+chain is random.  The stages open ``utils.tracing`` spans: ``chain`` (the
+whole of :meth:`MasteringChain.forward_tracks`), ``front``,
+``multiband``, ``loudness`` and ``limiter``, and inside them the ops'
+``states`` and ``detector``.
 
 An album chunk ``(C, T, nb, L)`` takes the same body with T sequences of
 params (:meth:`MasteringChain.front`, :meth:`MasteringChain.multiband`):
@@ -109,6 +112,7 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import (
     soft_limiter,
     soft_limiter_legacy,
 )
+from python_audio_mastering_tpu_torch.utils.tracing import span
 
 __all__ = ["master", "make_master_fn", "MasterResult", "MasteringChain",
            "cached_chain", "eq_sos", "apply_eq", "legacy_eq_sos",
@@ -369,6 +373,7 @@ class MasteringChain(nn.Module):
         x = peak(x, peak_4k, params.presence_boost)
         return shelf(x, shelf_hi, params.treble_boost)
 
+    @span("multiband")
     def multiband(self, xrows, params, state=None,
                   return_state: bool = False, emit_mono: bool = False,
                   scan: bool = False):
@@ -483,6 +488,7 @@ class MasteringChain(nn.Module):
         y = stereo_width(x, params.width, channel_axis=0)
         return y, (y.mean(dim=0) if emit else None), None
 
+    @span("front")
     def front(self, xrows, params, state=None, return_state: bool = False,
               emit_mono: bool = False, groups=None, legacy_eq: bool = False,
               scan: bool = False):
@@ -579,6 +585,7 @@ class MasteringChain(nn.Module):
                                 applied_gain_db=gain_db)
         return y
 
+    @span("chain")
     def forward_tracks(self, batch, params, valid_frames=None):
         """Master a batch ``(T, N, C)`` of tracks in one pass, the tracks
         folded into the kernels' block axis as an album chunk is: the
@@ -628,23 +635,24 @@ class MasteringChain(nn.Module):
             xr = self.front(xr, tp, **fr)
 
         if first.lufs_enabled:
-            meter = meter_rows[None] if meter_rows is not None else xr
-            if cfg.measure_downmix == "reference_mono_mean":
-                meter = meter.mean(dim=0, keepdim=True)
-            cell_ms, _, _ = block_cell_energies_rows(
-                meter, cfg.sample_rate, ops=self.kweight_ops(),
-                scan=kw_scan)
-            cell = _gating_geometry(cfg.sample_rate)[0]
-            vf = ([n] * tracks if valid_frames is None
-                  else [min(int(v), n) for v in valid_frames])
-            mask = (torch.arange(cell_ms.shape[1], device=self.device)[None]
-                    < upload([v // cell for v in vf], torch.int64,
-                             self.device)[:, None])
-            measured = loudness_from_cells(cell_ms, cell_mask=mask)
-            gain = gain_for_target(measured, upload(
-                [float(p.lufs) for p in tp], xr.dtype, self.device))
-            xr = xr * gain.view(1, tracks, 1, 1)
-            gain_db = 20.0 * torch.log10(gain)
+            with span("loudness"):
+                meter = meter_rows[None] if meter_rows is not None else xr
+                if cfg.measure_downmix == "reference_mono_mean":
+                    meter = meter.mean(dim=0, keepdim=True)
+                cell_ms, _, _ = block_cell_energies_rows(
+                    meter, cfg.sample_rate, ops=self.kweight_ops(),
+                    scan=kw_scan)
+                cell = _gating_geometry(cfg.sample_rate)[0]
+                vf = ([n] * tracks if valid_frames is None
+                      else [min(int(v), n) for v in valid_frames])
+                cells = torch.arange(cell_ms.shape[1], device=self.device)
+                mask = cells[None] < upload([v // cell for v in vf],
+                                            torch.int64, self.device)[:, None]
+                measured = loudness_from_cells(cell_ms, cell_mask=mask)
+                gain = gain_for_target(measured, upload(
+                    [float(p.lufs) for p in tp], xr.dtype, self.device))
+                xr = xr * gain.view(1, tracks, 1, 1)
+                gain_db = 20.0 * torch.log10(gain)
         else:
             measured = torch.full((tracks,), float("nan"), dtype=xr.dtype,
                                   device=xr.device)
@@ -652,11 +660,12 @@ class MasteringChain(nn.Module):
                                   device=xr.device)
 
         y = xr.reshape(c, tracks, nb * L)[:, :, :n].permute(1, 2, 0)
-        if cfg.limiter_mode == "lookahead_truepeak":
-            y = torch.stack([lookahead_limiter(t, cfg.sample_rate)
-                             for t in y])
-        else:
-            y = self.limiter(y)
+        with span("limiter"):
+            if cfg.limiter_mode == "lookahead_truepeak":
+                y = torch.stack([lookahead_limiter(t, cfg.sample_rate)
+                                 for t in y])
+            else:
+                y = self.limiter(y)
         return y, measured, gain_db
 
 

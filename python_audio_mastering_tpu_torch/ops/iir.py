@@ -31,7 +31,9 @@ states are cast to the working dtype for the output recompute ``x @ T + s_in @
 Wᵀ``, which is the CUDA kernels' job (``ops.cuda_multiband``), with
 :func:`sosfilt_blocked_rows` here as its plain version.
 :func:`sosfilt_states_multi_rows` serves several cascades of one signal
-(the multiband crossovers) from one shared read.
+(the multiband crossovers) from one shared read.  Both open a ``states``
+span (``utils.tracing``), which is how a profiled run reads the states
+passes' device time.
 
 :func:`sosfilt_sharded` lifts the same decomposition one level, to a
 signal sharded over the ranks of a mesh (``parallel.mesh``): each rank
@@ -64,6 +66,7 @@ from python_audio_mastering_tpu_torch.ops.sos_scan import (
     sos_scan,
     sos_scan_ref,
 )
+from python_audio_mastering_tpu_torch.utils.tracing import span
 
 __all__ = [
     "BlockedOps",
@@ -445,6 +448,7 @@ def _states_from_summaries(t_vec, zi, ops, dtype, return_state,
     return s_in, state_to_zi(s_last.T, ops.k).to(dtype)
 
 
+@span("states")
 def sosfilt_states_rows(sos, xrows, zi=None, n_valid=None,
                         return_state=True, ops=None):
     """Per-block incoming states of one cascade over rows ``(C, nb, L)``.
@@ -473,6 +477,7 @@ def sosfilt_states_rows(sos, xrows, zi=None, n_valid=None,
     return s_in, zf, ops
 
 
+@span("states")
 def sosfilt_states_multi_rows(sos_list, xrows, zi_list=None, n_valid=None,
                               return_state=True, ops_list=None):
     """Per-block incoming states of F cascades over rows ``(C, nb, L)``,

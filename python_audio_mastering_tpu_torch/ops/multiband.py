@@ -18,7 +18,8 @@ The worker data path, in order:
 2. ``band_energies`` (kernel K2) — the bands recomputed per block from
    those states, squared, channel-averaged, bucketed to the control rate;
 3. the detector (plain torch, ``compressor.stats_from_buckets``):
-   windowed means from a float64 running sum, then the dB gain computer;
+   windowed means from a float64 running sum, then the dB gain computer,
+   a ``detector`` span (``utils.tracing``) with any bucket sums before it;
 4. the ballistics (:func:`_run_ballistics_bt`, kernels K5–K7);
 5. ``band_gain_apply`` (kernel K3) — the bands recomputed again, the
    control-rate gains repeated to the sample rate, recombined as
@@ -75,6 +76,7 @@ from python_audio_mastering_tpu_torch.ops.cuda_multiband import (
     band_gain_apply,
 )
 from python_audio_mastering_tpu_torch.ops.sos_scan import sos_scan
+from python_audio_mastering_tpu_torch.utils.tracing import span
 
 __all__ = ["multiband_compress_rows", "multiband_compress", "crossover_split",
            "detector_stats_fused",
@@ -318,15 +320,11 @@ def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
     if scan:
         bands, zf = _scan_bands(x4, zi, sample_rate, low_crossover,
                                 high_crossover, variant, valid_frames)
-        xb = bucket_sums(torch.stack([(b * b).mean(dim=0) for b in bands]),
-                         hop)
     elif variant == "legacy":
         if ops is None:
             ops = crossover_ops(sample_rate, L, x4.device, low_crossover,
                                 high_crossover, variant, x4.dtype)
         bands, zf = _legacy_bands(x4, zi, ops, return_state, valid_frames)
-        xb = bucket_sums(torch.stack([(b * b).mean(dim=0).reshape(tracks, n)
-                                      for b in bands]), hop)
     else:
         if ops is None:
             ops = crossover_ops(sample_rate, L, x4.device, low_crossover,
@@ -343,13 +341,17 @@ def multiband_compress_rows(xrows, sample_rate, thresholds_db, ratios,
                             for s in (s_in_lp, s_in_hp))
         xb = band_energies(rows, s_in_lp, s_in_hp, lp_sos, hp_sos,
                            hop=k_hop).reshape(3, tracks, -1)
-        if k_hop != hop:
+    with span("detector"):
+        if scan or variant == "legacy":
+            xb = bucket_sums(torch.stack([(b * b).mean(dim=0).reshape(
+                tracks, n) for b in bands]), hop)
+        elif k_hop != hop:
             xb = bucket_sums(xb, hop)
-    t = xb.shape[-1]
-    look_ctrl = detector_lookpad(sample_rate, hop) // hop
-    stacked, new_ctrl_tail = _fused_stats_from_ctrl(
-        xb.reshape(3 * tracks, t), t, sample_rate, thresholds_db, ratios,
-        hop, state.get("ctrl_tail"), look_ctrl, valid_ctrl)
+        t = xb.shape[-1]
+        look_ctrl = detector_lookpad(sample_rate, hop) // hop
+        stacked, new_ctrl_tail = _fused_stats_from_ctrl(
+            xb.reshape(3 * tracks, t), t, sample_rate, thresholds_db, ratios,
+            hop, state.get("ctrl_tail"), look_ctrl, valid_ctrl)
     att, att_f = _run_ballistics_bt(stacked, sample_rate, hop, ballistics,
                                     state.get("att"), block_ctrl,
                                     overlap_ctrl)

@@ -22,7 +22,7 @@ own, gloo on the CPU or when ranks share a card.  Gloo moves a CUDA
 tensor through the host (its transport); the tensors handed back are on
 the caller's device either way.  Every collective is a
 ``utils.tracing.span`` named ``collective/<op>``, which is how a run reads
-the collectives' host time.
+the collectives' host time (inside ``utils.tracing.recording``).
 
 The default group comes from ``torchrun`` (``--nproc-per-node N`` on N
 cards) or from :func:`launch`, which spawns one process per mesh device

@@ -1,43 +1,55 @@
-"""Host-side tracing spans and counters.
+"""Named spans at the port's stage boundaries.
 
-Counterpart of ``python_audio_mastering_tpu.utils.tracing``: named spans
-on the host clock, kept in a process-wide buffer (:func:`get_trace`,
-:func:`trace_summary`), thread-safe counters, and :func:`profiler_trace`,
-a ``torch.profiler`` trace written to a directory (the JAX package's
-``xla_trace``).
+``span(name)`` marks a region of the host's work; nested spans get
+``outer/inner`` paths.  Where a span lands:
 
-    with span("eq", sync=y):
-        y = eq(x)
+* under a running ``torch.profiler``: a ``record_function`` named
+  ``pam.<path>`` (``pam.chain/multiband/states``), in the same record as
+  the device's kernels and copies and on the same clock, inside the range
+  of the span that encloses it;
+* inside :func:`recording`: a host record ``{"name": path, "dur_ms": ...,
+  **attrs}`` on the host clock, read back by :func:`get_trace` and
+  :func:`trace_summary`;
+* otherwise nowhere: the span checks two flags and keeps nothing, so it
+  costs next to nothing on a worker's hot path.
+
+    with recording():
+        with span("eq", sync=torch.cuda.synchronize):
+            y = eq(x)
     print(trace_summary())
 
-PyTorch returns before the card has run what it was asked to, so a span
-that should include the device's time names what to wait for: ``sync``
-takes a tensor or a device (the span closes after
+PyTorch returns before the card has run what it was asked to, so a
+recorded span that should include the device's time names what to wait
+for: ``sync`` takes a tensor or a device (the span closes after
 ``torch.cuda.synchronize`` of that card; nothing to wait for on the CPU)
-or a callable.
+or a callable.  It is waited for only inside :func:`recording`: no span
+synchronises a run that records nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import threading
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
-__all__ = ["span", "get_trace", "clear_trace", "trace_summary",
-           "profiler_trace", "Counter", "counters"]
+__all__ = ["span", "recording", "get_trace", "trace_summary", "PREFIX"]
 
-_local = threading.local()
-_global_lock = threading.Lock()
-_global_trace: list[dict] = []
+PREFIX = "pam."       # the profiler's name of a span: PREFIX + its path
 
 
-def _stack():
-    if not hasattr(_local, "stack"):
-        _local.stack = []
-    return _local.stack
+class _State(threading.local):
+    """One thread's open spans and its last recording."""
+
+    def __init__(self):
+        self.stack: list[str] = []
+        self.records: list[dict] = []
+        self.recording = False
+
+
+_state = _State()
 
 
 def _wait(sync):
@@ -53,99 +65,57 @@ def _wait(sync):
 
 @contextlib.contextmanager
 def span(name: str, sync=None, **attrs):
-    """Record a named span (nested spans get ``outer/inner`` names).
-
-    ``sync``: a tensor, a device or a callable to wait for before the span
-    closes (see the module docstring), or None to time the host alone.
-    The record holds ``dur_ms`` and ``attrs``."""
-    stack = _stack()
-    rec = {"name": "/".join(s["name"] for s in stack) + "/" + name
-           if stack else name,
-           "start": time.perf_counter(), **attrs}
-    stack.append(rec)
+    """A named span (see the module docstring).  Yields its host record
+    inside :func:`recording` (``dur_ms`` is set when it closes), else
+    None.  ``sync``: what a recorded span waits for before it closes."""
+    st = _state
+    profiled = _profiler._is_profiler_enabled
+    if not (profiled or st.recording):
+        yield None
+        return
+    st.stack.append(name)
+    path = "/".join(st.stack)
+    rec = {"name": path, **attrs} if st.recording else None
+    t0 = time.perf_counter()
     try:
-        yield rec
+        with (_profiler.record_function(PREFIX + path) if profiled
+              else contextlib.nullcontext()):
+            yield rec
+            if rec is not None and sync is not None:
+                _wait(sync)
     finally:
-        if sync is not None:
-            _wait(sync)
-        rec["dur_ms"] = (time.perf_counter() - rec["start"]) * 1000.0
-        del rec["start"]
-        stack.pop()
-        with _global_lock:
-            _global_trace.append(rec)
+        st.stack.pop()
+        if rec is not None:
+            rec["dur_ms"] = (time.perf_counter() - t0) * 1000.0
+            st.records.append(rec)
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep this thread's spans opened inside as host records, which
+    :func:`get_trace` returns until the next recording starts."""
+    st = _state
+    st.records, st.recording = [], True
+    try:
+        yield
+    finally:
+        st.recording = False
 
 
 def get_trace() -> list[dict]:
-    with _global_lock:
-        return list(_global_trace)
-
-
-def clear_trace():
-    with _global_lock:
-        _global_trace.clear()
+    """This thread's records of its last :func:`recording`, in the order
+    the spans closed."""
+    return list(_state.records)
 
 
 def trace_summary() -> str:
-    """Aggregate by span name: count, total and mean duration."""
+    """Aggregate :func:`get_trace` by span name: count, total and mean
+    duration."""
     agg: dict[str, list[float]] = {}
     for rec in get_trace():
-        agg.setdefault(rec["name"], []).append(rec.get("dur_ms", 0.0))
+        agg.setdefault(rec["name"], []).append(rec["dur_ms"])
     lines = [f"{name:40s} n={len(ds):4d} total={sum(ds):9.2f}ms "
              f"mean={sum(ds) / len(ds):8.2f}ms"
              for name, ds in sorted(agg.items(),
                                     key=lambda kv: -sum(kv[1]))]
     return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: str):
-    """Wrap a region in a ``torch.profiler`` trace (host, and the card's
-    kernels where there is one), written to ``log_dir`` as a Chrome/
-    TensorBoard trace file when the region ends."""
-    from torch.profiler import (
-        ProfilerActivity,
-        profile,
-        tensorboard_trace_handler,
-    )
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
-
-
-class Counter:
-    """A tiny thread-safe metric counter."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.value = 0
-        self._lock = threading.Lock()
-
-    def inc(self, by: int = 1):
-        with self._lock:
-            self.value += by
-
-
-class _Counters:
-    def __init__(self):
-        self._counters: dict[str, Counter] = {}
-        self._lock = threading.Lock()
-
-    def __call__(self, name: str) -> Counter:
-        with self._lock:
-            if name not in self._counters:
-                self._counters[name] = Counter(name)
-            return self._counters[name]
-
-    def snapshot(self) -> dict[str, int]:
-        with self._lock:
-            return {k: c.value for k, c in self._counters.items()}
-
-    def dump_json(self) -> str:
-        return json.dumps(self.snapshot(), sort_keys=True)
-
-
-counters = _Counters()

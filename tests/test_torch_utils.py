@@ -1,16 +1,24 @@
-"""The port's ``utils`` (logging, tracing) against the JAX package's."""
+"""The port's ``utils`` (logging, tracing) against the JAX package's, and
+the chain's stage spans under a CPU ``torch.profiler``."""
 
+import dataclasses
 import json
 import logging
-import os
 
+import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from python_audio_mastering_tpu.utils import logging as jlog
 from python_audio_mastering_tpu.utils import tracing as jtrace
+from python_audio_mastering_tpu_torch import ChainConfig, MasteringParams
+from python_audio_mastering_tpu_torch.models.chain import cached_chain
+from python_audio_mastering_tpu_torch.parallel.batch import make_album_fn
 from python_audio_mastering_tpu_torch.utils import logging as plog
 from python_audio_mastering_tpu_torch.utils import tracing as ptrace
+
+from .conftest import make_signal
 
 
 def _record(msg="hello %s", args=("there",), extra=None):
@@ -51,13 +59,14 @@ def test_get_logger_json_mode(monkeypatch, capsys):
 
 
 def test_spans_nest_and_summarize_as_jax():
-    for mod in (ptrace, jtrace):
-        mod.clear_trace()
-        with mod.span("outer", tag=1):
-            with mod.span("inner"):
-                pass
-            with mod.span("inner"):
-                pass
+    jtrace.clear_trace()
+    with ptrace.recording():
+        for mod in (ptrace, jtrace):
+            with mod.span("outer", tag=1):
+                with mod.span("inner"):
+                    pass
+                with mod.span("inner"):
+                    pass
     got, ref = ptrace.get_trace(), jtrace.get_trace()
     assert [r["name"] for r in got] == [r["name"] for r in ref] == [
         "outer/inner", "outer/inner", "outer"]
@@ -65,38 +74,112 @@ def test_spans_nest_and_summarize_as_jax():
     names = [line.split()[0] for line in ptrace.trace_summary().splitlines()]
     assert sorted(names) == ["outer", "outer/inner"]
     assert "n=   2" in ptrace.trace_summary()
-    ptrace.clear_trace()
+    with ptrace.recording():
+        pass
     assert ptrace.get_trace() == []
 
 
 def test_span_sync_waits_on_what_it_is_given():
     calls = []
-    ptrace.clear_trace()
-    with ptrace.span("callable", sync=lambda: calls.append(1)):
+    with ptrace.span("unrecorded", sync=lambda: calls.append(0)):
         pass
-    with ptrace.span("tensor", sync=torch.ones(3)):     # a CPU tensor: no wait
-        pass
-    with ptrace.span("device", sync="cpu"):
-        pass
+    with ptrace.recording():
+        with ptrace.span("callable", sync=lambda: calls.append(1)):
+            pass
+        with ptrace.span("tensor", sync=torch.ones(3)):  # a CPU tensor: no wait
+            pass
+        with ptrace.span("device", sync="cpu"):
+            pass
     assert calls == [1]
     assert [r["name"] for r in ptrace.get_trace()] == ["callable", "tensor",
                                                        "device"]
 
 
-def test_counters_match_jax():
-    for mod in (ptrace, jtrace):
-        c = mod.counters("utils_test.jobs")
-        c.inc()
-        c.inc(4)
-    assert (ptrace.counters.snapshot()["utils_test.jobs"]
-            == jtrace.counters.snapshot()["utils_test.jobs"] == 5)
-    assert json.loads(ptrace.counters.dump_json())["utils_test.jobs"] == 5
+def test_unobserved_span_keeps_nothing(monkeypatch):
+    opened = []
+    monkeypatch.setattr(ptrace._profiler, "record_function",
+                        lambda name: opened.append(name))
+    with ptrace.recording():
+        pass
+    for _ in range(1000):
+        with ptrace.span("chain", tag=1) as rec:
+            with ptrace.span("states"):
+                assert rec is None
+    assert opened == [] and ptrace.get_trace() == []
+    assert ptrace._state.stack == []
 
 
-def test_profiler_trace_writes_a_trace(tmp_path):
-    with ptrace.profiler_trace(str(tmp_path)):
-        torch.ones(64).sum()
-    files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
-    assert files
-    with open(tmp_path / files[0]) as f:
-        assert "traceEvents" in json.load(f)
+def test_span_lands_in_the_profiler_record():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with ptrace.span("outer"):
+            with ptrace.span("inner"):
+                torch.ones(4).sum()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(ptrace.PREFIX)]
+    assert sorted(names) == ["pam.outer", "pam.outer/inner"]
+    assert ptrace.get_trace() == [] and ptrace._state.stack == []
+
+
+FS = 44100
+# the spans each chain opens on an album, and under whom (the path's head)
+SPANS = {
+    "worker_mb": {"chain", "chain/front", "chain/front/states",
+                  "chain/multiband", "chain/multiband/states",
+                  "chain/multiband/detector", "chain/loudness",
+                  "chain/loudness/states", "chain/limiter"},
+    "worker_nomb": {"chain", "chain/front", "chain/front/states",
+                    "chain/loudness", "chain/loudness/states",
+                    "chain/limiter"},
+    "legacy_mb": {"chain", "chain/front", "chain/front/states",
+                  "chain/multiband", "chain/multiband/states",
+                  "chain/multiband/detector", "chain/loudness",
+                  "chain/loudness/states", "chain/limiter"},
+}
+
+
+def _events(prof):
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()]
+
+
+def _profiled_album(case):
+    """The profiler's events of one small album through the album entry,
+    and of the same album through ``forward_tracks`` alone."""
+    cfg = ChainConfig.gpu_default(FS)
+    if case.startswith("legacy"):
+        cfg = dataclasses.replace(cfg, variant="legacy")
+    params = MasteringParams.from_settings(
+        {"saturation": 20, "preset": "techno", "width": 1.3, "lufs": -14.0,
+         "multiband": case.endswith("_mb")})
+    lengths = [FS, FS // 2]
+    batch = torch.as_tensor(np.stack([
+        make_signal(FS, channels=2, fs=FS, seed=40 + i) * 0.5
+        for i in range(2)]).astype(np.float32))
+    batch[1, lengths[1]:] = 0.0
+    fn = make_album_fn(cfg, device="cpu")
+    fn(batch, params, lengths)   # operators built outside the record
+    with profile(activities=[ProfilerActivity.CPU]) as album:
+        fn(batch, params, lengths)
+    chain = cached_chain(cfg, torch.device("cpu"))
+    with profile(activities=[ProfilerActivity.CPU]) as tracks:
+        chain.forward_tracks(batch, [params] * 2, lengths)
+    return _events(album), _events(tracks)
+
+
+@pytest.mark.parametrize("case", sorted(SPANS))
+def test_chain_opens_its_stage_spans(case):
+    events, tracks = _profiled_album(case)
+    spans = [(n[len(ptrace.PREFIX):], a, b) for n, a, b in events
+             if n.startswith(ptrace.PREFIX)]
+    assert {n for n, _, _ in spans} == SPANS[case]
+    assert sum(n == "chain" for n, _, _ in spans) == 1
+    for name, a, b in spans:      # each inside a span of its parent path
+        if "/" in name:
+            parent = name.rsplit("/", 1)[0]
+            assert any(p == parent and pa <= a and b <= pb
+                       for p, pa, pb in spans), name
+    (c0, c1), = [(a, b) for n, a, b in tracks if n == "pam.chain"]
+    aten = [(n, a, b) for n, a, b in tracks if n.startswith("aten::")]
+    assert aten
+    assert all(c0 <= a and b <= c1 for _, a, b in aten), [
+        n for n, a, b in aten if not (c0 <= a and b <= c1)][:5]
