@@ -16,7 +16,8 @@ parallelism (the album's tracks and the automaster's batch over ranks)
 and the fast profile (phases 35-38), the exact filter path on the scan
 kernel and a comp_hop that does not divide the block (phases 39-44), and
 the boundary walk K5 on the runs it meets and on four program materials
-(phase 45), after
+(phase 45), and the chain's tail K9 at the track's and the album's shape
+(phase 46), after
 building its CUDA kernels from the sources in the checkout and checking
 each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
@@ -32,7 +33,7 @@ Phases:
      max |plain| <= 1e-4, and a second launch bitwise the first
   4  master() without a device argument: on the card, finite, |y| <= 1,
      BS.1770 oracle loudness within 0.15 LU of -14, both kernels
-     launched, and within 2e-4 max abs / 1e-3 LU of the port's plain path
+     launched and gain_limit once, and within 2e-4 max abs / 1e-3 LU of the port's plain path
      on the CPU
   5  engine.process_audio and master_streamed without a device argument,
      on a temp WAV: both launch the kernels; process_audio equals one-shot
@@ -199,7 +200,8 @@ and K4 under autograd, on the 180 s track with ``gpu_default``:
      |grad|, no component 0; the control, the chain's EQ operators built
      in float32 as JAX builds them, must exceed the limit at theta = 0
  28  one fit step (forward, backward, Adam): front_chain launched once,
-     kweight_cells twice, no other kernel, and neither plain twin called
+     kweight_cells twice, gain_limit once, no other kernel, and no plain
+     twin called
  29  engine.automaster_audio (no device argument) on the 180 s WAV pair,
      40 steps: the loss falls below 0.8 x its start, bass_boost > 0.5,
      treble_boost < 0.5, the output within 0.15 LU of -14 by the BS.1770
@@ -282,8 +284,8 @@ ranks); 5 seeded 44.1 kHz stereo tracks of 180, 171, 162, 153 and 144 s
      26's track (fitted to itself mastered with bass +5 / treble -3 dB)
      and a second seeded 180 s track (seed 55), multiband off, at D = 1
      (both tracks folded into one chain call) and D = 2 (a track a rank,
-     the gradient all-reduced): K1 once and K4 twice a step on every
-     rank, no plain twin; theta bitwise across ranks, D = 2's within
+     the gradient all-reduced): K1 once, K4 twice and K9 once a step on
+     every rank, no plain twin; theta bitwise across ranks, D = 2's within
      1e-4 of D = 1's; the loss falls; the step's wall, CUDA-event time and
      the psum's host time
      Every run prints its wall (host, CUDA events), the collectives' host
@@ -375,6 +377,18 @@ The boundary walk K5 on the runs it meets:
      collapse bitwise, and the device time of ballistics_rates_bt in each
      mode (CUDA events, queued); both modes on both chains' targets too
 
+The chain's tail:
+
+ 46  gain_limit (K9: the loudness gain, the soft limiter, the unfold to
+     (T, N, C)) on the 180 s track's post-front rows (2, 1, nb·L) with
+     its chain's gain, and on the benchmark's album shape, 12 tracks
+     padded to 420 s (2, 12, nb·L), seeded rows with gains 0.6-2.2, in
+     both variants: bitwise equal to gain_limit_ref; the kernel's time
+     (CUDA events, queued as phase 45's), the plain version's (CUDA
+     events) and the bound (bytes: every kept frame read and written
+     once, the gains read once), which the kernel may not beat by more
+     than 5 %
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -399,7 +413,8 @@ distance from the plain twin over every rank of phases 31-33, and
 ``ms``, bound, ``latency_bound_ms`` and ``window_ms`` / ``plain_ms``
 from phase 40, its ``max_abs_err`` from phase 39; K5's
 ``latency_bound_ms`` from phase 12 and ``worker_events_ms`` /
-``legacy_events_ms`` with their latency bounds from phase 45) and
+``legacy_events_ms`` with their latency bounds from phase 45; K9's
+``launches`` from phase 4 and its times and bounds from phase 46) and
 ``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
@@ -450,6 +465,12 @@ K5_CHAIN_CYCLES = 17
 CHUNK_BLOCKS = 2940        # the streamed runner's chunk, 1 128 960 frames
 K4_HOPS = (6, 192)         # h at 44.1 kHz (the chain's) and at 48 kHz
 K7_LONG_T = 8388608        # steps a band: more than the grid's shared memory
+# the benchmark's album (bench_port): 12 tracks padded to 420 s
+BENCH_ALBUM_TRACKS, BENCH_ALBUM_SECONDS = 12, 420
+# K9's operations a sample: the worker limiter's pointwise steps (abs,
+# subtract, divide, square, add, sqrt, divide, add, sign, multiply,
+# compare, select), the gain's multiply counted apart
+K9_FLOPS = 12
 FP32_FLOPS = 67e12    # H100 SXM, fp32 on the CUDA cores, dense
 TF32_FLOPS = 495e12   # H100 SXM, TF32 on the tensor cores, dense
 HBM_BYTES = 3.35e12   # H100 SXM, HBM3 bytes/s
@@ -511,6 +532,7 @@ REPLACES = {
     "replay_bnd": f"{_PK}:217",
     # no pallas_call: the JAX package's exact filter is a lax.scan
     "sos_scan": "python_audio_mastering_tpu/ops/iir.py:67",
+    "gain_limit": "none: XLA's fused elementwise",
 }
 _CSRC = "python_audio_mastering_tpu_torch/csrc"
 # the tensor-core kernels' design, in the kernel record
@@ -537,6 +559,7 @@ SOURCES = {
     "replay": f"{_CSRC}/ballistics.cu",
     "replay_bnd": f"{_CSRC}/ballistics.cu",
     "sos_scan": f"{_CSRC}/sos_scan.cu",
+    "gain_limit": f"{_CSRC}/gain_limit.cu",
 }
 
 
@@ -987,6 +1010,9 @@ def main():
     for name in NO_MB_KERNELS:
         check(counts[name] > 0, f"kernel {name} was not launched by master()")
         kernels[name]["launches"] = counts[name]
+    check(counts["gain_limit"] == 1,
+          f"master() launched gain_limit {counts['gain_limit']} times")
+    kernels["gain_limit"] = {"launches": 1}
     cpu = MasteringChain(cfg)(x, params, return_result=True)
     d_cpu = float(np.abs(y - cpu.audio.numpy()).max())
     d_lufs = abs(float(res.measured_lufs) - float(cpu.measured_lufs))
@@ -1092,11 +1118,13 @@ def main():
     fast_phase(o, kernels, card)
     scan_phases(o, kernels, card)
     k5_phase(o, kernels, card)
+    gain_limit_phase(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **DESIGNS.get(name, {}),
                **kernels[name]}
-              for name in NO_MB_KERNELS + MB_KERNELS + ("sos_scan",)]
+              for name in NO_MB_KERNELS + MB_KERNELS
+              + ("sos_scan", "gain_limit")]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2649,7 +2677,7 @@ def automaster_phases(o, kernels, card):
     print(f"phase 28 one fit step (forward, backward, Adam): launches "
           f"{counts}, plain twins called {plain}")
     want = {k: 0 for k in counts}
-    want.update(front_chain=1, kweight_cells=2)
+    want.update(front_chain=1, kweight_cells=2, gain_limit=1)
     check(counts == want, f"fit step launches {counts}, expected {want}")
     check(all(v == 0 for v in plain.values()),
           f"a plain twin ran in the fit step: {plain}")
@@ -3538,7 +3566,7 @@ def dp_phases(kernels, card):
             for k, (counts, plain) in enumerate(zip(rec["launches"],
                                                     rec["plain"])):
                 want = {n: 0 for n in counts}
-                want.update(front_chain=1, kweight_cells=2)
+                want.update(front_chain=1, kweight_cells=2, gain_limit=1)
                 check(counts == want, f"D={d} rank {rec['rank']} step {k}: "
                                       f"launches {counts}, expected {want}")
                 check(all(v == 0 for v in plain.values()),
@@ -4391,6 +4419,59 @@ def k5_phase(o, kernels, card):
               f"{int(ctrl[bal.CNT]) == 0}; serial {mode_ms['serial']:.4f} "
               f"ms, collapse {mode_ms['collapse']:.4f} ms ({card})")
     print("phase 45 ok", flush=True)
+
+
+def gain_limit_phase(o, kernels, card):
+    """Phase 46: K9 ``gain_limit`` at the track's and the album's shape
+    (``o`` from :func:`main_path_operands`)."""
+    from python_audio_mastering_tpu_torch.ops import gain_limit as k9
+
+    dev = o.xrows.device
+    thr = o.chain.config.limiter_threshold
+    _, _, gain_db = o.chain.forward_tracks(
+        torch.from_numpy(o.x).to(dev)[None], o.params)
+    n_album = BENCH_ALBUM_SECONDS * FS
+    m_album = -(-n_album // L) * L
+    gen = torch.Generator(device=dev).manual_seed(46)
+    album = torch.randn((2, BENCH_ALBUM_TRACKS, m_album), generator=gen,
+                        device=dev) * 0.5
+    album[:, :, n_album:] = 0.0
+    cases = {
+        "track": (o.chain.front(o.xrows, o.params).reshape(2, 1, -1),
+                  10.0 ** (gain_db / 20.0), o.x.shape[0]),
+        "album": (album, torch.linspace(0.6, 2.2, BENCH_ALBUM_TRACKS,
+                                        device=dev), n_album)}
+    rec = kernels["gain_limit"]
+    for what, (xr, gain, n) in cases.items():
+        c, tracks, _ = xr.shape
+        kept = c * tracks * n
+        over = (xr[:, :, :n] * gain.view(1, tracks, 1)).abs() > thr
+        bnd = bound(kept * (K9_FLOPS + 1), 4 * (2 * kept + tracks))
+        for variant in ("worker", "legacy"):
+            args = (xr, gain, n, thr, variant)
+            check_bitwise(f"phase 46 gain_limit {what} {variant} vs "
+                          f"gain_limit_ref", k9.gain_limit(*args),
+                          k9.gain_limit_ref(*args))
+            ms = queued_ms(lambda: k9.gain_limit(*args))
+            check(bnd["bound_ms"] / ms <= 1.05,
+                  f"gain_limit {what} {variant}: {ms} ms, under its bound "
+                  f"{bnd['bound_ms']} ms: the time leaves out some work")
+            plain_ms = median_of(lambda: cuda_ms(
+                lambda: k9.gain_limit_ref(*args)))
+            key = "" if what == "track" else "album_"
+            key += "" if variant == "worker" else "legacy_"
+            rec.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms})
+            print(f"phase 46 gain_limit {what} {variant} "
+                  f"{tuple(xr.shape)} -> ({tracks}, {n}, {c}), "
+                  f"{100 * over.float().mean().item():.2f} % over the "
+                  f"threshold: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}),"
+                  f" {100 * bnd['bound_ms'] / ms:.1f} % of it ({card})")
+        prefix = "" if what == "track" else "album_"
+        rec.update({f"{prefix}bound_ms": bnd["bound_ms"],
+                    f"{prefix}bound_by": bnd["bound_by"]})
+    rec["library_ms"] = None
+    print("phase 46 ok", flush=True)
 
 
 if __name__ == "__main__":

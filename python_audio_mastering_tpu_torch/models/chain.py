@@ -24,7 +24,11 @@ samples, zero-padded to a block multiple.  Kernels carry the path:
 ``front_chain`` (saturate + EQ + width in one pass), the multiband
 compressor's ``band_energies``, ballistics and ``band_gain_apply``
 (``ops.multiband``), and ``kweight_cells`` (the loudness meter's
-K-weighted cell energies).  The loudness meter's mono downmix comes from
+K-weighted cell energies).  On a CUDA float32 signal with the reference
+limiter, ``gain_limit`` (``ops.gain_limit``) ends it: each track's
+loudness gain, the soft limiter and the unfold to ``(T, N, C)`` in one
+pass; elsewhere (the CPU, float64, the lookahead limiter) those stay
+separate plain ops.  The loudness meter's mono downmix comes from
 the last kernel before it: ``band_gain_apply`` with multiband on,
 ``front_chain`` without.  The per-block filter states between kernels
 come from plain-torch states passes (``ops.iir``).  On a CUDA tensor the
@@ -89,6 +93,7 @@ from python_audio_mastering_tpu_torch.ops.biquad import (
     reference_shelf_sos,
 )
 from python_audio_mastering_tpu_torch.ops.cuda_multiband import front_chain
+from python_audio_mastering_tpu_torch.ops.gain_limit import gain_limit
 from python_audio_mastering_tpu_torch.ops.limiter import lookahead_limiter
 from python_audio_mastering_tpu_torch.ops.loudness import (
     _gating_geometry,
@@ -634,11 +639,12 @@ class MasteringChain(nn.Module):
         else:
             xr = self.front(xr, tp, **fr)
 
+        fused = (xr.is_cuda and xr.dtype == torch.float32
+                 and cfg.limiter_mode == "reference")
         if first.lufs_enabled:
             with span("loudness"):
+                # the kernels' mono downmix, or a mono signal, is one row
                 meter = meter_rows[None] if meter_rows is not None else xr
-                if cfg.measure_downmix == "reference_mono_mean":
-                    meter = meter.mean(dim=0, keepdim=True)
                 cell_ms, _, _ = block_cell_energies_rows(
                     meter, cfg.sample_rate, ops=self.kweight_ops(),
                     scan=kw_scan)
@@ -651,21 +657,26 @@ class MasteringChain(nn.Module):
                 measured = loudness_from_cells(cell_ms, cell_mask=mask)
                 gain = gain_for_target(measured, upload(
                     [float(p.lufs) for p in tp], xr.dtype, self.device))
-                xr = xr * gain.view(1, tracks, 1, 1)
+                if not fused:
+                    xr = xr * gain.view(1, tracks, 1, 1)
                 gain_db = 20.0 * torch.log10(gain)
         else:
+            gain = None
             measured = torch.full((tracks,), float("nan"), dtype=xr.dtype,
                                   device=xr.device)
             gain_db = torch.zeros((tracks,), dtype=xr.dtype,
                                   device=xr.device)
 
-        y = xr.reshape(c, tracks, nb * L)[:, :, :n].permute(1, 2, 0)
+        xr = xr.reshape(c, tracks, nb * L)
         with span("limiter"):
-            if cfg.limiter_mode == "lookahead_truepeak":
+            if fused:
+                y = gain_limit(xr, gain, n, cfg.limiter_threshold,
+                               cfg.variant)
+            elif cfg.limiter_mode == "lookahead_truepeak":
                 y = torch.stack([lookahead_limiter(t, cfg.sample_rate)
-                                 for t in y])
+                                 for t in xr[:, :, :n].permute(1, 2, 0)])
             else:
-                y = self.limiter(y)
+                y = self.limiter(xr[:, :, :n].permute(1, 2, 0))
         return y, measured, gain_db
 
 

@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["KernelLibrary", "library", "ptr", "raise_on", "upload",
-           "check_kernel_arg", "check_channel_major_arg"]
+           "wants_grad", "check_kernel_arg", "check_channel_major_arg"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -65,6 +65,8 @@ _SIGNATURES = {
                          _I, _P],
     "pam_sos_scan_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
                          _I, _P],
+    # x, gain, y, C, T, M, n, threshold, knee, variant, stream
+    "pam_gain_limit": [_P, _P, _P, _I, _I, _LL, _LL, _F, _F, _I, _P],
 }
 
 
@@ -182,6 +184,13 @@ def raise_on(name, err):
     """Raise if a kernel entry returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def wants_grad(*tensors):
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them (None and non-tensors passed over) requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def check_kernel_arg(kernel):

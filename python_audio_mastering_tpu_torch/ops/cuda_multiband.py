@@ -32,8 +32,8 @@ and launches its kernel for a CUDA tensor or raises: there is no fallback
 on the card.  Each counts its kernel launches in ``<wrapper>.launches``
 (only where it launches the kernel); :func:`reset_launch_counts` and
 :func:`launch_counts` read and clear them for every kernel of the port,
-the ballistics kernels of ``ops.ballistics`` and the scan kernel of
-``ops.sos_scan`` included.
+the ballistics kernels of ``ops.ballistics``, the scan kernel of
+``ops.sos_scan`` and the tail kernel of ``ops.gain_limit`` included.
 
 ``front_chain`` and ``kweight_cells`` also run under autograd (the
 automaster differentiates the chain through them): given an input that
@@ -56,8 +56,15 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from python_audio_mastering_tpu_torch.ops import _kernels, ballistics
+from python_audio_mastering_tpu_torch.ops.gain_limit import (
+    gain_limit,
+    gain_limit_ref,
+)
 from python_audio_mastering_tpu_torch.ops._kernels import ptr as _ptr
 from python_audio_mastering_tpu_torch.ops._kernels import raise_on as _raise_on
+from python_audio_mastering_tpu_torch.ops._kernels import (
+    wants_grad as _wants_grad,
+)
 from python_audio_mastering_tpu_torch.ops.sos_scan import (
     sos_scan,
     sos_scan_ref,
@@ -191,11 +198,6 @@ def front_chain(xrows, s_in_eq, t_eq, w_eq, saturation, width,
         return out if emit_mono else out[0]
     return _front_chain_forward(xrows, s_in_eq, t_eq, w_eq, coefs, width,
                                 emit_mono)
-
-
-def _wants_grad(*tensors):
-    return torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def _front_chain_forward(xrows, s_in_eq, t_eq, w_eq, coefs, width,
@@ -648,10 +650,11 @@ band_energies.launches = 0
 band_gain_apply.launches = 0
 _WRAPPERS = (front_chain, kweight_cells, band_energies, band_gain_apply,
              ballistics.pass1_hull, ballistics.pass1_runs, ballistics.replay,
-             ballistics.replay_bnd, sos_scan)
+             ballistics.replay_bnd, sos_scan, gain_limit)
 
 
-_PLAIN_TWINS = (front_chain_ref, kweight_cells_ref, sos_scan_ref)
+_PLAIN_TWINS = (front_chain_ref, kweight_cells_ref, sos_scan_ref,
+                gain_limit_ref)
 
 
 def reset_launch_counts():

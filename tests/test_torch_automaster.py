@@ -235,14 +235,16 @@ def test_kweight_cells_vjp_gradcheck():
 
 def test_fit_step_launches_and_plain_calls():
     """One fit step's forward runs K1 once and K4 twice (here their plain
-    twins, on the CPU); its backward calls neither twin."""
+    twins, on the CPU) and the tail as separate plain ops (K9's twin not
+    called); its backward calls no twin."""
     x, ref = _signals()
     _, pm = _models("float32")
     theta = torch.zeros(LATENT, requires_grad=True)
     cmb.reset_launch_counts()
     loss = pm.loss(theta, pm.as_audio(x),
                    am.spectral_profile(torch.from_numpy(ref), FS))
-    want = {"front_chain_ref": 1, "kweight_cells_ref": 2, "sos_scan_ref": 0}
+    want = {"front_chain_ref": 1, "kweight_cells_ref": 2, "sos_scan_ref": 0,
+            "gain_limit_ref": 0}
     assert cmb.plain_calls() == want
     loss.backward()
     assert cmb.plain_calls() == want
@@ -341,7 +343,7 @@ def test_folded_step_makes_one_chain_call(shared):
                                   torch.from_numpy(targets[:t]), shared)
         assert cmb.plain_calls() == {
             "front_chain_ref": 1 if shared else t, "kweight_cells_ref": 2,
-            "sos_scan_ref": 0}
+            "sos_scan_ref": 0, "gain_limit_ref": 0}
         for i in range(t):
             alone = pm.loss(theta if shared else theta[i], tracks[i],
                             torch.from_numpy(targets[i]))

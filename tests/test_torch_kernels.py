@@ -147,7 +147,7 @@ def test_wrappers_take_the_plain_version_on_cpu(emit_mono):
     assert cmb.launch_counts() == {
         "front_chain": 0, "kweight_cells": 0, "band_energies": 0,
         "band_gain_apply": 0, "pass1_hull": 0, "pass1_runs": 0, "replay": 0,
-        "replay_bnd": 0, "sos_scan": 0}
+        "replay_bnd": 0, "sos_scan": 0, "gain_limit": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -407,7 +407,7 @@ def test_kernel_wrappers_validate_operands(cuda_device):
 
 @pytest.mark.cuda
 def test_master_on_the_card_matches_the_cpu_path(cuda_device):
-    """The whole chain on the card runs through both kernels and agrees
+    """The whole chain on the card runs through its kernels and agrees
     with the port's plain CPU path within the JAX chain budget 2e-4."""
     fs = 44100
     x = _signal(2 * fs, 2, fs, 3).T * 0.8
@@ -418,6 +418,7 @@ def test_master_on_the_card_matches_the_cpu_path(cuda_device):
     torch.cuda.synchronize()
     counts = cmb.launch_counts()
     assert counts.pop("front_chain") == 1 and counts.pop("kweight_cells") == 1
+    assert counts.pop("gain_limit") == 1
     assert not any(counts.values()), counts   # multiband off: no band kernel
     ref = MasteringChain(cfg)(x, params, return_result=True)
     assert (got.audio.cpu() - ref.audio).abs().max().item() < 2e-4
@@ -563,7 +564,8 @@ def test_band_energies_kernel_matches_plain_at_every_block_and_hop(
 @pytest.mark.cuda
 @pytest.mark.parametrize("source", ["ballistics.cu", "band_gain_apply.cu",
                                     "front_chain.cu", "band_energies.cu",
-                                    "kweight_cells.cu", "sos_scan.cu"])
+                                    "kweight_cells.cu", "sos_scan.cu",
+                                    "gain_limit.cu"])
 def test_kernel_sources_do_not_spill(cuda_device, source):
     """ptxas -v on the rewritten sources: every kernel in them reports 0
     bytes of spill stores and loads.  The band kernels are the
@@ -914,3 +916,187 @@ def test_sos_scan_kernel_refuses_a_wrong_launch(cuda_device):
         assert bad != 0
     with pytest.raises(RuntimeError, match="sos_scan kernel launch failed"):
         k8._raise_on("sos_scan", launch(None, None))
+
+
+def _tail_operands(channels, tracks, m, device, seed=0, gained=True):
+    """Rows ``(C, T, M)`` of which many cross the limiter's threshold
+    once gained, with zeros, signed zeros and the threshold itself among
+    them; T distinct gains (or None)."""
+    r = np.random.default_rng(seed)
+    x = (r.standard_normal((channels, tracks, m)) * 0.7).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[: 6] = [0.0, -0.0, 0.98, -0.98, 1e-30, -3.5]
+    gain = (torch.tensor(np.linspace(0.6, 2.2, tracks), dtype=torch.float32,
+                         device=device) if gained else None)
+    return torch.as_tensor(x, device=device), gain
+
+
+def _max_ulps(a, b):
+    """The largest distance in float32 steps between ``a`` and ``b``."""
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("m", "n"), [(640, 640), (640, 637), (641, 639)])
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("gained", [True, False])
+@pytest.mark.parametrize("variant", ["worker", "legacy"])
+def test_gain_limit_kernel_bitwise_plain(cuda_device, variant, gained,
+                                         channels, m, n):
+    """K9 against its plain version on the card, bit for bit: the quads'
+    16-byte loads (M a multiple of 4) and scalar ones (M = 641), 16-,
+    8- and 4-byte aligned stores (t·n·C offsets with n = 637 odd), a
+    track's last partial quad."""
+    from python_audio_mastering_tpu_torch.ops import gain_limit as k9
+
+    xr, gain = _tail_operands(channels, 3, m, cuda_device, seed=channels,
+                              gained=gained)
+    before = k9.gain_limit.launches
+    got = k9.gain_limit(xr, gain, n, 0.98, variant)
+    want = k9.gain_limit_ref(xr, gain, n, 0.98, variant)
+    torch.cuda.synchronize()
+    assert k9.gain_limit.launches == before + 1
+    assert got.shape == (3, n, channels) and got.is_contiguous()
+    assert torch.equal(got, want), _max_ulps(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["worker", "legacy"])
+def test_gain_limit_kernel_bitwise_plain_on_the_persistent_grid(
+        cuda_device, variant):
+    """Tracks of 4 M frames: every thread of the grid walks several quads
+    of each track."""
+    from python_audio_mastering_tpu_torch.ops import gain_limit as k9
+
+    m = 1 << 22
+    xr, gain = _tail_operands(2, 2, m, cuda_device, seed=9)
+    got = k9.gain_limit(xr, gain, m - 3, 0.98, variant)
+    want = k9.gain_limit_ref(xr, gain, m - 3, 0.98, variant)
+    assert torch.equal(got, want), _max_ulps(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gained", [True, False])
+@pytest.mark.parametrize("variant", ["worker", "legacy"])
+def test_gain_limit_vjp_on_the_card_matches_plain_autograd(
+        cuda_device, variant, gained):
+    """K9 under autograd (the kernel forward, the VJP in plain torch)
+    against autograd through its plain version: within 1e-5 of each
+    gradient's max."""
+    from python_audio_mastering_tpu_torch.ops import gain_limit as k9
+
+    xr, gain = _tail_operands(2, 3, 640, cuda_device, seed=4, gained=gained)
+    up = torch.randn((3, 637, 2), device=cuda_device,
+                     generator=torch.Generator(device=cuda_device
+                                               ).manual_seed(1))
+    grads = []
+    for fn in (k9.gain_limit, k9.gain_limit_ref):
+        x_ = xr.clone().requires_grad_(True)
+        g_ = None if gain is None else gain.clone().requires_grad_(True)
+        before = k9.gain_limit.launches
+        (fn(x_, g_, 637, 0.98, variant) * up).sum().backward()
+        assert k9.gain_limit.launches == before + (fn is k9.gain_limit)
+        grads.append((x_.grad, g_))
+    (dx, g1), (dx_ref, g2) = grads
+    assert (dx - dx_ref).abs().max() <= 1e-5 * dx_ref.abs().max()
+    if gained:
+        assert ((g1.grad - g2.grad).abs().max()
+                <= 1e-5 * g2.grad.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["reference", "lookahead_truepeak"])
+@pytest.mark.parametrize("variant", ["worker", "legacy"])
+def test_forward_tracks_launches_gain_limit_once(cuda_device, variant,
+                                                 mode, monkeypatch):
+    """One K9 launch a ``forward_tracks`` call with the reference limiter
+    (none with the lookahead limiter), whose output equals the CPU path's
+    within the chain budget, and, bit for bit, the same chain ending in
+    the unfused plain ops; the launch adds no host synchronisation."""
+    import warnings
+
+    from python_audio_mastering_tpu_torch.models import chain as chain_mod
+    from python_audio_mastering_tpu_torch.ops.waveshaper import (
+        soft_limiter,
+        soft_limiter_legacy,
+    )
+
+    def unfused_tail(xr, gain, n, threshold, variant="worker"):
+        if gain is not None:
+            xr = xr * gain.view(1, xr.shape[1], 1)
+        lim = soft_limiter_legacy if variant == "legacy" else soft_limiter
+        return lim(xr[:, :, :n].permute(1, 2, 0), threshold=threshold)
+
+    fs = 44100
+    cfg = dataclasses.replace(ChainConfig.gpu_default(fs), variant=variant,
+                              limiter_mode=mode)
+    params = MasteringParams.from_settings({**SETTINGS, "lufs": -9.0})
+    batch = np.stack([_signal(fs, 2, fs, 30 + i).T * 0.8
+                      for i in range(2)]).astype(np.float32)
+    chain = MasteringChain(cfg).to(cuda_device)
+    xb = torch.as_tensor(batch, device=cuda_device)
+    chain.forward_tracks(xb, params)                  # operators built
+    syncs = []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(chain_mod, "gain_limit", unfused_tail)
+        cmb.reset_launch_counts()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                y, _, _ = chain.forward_tracks(xb, params)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        # the synchronising calls, not the mode's own notice (given once
+        # a process: "... does not yet detect all synchronizing ...")
+        syncs.append(sum("synchroniz" in str(w.message)
+                         and "does not yet detect" not in str(w.message)
+                         for w in caught))
+        if fused:
+            assert cmb.launch_counts()["gain_limit"] == (
+                1 if mode == "reference" else 0)
+            y_fused = y
+    assert syncs[0] == syncs[1], syncs
+    if mode == "reference":
+        assert y_fused.is_contiguous()
+        assert torch.equal(y_fused, y)
+    ref, _, _ = MasteringChain(cfg).forward_tracks(torch.as_tensor(batch),
+                                                   params)
+    assert (y_fused.cpu() - ref).abs().max().item() < 5e-3
+
+
+@pytest.mark.cuda
+def test_gain_limit_adds_no_host_sync(cuda_device):
+    """K9's wrapper under PyTorch's sync debug mode set to raise: the
+    gain stays on the device, the launch never waits for the card."""
+    from python_audio_mastering_tpu_torch.ops import gain_limit as k9
+
+    xr, gain = _tail_operands(2, 3, 640, cuda_device)
+    k9.gain_limit(xr, gain, 637, 0.98, "worker")      # the library loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k9.gain_limit(xr, gain, 637, 0.98, "worker")
+        k9.gain_limit(xr, None, 637, 0.98, "legacy")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_gain_limit_refuses_what_the_kernel_cannot_take(cuda_device):
+    from python_audio_mastering_tpu_torch.ops import gain_limit as k9
+
+    xr, gain = _tail_operands(2, 3, 64, cuda_device)
+    for bad in (dict(xr=xr.double()), dict(n=65), dict(n=0),
+                dict(gain=gain[:2]), dict(gain=gain.cpu())):
+        args = {"xr": xr, "gain": gain, "n": 60, **bad}
+        with pytest.raises(ValueError, match="gain_limit"):
+            k9.gain_limit(args["xr"], args["gain"], args["n"], 0.98)
