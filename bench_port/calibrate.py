@@ -7,12 +7,14 @@
 Every seed of a cell runs the same albums (the mix's ``content_seed``
 draws them; ``--seed`` only orders them and draws the album and tracks
 checked), so this reads every track that a run can check, at the cell's
-own sizes on the card: each album rendered and mastered by the port's
-album entry as a run does, and every one of its tracks judged against
-the plain reference.  The control, the reference computed in TF32
-(``reference.chain``, ``precision="tf32"``), is judged in the program's
-place on every :data:`CONTROL_EVERY`-th track, and each fault of
-``faults.faults_for`` (planted under the entry) on every track.  The
+own sizes on the card: each album rendered and mastered by the entry
+its traffic mix names, as a run does, and every one of its tracks judged
+against the plain reference its configuration names (the reference's
+output rounded as the mix's wire rounds, as a run judges it).  The
+control, the reference computed in TF32 (``precision="tf32"``), is
+judged in the program's place on every :data:`CONTROL_EVERY`-th track,
+and each fault of ``faults.faults_for`` (planted under the entry) on
+every track.  The
 benchmark's own runs never run this.  The lower reading is the largest
 the program gives over all tracks, the upper the smallest the control
 gives.
@@ -54,6 +56,7 @@ def read_tracks(cell, device="cuda", workers=WORKERS):
     prog.warm()
     names = faults.faults_for(cell.traffic)
     chain = prog.chain_for_reference()
+    how = dict(reference=prog.reference, wire=prog.wire)
     ctx = multiprocessing.get_context("spawn")
     out, pending, j = [], [], 0
     with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
@@ -65,13 +68,14 @@ def read_tracks(cell, device="cuda", workers=WORKERS):
             prog.sync()
             batch = []
             for i, n in enumerate(plan.lengths):
-                x = prog.batches[k][i, :n].cpu().numpy()
-                y = {a: v[i, :n].cpu().numpy() for a, v in ys.items()}
+                x = prog.entry.track_in(prog.batches[k], i, n)
+                y = {a: prog.entry.track_out(v, i, n)
+                     for a, v in ys.items()}
                 control = j % CONTROL_EVERY == 0
                 j += 1
                 fut = pool.submit(correctness.track_readings, x,
                                   y.pop("program"), plan.settings, chain,
-                                  control, y)
+                                  control, y, **how)
                 batch.append(({"content": _content(plan, i), "track": i,
                                "frames": n,
                                "material": plan.tracks[i].material}, fut))

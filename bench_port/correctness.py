@@ -4,9 +4,13 @@ After the window, one album that the window completed is drawn from the
 seed (a reservoir over the completed albums, so the draw does not
 depend on how many there were); of it, the longest track, one from the
 other half of the album and ``check_tracks − 2`` more, drawn from the
-seed (:func:`pick_tracks`), are mastered again by the
-plain reference (``reference.chain``, float64) from the same input and
-settings.  Each number is the worst over those tracks:
+seed (:func:`pick_tracks`), are mastered again by the plain reference
+that the configuration names (``reference/<name>.py``;
+``reference.chain`` by default, float64) from the same input and
+settings.  Where the traffic mix's wire is ``pcm16`` the deployment's
+output is 16-bit, and the reference's output is rounded as the wire
+rounds it (:func:`round_pcm16`) before it is compared; so is the
+control's.  Each number is the worst over those tracks:
 
 * ``rms_err``: the RMS of the program's output minus the reference's,
   over the RMS of the reference's;
@@ -32,11 +36,15 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
-from bench_port.reference.chain import integrated_loudness, master_track
+from bench_port import registry
+from bench_port.reference.chain import integrated_loudness
 
-__all__ = ["Reservoir", "pick_tracks", "readings", "judge", "NUMBERS"]
+__all__ = ["Reservoir", "pick_tracks", "readings", "judge", "round_pcm16",
+           "NUMBERS", "WIRES"]
 
 NUMBERS = ("rms_err", "med_err", "max_err", "lufs_err")
+WIRES = (None, "float32", "pcm16")    # a traffic mix's ``transfer``
+PCM16_SCALE = 32767.0
 
 
 class Reservoir:
@@ -101,41 +109,67 @@ def worst(per_track):
     return {k: max(r[k] for r in per_track) for k in NUMBERS}
 
 
-def track_readings(x, y, settings, chain, control=False, faults=None):
+def round_pcm16(y):
+    """``y`` as the pcm16 wire hands it back: the signal in float32,
+    ``clip(round(y·32767), −32768, 32767)/32767`` (half to even, the
+    product in float32), as float32: the port's ``requantize_pcm16`` on
+    the card and its dequantization on the host, written again here."""
+    q = np.round(np.asarray(y, np.float32) * np.float32(PCM16_SCALE))
+    return (np.clip(q, -32768.0, 32767.0) / np.float32(PCM16_SCALE)).astype(
+        np.float32)
+
+
+def _wire(wire):
+    if wire not in WIRES:
+        raise ValueError(f"transfer {wire!r}: one of {WIRES}")
+    return round_pcm16 if wire == "pcm16" else (lambda y: y)
+
+
+def track_readings(x, y, settings, chain, control=False, faults=None,
+                   reference=registry.DEFAULT_REFERENCE, wire=None):
     """One track's numbers: the program's output ``y`` against the
-    reference's, with ``control`` the control's (the reference in TF32)
-    too, and with ``faults`` (``{name: output}``) each faulted output's:
-    ``{"program": ..., ["control": ...,] [name: ...]}``."""
+    reference's (``reference/<reference>.py``), with ``control`` the
+    control's (the reference in TF32) too, and with ``faults`` (``{name:
+    output}``) each faulted output's: ``{"program": ..., ["control":
+    ...,] [name: ...]}``.  ``wire``, the traffic mix's ``transfer``:
+    ``"pcm16"`` rounds the reference's and the control's outputs as the
+    wire rounds the program's."""
     fs = int(chain["sample_rate"])
+    master_track = registry.load_module("reference", reference).master_track
+    rounded = _wire(wire)
     ref, _, alt = master_track(x, settings, chain)
+    ref, alt = rounded(ref), (None if alt is ref else rounded(alt))
     out = {"program": readings(y, ref, fs, alt)}
     if control:
         ctl, _, _ = master_track(x, settings, chain, "tf32")
-        out["control"] = readings(ctl, ref, fs, alt)
+        out["control"] = readings(rounded(ctl), ref, fs, alt)
     for name, yf in (faults or {}).items():
         out[name] = readings(yf, ref, fs, alt)
     return out
 
 
-def map_tracks(tasks, workers):
-    """``track_readings`` of each ``(x, y, settings, chain, control[,
-    faults])``,
-    in ``workers`` spawned processes (in this one for 1)."""
+def map_tracks(tasks, workers, **how):
+    """``track_readings(*task, **how)`` of each task ``(x, y, settings,
+    chain, control[, faults])``, in ``workers`` spawned processes (in this
+    one for 1)."""
     if workers <= 1:
-        return [track_readings(*t) for t in tasks]
+        return [track_readings(*t, **how) for t in tasks]
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        futs = [pool.submit(track_readings, *t) for t in tasks]
+        futs = [pool.submit(track_readings, *t, **how) for t in tasks]
         return [f.result() for f in futs]
 
 
-def judge(limits, chain, items, workers=1):
+def judge(limits, chain, items, workers=1,
+          reference=registry.DEFAULT_REFERENCE, wire=None):
     """``items``: ``(x (n, C), y (n, C), settings)`` of each track
-    checked.  Returns ``(correct, checks, per_track)``: ``checks`` maps
-    each compared number to its value and limit, in the order of
+    checked; ``reference`` and ``wire`` as :func:`track_readings` takes
+    them.  Returns ``(correct, checks, per_track)``: ``checks`` maps each
+    compared number to its value and limit, in the order of
     :data:`NUMBERS`."""
     per_track = [r["program"] for r in map_tracks(
-        [(x, y, s, chain, False) for x, y, s in items], workers)]
+        [(x, y, s, chain, False) for x, y, s in items], workers,
+        reference=reference, wire=wire)]
     w = worst(per_track) if per_track else {}
     checks = {k: {"value": w[k], "limit": limits[k]} for k in NUMBERS
               if k in limits and k in w}

@@ -104,6 +104,15 @@ class TraceContext:
                 plain += k_ms * plain_missing / plain_seen
         return plain / self.albums
 
+    def copy_ms(self, direction):
+        """Device ms per album of the copies ``direction`` (``"HtoD"``,
+        ``"DtoH"``) the record holds, or None where it holds none."""
+        tag = f"Memcpy {direction}"
+        hits = np.array([n.startswith(tag) for n in self.names], dtype=bool)
+        if not hits.any():
+            return None
+        return float(self.durs[hits].sum()) / 1e6 / self.albums
+
     def device_ops(self, top=_TOP):
         """The device activities that took most time: ``[[name,
         seconds], ...]`` over the traced window."""

@@ -378,10 +378,17 @@ def resolve_settings(settings):
 
 def master_track(x, settings, chain, precision="float64"):
     """Master one track ``x`` ``(n, C)`` with the settings dict and the
-    chain's deployment (``variant``, ``sample_rate``, ``comp_hop``,
-    ``limiter_threshold``).  Returns ``(y (n, C), measured LUFS, alt)``:
-    ``alt`` is ``y`` with the samples at which the limiter's branch is
-    rounding (:func:`_limit`) on the other branch."""
+    chain's deployment (a configuration's ``chain`` dict: ``variant``,
+    ``sample_rate``, ``comp_hop``, ``limiter_threshold``; its
+    ``limiter_mode``, where given, must be ``"reference"``, the soft
+    limiter: another limiter is another reference's).  Returns ``(y (n,
+    C), measured LUFS, alt)``: ``alt`` is ``y`` with the samples at which
+    the limiter's branch is rounding (:func:`_limit`) on the other
+    branch."""
+    mode = chain.get("limiter_mode", "reference")
+    if mode != "reference":
+        raise ValueError(f"limiter_mode {mode!r}: this reference masters "
+                         "with the soft limiter (\"reference\") only")
     ar = _Arith(precision)
     fs, variant = int(chain["sample_rate"]), chain["variant"]
     s = resolve_settings(settings)

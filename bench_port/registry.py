@@ -1,8 +1,12 @@
 """Everything a cell is made of, found by name from ``BENCHMARK.json``.
 
 * a configuration: the JSON file its entry names (``file``), whose
-  ``chain`` holds the port's ``ChainConfig`` fields;
-* a traffic mix: ``traffic/<traffic>.json`` (read by ``traffic``);
+  ``chain`` holds the port's ``ChainConfig`` fields and whose optional
+  ``reference`` names its plain reference, ``reference/<name>.py``
+  (``chain`` when absent);
+* a traffic mix: ``traffic/<traffic>.json`` (read by ``traffic``), whose
+  optional ``entry`` names the program's entry it drives,
+  ``entries/<name>.py`` (``album_on_card`` when absent);
 * a cell's correctness limits: ``cells/<cell>.json``;
 * a per-layer metric: ``metrics/<metric>.py``, declaring ``NAME``,
   ``UNIT``, ``LAYER``, ``MOVES`` and ``read(ctx)``;
@@ -24,7 +28,10 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 
 __all__ = ["Cell", "load_benchmark", "cell", "load_module", "metric",
-           "roofline", "ROOT", "HERE"]
+           "roofline", "reference", "entry", "ROOT", "HERE"]
+
+DEFAULT_REFERENCE = "chain"
+DEFAULT_ENTRY = "album_on_card"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +93,19 @@ def metric(name):
 
 def roofline(name):
     return load_module("rooflines", name)
+
+
+def reference(config):
+    """The plain reference module a configuration names; ``KeyError`` for
+    one that ``reference/`` does not hold."""
+    return load_module("reference", reference_name(config))
+
+
+def reference_name(config):
+    return config.get("reference", DEFAULT_REFERENCE)
+
+
+def entry(traffic):
+    """The entry module a traffic mix names; ``KeyError`` for one that
+    ``entries/`` does not hold."""
+    return load_module("entries", traffic.get("entry", DEFAULT_ENTRY))

@@ -5,13 +5,17 @@
 
 The cell's traffic mix (``traffic/<mix>.json``) is rendered on the card
 from ``--seed``: a few albums of tracks, padded to one batch each.  The
-entry under test is the port's batched album entry,
+mix's ``entry`` names the entry under test (``entries/<entry>.py``).  By
+default it is the port's batched album entry,
 ``parallel.batch.make_album_fn(config)`` → ``MasteringChain.
 forward_tracks``: a whole album ``(T, N, C)`` on the card mastered in one
-call, each track's loudness measured over its own length.  Set-up warms
-every padded length and settings dict of the schedule once.  Then a
-closed loop with one client: the next album is dispatched when the
-previous one's output has been synchronised, for ``--seconds``.
+call, each track's loudness measured over its own length;
+``album_job_streamed`` is the worker's album job, host tracks to host
+outputs through ``parallel.batch.master_album_streamed``.  Set-up makes
+each album the entry's input and warms every padded length and settings
+dict of the schedule once.  Then a closed loop with one client: the next
+album is dispatched when the previous one's output has been synchronised
+(or has reached the host), for ``--seconds``.
 
 ``--trace 0`` prints the cell's end-to-end metrics: ``setup_s`` (from
 the harness's start to the first timed call: imports, CUDA init, the
@@ -44,6 +48,7 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import resource  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import warnings  # noqa: E402
@@ -135,7 +140,8 @@ def count_syncs(fn, torch):
 
 class Program:
     """The system under test at a cell's configuration, on ``device``:
-    its album entry and the schedule's albums rendered there."""
+    the entry its traffic mix names and the schedule's albums rendered
+    there and made that entry's input."""
 
     def __init__(self, cell, seed, device, wrap=None):
         import torch
@@ -147,10 +153,12 @@ class Program:
             MasteringParams,
         )
         from python_audio_mastering_tpu_torch.ops import cuda_multiband
-        from python_audio_mastering_tpu_torch.parallel.batch import (
-            make_album_fn,
-        )
 
+        self.entry = registry.entry(cell.traffic)
+        registry.reference(cell.config)       # a missing one fails here
+        self.reference = registry.reference_name(cell.config)
+        self.wire = cell.traffic.get("transfer")
+        self.cell = cell
         self.counters = cuda_multiband
         self.cuda = torch.device(device).type == "cuda"
         self.build_s = 0.0
@@ -169,11 +177,12 @@ class Program:
         self.fs = self.config.sample_rate
         self.channels = int(cell.config["channels"])
         self.plans = traffic.schedule(cell.traffic, self.fs, seed)
-        self.batches = [traffic.render(p, self.fs, self.channels, device)
-                        for p in self.plans]
+        self.batches = [self.entry.inputs(
+            traffic.render(p, self.fs, self.channels, device), p,
+            cell.traffic) for p in self.plans]
         self.params = [MasteringParams.from_settings(p.settings)
                        for p in self.plans]
-        fn = make_album_fn(self.config, device=device)
+        fn = self.entry.build(self.config, cell.traffic, device)
         self.fn = wrap(fn) if wrap else fn
 
     def sync(self):
@@ -195,21 +204,23 @@ class Program:
                 self.sync()
 
     def chain_for_reference(self):
-        c = self.config
-        return {"variant": c.variant, "sample_rate": c.sample_rate,
-                "comp_hop": c.comp_hop,
-                "limiter_threshold": c.limiter_threshold}
+        """The configuration's whole ``chain`` dict, as its reference
+        reads it."""
+        return dict(self.cell.config["chain"])
+
+    def frames(self, k):
+        """The frames of each track of album ``k`` that the entry's
+        kernels process (the roofline counts' album shape)."""
+        return self.entry.frames(self.plans[k], self.cell.config,
+                                 self.cell.traffic)
 
     def track_items(self, k, y, indices):
         """``(input, output, settings)`` of album ``k``'s tracks
         ``indices`` on the host, unpadded."""
         p = self.plans[k]
-        out = []
-        for i in indices:
-            n = p.lengths[i]
-            out.append((self.batches[k][i, :n].cpu().numpy(),
-                        y[i, :n].cpu().numpy(), p.settings))
-        return out
+        return [(self.entry.track_in(self.batches[k], i, p.lengths[i]),
+                 self.entry.track_out(y, i, p.lengths[i]), p.settings)
+                for i in indices]
 
     def memory_peak(self):
         return (int(self.torch.cuda.max_memory_allocated())
@@ -281,8 +292,8 @@ def traced_window(prog, cell, reservoir):
     launches = {name: c / n
                 for name, c in prog.counters.launch_counts().items()}
     syncs = count_syncs(lambda: prog.call(0), torch) if prog.cuda else None
-    shapes = [roofline.album_shape(cell.config, prog.plans[j % len(
-        prog.plans)].frames, len(prog.plans[0].tracks), prog.channels,
+    shapes = [roofline.album_shape(cell.config, prog.frames(j % len(
+        prog.plans)), len(prog.plans[0].tracks), prog.channels,
         prog.params[0].multiband, prog.params[0].lufs_enabled)
         for j in range(n)]
     ctx, win = device_trace.read(prof, n, window_s, launches, syncs, shapes)
@@ -326,7 +337,8 @@ def run_cell(cell, seed, seconds, trace, device="cuda", wrap=None):
             for m in cell.end_to_end})
     result["device"]["memory_peak_bytes"] = prog.memory_peak()
     log(f"setup_s {setup_s!r}; memory_peak_bytes "
-        f"{result['device']['memory_peak_bytes']}")
+        f"{result['device']['memory_peak_bytes']}; host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}")
 
     ok, checks = False, {}
     if reservoir.item is not None:
@@ -336,12 +348,13 @@ def run_cell(cell, seed, seconds, trace, device="cuda", wrap=None):
                                       seed + 2)
         items = prog.track_items(k, y, idx)
         chain = prog.chain_for_reference()
+        how = dict(reference=prog.reference, wire=prog.wire)
         del y, prog
         reservoir.item = None
         t_ref = time.perf_counter()
         workers = len(items) if device != "cpu" else 1
         ok, checks, per_track = correctness.judge(cell.limits, chain, items,
-                                                  workers)
+                                                  workers, **how)
         log(f"reference: album {k}, tracks {idx}, "
             f"{time.perf_counter() - t_ref:.1f} s")
         for i, r in zip(idx, per_track):

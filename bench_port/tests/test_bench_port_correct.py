@@ -2,11 +2,13 @@
 
 Each test drives the rest of a run on the CPU, at a size a test run can
 hold (the port's plain path, albums of the cell's own 12 tracks, each
-2-4 s long, and the cell's own number of checked tracks), with the
+2-4 s long, 4-10 s in chunks of 6.4 s for the streamed job, and the
+cell's own number of checked tracks), with the
 harness's look for a card skipped: a sound run comes out correct, and
 with the timed path broken underneath (``bench_port.faults``: half of the
 album's tracks left out, every output 0.05 dB loud, the limiter skipped,
-the band gains left out) it does not.  One chip serves each cell, so no
+the band gains left out, the streamed job's carried state dropped at
+every chunk boundary) it does not.  One chip serves each cell, so no
 exchange between chips can be left out.  The control, the reference
 computed in TF32, has to fail the cell's limits too."""
 
@@ -18,20 +20,26 @@ import pytest
 
 from bench_port import correctness, faults, registry, traffic
 from bench_port import run as bench_run
+from bench_port.tests import job_cell
 
-CELLS = [w["name"] for w in registry.load_benchmark()["workloads"]]
+CELLS = [w["name"] for w in registry.load_benchmark()["workloads"]] + [
+    job_cell.NAME]
 TINY = {"albums": 2, "length_s": [2, 4], "pad_multiple_s": 1,
         "trace_albums": 2}
+# the streamed job's chunk rounds down to 6.4 s at 44.1 kHz: longer tracks
+# cross a chunk boundary
+TINY_STREAMED = {"length_s": [4, 10], "chunk_seconds": 1}
 SEED = 2 ** 31 + 77
 
 
 def tiny(cell):
-    c = registry.cell(cell)
-    return dataclasses.replace(c, traffic={**c.traffic, **TINY})
+    c = job_cell.load(cell)
+    more = TINY_STREAMED if "chunk_seconds" in c.traffic else {}
+    return dataclasses.replace(c, traffic={**c.traffic, **TINY, **more})
 
 
 CELL_FAULTS = [(c, f) for c in CELLS
-               for f in faults.faults_for(registry.cell(c).traffic)]
+               for f in faults.faults_for(job_cell.load(c).traffic)]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -66,11 +74,11 @@ def test_control_fails_the_limits(cell):
     prog = bench_run.Program(c, SEED, "cpu")
     chain = prog.chain_for_reference()
     for k, plan in enumerate(prog.plans[:1]):
-        x = prog.batches[k]
         for i, n in enumerate(plan.lengths[:3]):
-            xi = x[i, :n].numpy()
-            r = correctness.track_readings(xi, xi, plan.settings, chain,
-                                           control=True)["control"]
+            xi = prog.entry.track_in(prog.batches[k], i, n)
+            r = correctness.track_readings(
+                xi, xi, plan.settings, chain, control=True,
+                reference=prog.reference, wire=prog.wire)["control"]
             assert any(r[k2] > lim for k2, lim in c.limits.items()), r
 
 
@@ -96,7 +104,7 @@ def test_reservoir_and_picks_follow_the_seed():
 def test_picks_meet_both_halves(cell):
     """At the cell's own album and number of checked tracks, every seed
     checks the longest track and a track of each half of the album."""
-    c = registry.cell(cell)
+    c = job_cell.load(cell)
     k = int(c.traffic["check_tracks"])
     for plan in traffic.schedule(c.traffic, 44100, SEED):
         n = len(plan.lengths)

@@ -7,6 +7,7 @@ import re
 import pytest
 
 from bench_port import registry
+from bench_port.tests import job_cell
 
 BENCH = registry.load_benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -24,9 +25,9 @@ def test_top_level_keys():
     assert "setup_s" in e2e and len(e2e) >= 2
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + [job_cell.NAME])
 def test_cell_resolves(cell):
-    c = registry.cell(cell)
+    c = job_cell.load(cell)
     assert c.chips == 1
     assert {"chain", "channels"} <= set(c.config)
     for key in ("albums", "content_seed", "tracks_per_album", "length_s",
@@ -35,6 +36,8 @@ def test_cell_resolves(cell):
         assert key in c.traffic
     assert c.limits and set(c.limits) <= {"rms_err", "med_err", "max_err",
                                           "lufs_err"}
+    assert callable(registry.entry(c.traffic).build)
+    assert callable(registry.reference(c.config).master_track)
     assert c.per_layer, "every cell reports a per-layer metric"
     assert {m["name"] for m in c.end_to_end} >= {"setup_s", "audio_rtf"}
 

@@ -43,3 +43,17 @@ def test_plain_time_and_gaps():
     assert gaps["aten::copy_"] == 40e-9
     assert gaps["host: between recorded operations"] == 35e-9
     assert c.device_ops()[0] == ["pam::kweight_cells_kernel", 10e-9]
+
+
+def test_copy_time_by_direction():
+    """The wire metrics' readers: the copies of each direction summed,
+    per album; none of a direction reads nothing."""
+    from bench_port import registry
+
+    c = ctx(["Memcpy HtoD (Pageable -> Device)", "k",
+             "Memcpy DtoH (Device -> Pinned)", "Memcpy HtoD (Pinned -> Device)"],
+            [0, 10, 20, 30], [6e6, 1e6, 2e6, 4e6], {})
+    assert c.copy_ms("HtoD") == 5.0 and c.copy_ms("DtoH") == 1.0
+    assert registry.metric("wire.h2d_ms").read(c) == 5.0
+    assert registry.metric("wire.d2h_ms").read(c) == 1.0
+    assert ctx(["k"], [0], [4], {}).copy_ms("DtoH") is None

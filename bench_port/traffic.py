@@ -19,6 +19,11 @@ module reads; nothing in it is code.  Its keys:
   equally over an album's tracks;
 * ``presets``: the EQ presets an album's one settings dict draws from;
 * ``settings``: the rest of that settings dict (the job payload's keys);
+* ``entry`` (optional): the program's entry the albums are handed to,
+  ``entries/<entry>.py`` (``album_on_card`` when absent: the rendered
+  batch on the card); ``album_job_streamed`` also reads ``transfer``
+  (the host ↔ device wire, ``float32`` or ``pcm16``), ``chunk_seconds``
+  and ``meters``;
 * ``check_tracks``: tracks of the sampled album that the reference
   masters after the window (its longest, and one of the half of the
   album that does not hold it, among them);
