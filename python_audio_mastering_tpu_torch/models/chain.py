@@ -28,15 +28,18 @@ K-weighted cell energies).  On a CUDA float32 signal with the reference
 limiter, ``gain_limit`` (``ops.gain_limit``) ends it: each track's
 loudness gain, the soft limiter and the unfold to ``(T, N, C)`` in one
 pass; elsewhere (the CPU, float64, the lookahead limiter) those stay
-separate plain ops.  The loudness meter's mono downmix comes from
-the last kernel before it: ``band_gain_apply`` with multiband on,
-``front_chain`` without.  The per-block filter states between kernels
-come from plain-torch states passes (``ops.iir``).  On a CUDA tensor the
-kernels launch; on a CPU tensor their plain versions run.  Nothing in the
-chain is random.  The stages open ``utils.tracing`` spans: ``chain`` (the
-whole of :meth:`MasteringChain.forward_tracks`), ``front``,
-``multiband``, ``loudness`` and ``limiter``, and inside them the ops'
-``states`` and ``detector``.
+separate plain ops, and the lookahead limiter runs track by track, each
+cut to its own length (:meth:`MasteringChain.limiter`).  The loudness
+meter's mono downmix comes from the last kernel before it:
+``band_gain_apply`` with multiband on, ``front_chain`` without.  The
+per-block filter states between kernels come from plain-torch states
+passes (``ops.iir``).  On a CUDA tensor the kernels launch; on a CPU
+tensor their plain versions run.  Nothing in the chain is random.  The
+stages open ``utils.tracing`` spans: ``chain`` (the whole of
+:meth:`MasteringChain.forward_tracks`), ``front``, ``multiband``,
+``loudness`` and ``limiter``, and inside them the ops' ``states`` and
+``detector`` and the lookahead limiter's ``truepeak``, ``attack`` and
+``release``.
 
 An album chunk ``(C, T, nb, L)`` takes the same body with T sequences of
 params (:meth:`MasteringChain.front`, :meth:`MasteringChain.multiband`):
@@ -560,10 +563,20 @@ class MasteringChain(nn.Module):
         return (y, eq_zf) if return_state else y
 
     def limiter(self, x):
-        """The variant's soft limiter at the config's threshold."""
-        lim = soft_limiter_legacy if self.config.variant == "legacy" \
+        """The config's limiter: the variant's soft limiter at the config's
+        threshold, pointwise on any shape; in quality mode the lookahead
+        true-peak limiter of ``ops.limiter`` over the whole track ``x``
+        ``(N, C)``, or over each row of ``(T, N, C)``, every row a whole
+        track (the look-ahead replicates a track's own last sample)."""
+        cfg = self.config
+        if cfg.limiter_mode == "lookahead_truepeak":
+            if x.ndim == 3:
+                return torch.stack([lookahead_limiter(t, cfg.sample_rate)
+                                    for t in x])
+            return lookahead_limiter(x, cfg.sample_rate)
+        lim = soft_limiter_legacy if cfg.variant == "legacy" \
             else soft_limiter
-        return lim(x, threshold=self.config.limiter_threshold)
+        return lim(x, threshold=cfg.limiter_threshold)
 
     def forward(self, audio, params: MasteringParams,
                 return_result: bool = False, valid_frames=None):
@@ -600,8 +613,10 @@ class MasteringChain(nn.Module):
         ``params``: one :class:`MasteringParams` for every track, or T of
         them (tensor sliders too: the automaster's batch).
         ``valid_frames``: T lengths; each track's loudness is measured over
-        its first ones (all N when None).  Returns ``(y (T, N, C),
-        measured_lufs (T,), applied_gain_db (T,))``.
+        its first ones (all N when None), and in quality mode each track is
+        limited to its own end, as its one-shot :func:`master` limits it,
+        with zeros after it.  Returns ``(y (T, N, C), measured_lufs (T,),
+        applied_gain_db (T,))``.
         """
         cfg = self.config
         x = torch.as_tensor(batch).to(device=self.device,
@@ -641,6 +656,8 @@ class MasteringChain(nn.Module):
 
         fused = (xr.is_cuda and xr.dtype == torch.float32
                  and cfg.limiter_mode == "reference")
+        vf = ([n] * tracks if valid_frames is None
+              else [min(int(v), n) for v in valid_frames])
         if first.lufs_enabled:
             with span("loudness"):
                 # the kernels' mono downmix, or a mono signal, is one row
@@ -649,8 +666,6 @@ class MasteringChain(nn.Module):
                     meter, cfg.sample_rate, ops=self.kweight_ops(),
                     scan=kw_scan)
                 cell = _gating_geometry(cfg.sample_rate)[0]
-                vf = ([n] * tracks if valid_frames is None
-                      else [min(int(v), n) for v in valid_frames])
                 cells = torch.arange(cell_ms.shape[1], device=self.device)
                 mask = cells[None] < upload([v // cell for v in vf],
                                             torch.int64, self.device)[:, None]
@@ -673,8 +688,11 @@ class MasteringChain(nn.Module):
                 y = gain_limit(xr, gain, n, cfg.limiter_threshold,
                                cfg.variant)
             elif cfg.limiter_mode == "lookahead_truepeak":
-                y = torch.stack([lookahead_limiter(t, cfg.sample_rate)
-                                 for t in xr[:, :, :n].permute(1, 2, 0)])
+                # each track limited to its own end, zeros after it
+                y = xr.new_empty((tracks, n, c))
+                for i, v in enumerate(vf):
+                    y[i, :v] = self.limiter(xr[:, i, :v].T)
+                    y[i, v:] = 0.0
             else:
                 y = self.limiter(xr[:, :, :n].permute(1, 2, 0))
         return y, measured, gain_db

@@ -23,6 +23,11 @@ whole-signal tensor operation:
 :func:`lookahead_limiter_chunk` runs it chunk by chunk with a carried
 history and pending buffer and the release gain, matching the one-shot
 limiter to rounding.  Nothing in either path synchronises with the host.
+
+Each stage opens a ``utils.tracing`` span: ``truepeak`` (the interpolator
+and the peak envelope), ``attack`` (the raw gain, erosion and moving
+average) and ``release`` (the float64 prefix-max scan); the gain multiply
+and the casts lie outside them.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from python_audio_mastering_tpu_torch.ops.meters import (
     _interpolate,
     _oversample_taps,
 )
+from python_audio_mastering_tpu_torch.utils.tracing import span
 
 __all__ = ["lookahead_limiter", "lookahead_limiter_chunk",
            "lookahead_limiter_init", "LookaheadLimiterState"]
@@ -75,6 +81,7 @@ def _prefix_max(v):
     return m.reshape(-1)[:n]
 
 
+@span("release")
 def _release_scan(target, rho, g0=None):
     """Exact release: ``g[i] = min(target[i], 1 − (1 − g[i−1])·rho)``.
 
@@ -146,9 +153,12 @@ def _limiter_gain(work, sample_rate, ceiling_db, lookahead_ms, true_peak):
     """Raw gain from the peak envelope, then the attack: ``(N,)``."""
     look = max(1, int(lookahead_ms * sample_rate / 1000.0))
     ceiling = 10.0 ** (ceiling_db / 20.0)
-    peak = _peak_env(work, true_peak)
-    raw_gain = torch.clamp(ceiling / torch.clamp_min(peak, 1e-9), max=1.0)
-    return _attack_gain(raw_gain, look)
+    with span("truepeak"):
+        peak = _peak_env(work, true_peak)
+    with span("attack"):
+        raw_gain = torch.clamp(ceiling / torch.clamp_min(peak, 1e-9),
+                               max=1.0)
+        return _attack_gain(raw_gain, look)
 
 
 def _rho(sample_rate, release_ms):

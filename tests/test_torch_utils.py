@@ -134,6 +134,10 @@ SPANS = {
                   "chain/multiband", "chain/multiband/states",
                   "chain/multiband/detector", "chain/loudness",
                   "chain/loudness/states", "chain/limiter"},
+    "worker_quality": {"chain", "chain/front", "chain/front/states",
+                       "chain/loudness", "chain/loudness/states",
+                       "chain/limiter", "chain/limiter/truepeak",
+                       "chain/limiter/attack", "chain/limiter/release"},
 }
 
 
@@ -148,6 +152,8 @@ def _profiled_album(case):
     cfg = ChainConfig.gpu_default(FS)
     if case.startswith("legacy"):
         cfg = dataclasses.replace(cfg, variant="legacy")
+    if case.endswith("quality"):
+        cfg = dataclasses.replace(cfg, limiter_mode="lookahead_truepeak")
     params = MasteringParams.from_settings(
         {"saturation": 20, "preset": "techno", "width": 1.3, "lufs": -14.0,
          "multiband": case.endswith("_mb")})
