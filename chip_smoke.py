@@ -16,8 +16,9 @@ parallelism (the album's tracks and the automaster's batch over ranks)
 and the fast profile (phases 35-38), the exact filter path on the scan
 kernel and a comp_hop that does not divide the block (phases 39-44), and
 the boundary walk K5 on the runs it meets and on four program materials
-(phase 45), and the chain's tail K9 at the track's and the album's shape
-(phase 46), after
+(phase 45), the chain's tail K9 at the track's and the album's shape
+(phase 46), and the quality mode's limiter K10 at the track and on an
+album's tracks (phase 47), after
 building its CUDA kernels from the sources in the checkout and checking
 each against its plain PyTorch version at the shapes the chain gives it.
 Phases:
@@ -94,8 +95,12 @@ Phases:
  15  quality master() (no device argument) at -14 and -8 LUFS, multiband
      off and on: finite, sample peak <= the ceiling x (1 + 1e-6), true
      peak <= -0.8 dBTP, oracle loudness printed, every kernel of the path
-     launched, within 2e-4 max abs (multiband off) or phase 10's limits
-     (on) of the port's CPU quality path; quality master_streamed equals
+     launched, the limiter K10 once and its plain twin never, within 2e-4
+     max abs (multiband off) or phase 10's limits (on) of the port's CPU
+     quality path; an album of the track cut to 180, 97 and 31 s through
+     forward_tracks at -8 LUFS: K10 once a track on the chain's strided
+     track view, the twin never, each track within 2e-4 of its own quality
+     master() and zeros after its end; quality master_streamed equals
      one-shot within 2e-4
  16  engines without a device argument: process_audio with quality and
      output_sample_rate 48000 (a 48 kHz WAV of ceil(N*160/147) frames,
@@ -105,11 +110,10 @@ Phases:
      flag, .meters.json with the target loudness within 1e-2 and the
      written audio's true peak within 0.05 dB)
  17  timings (CUDA events, warm, median of 5): quality vs soft-limiter
-     master() with multiband, the limiter alone on the 180 s track,
-     master_streamed with and without return_meters, resample 44.1 ->
-     48 kHz of 180 s; device time (torch.profiler) of the quality
-     master() and of the limiter alone; host synchronisations per quality
-     master()
+     master() with multiband, master_streamed with and without
+     return_meters, resample 44.1 -> 48 kHz of 180 s; device time
+     (torch.profiler) of the quality master(); host synchronisations per
+     quality master() (the limiter alone, K10, is phase 47's)
 
 The album path (``parallel.batch``), on the JAX bench's album: 12 seeded
 300 s 44.1 kHz stereo tracks (seeds 10-21, its ``_mk_audio``), the bench
@@ -389,6 +393,21 @@ The chain's tail:
      once, the gains read once), which the kernel may not beat by more
      than 5 %
 
+The quality mode's limiter:
+
+ 47  lookahead_limit (K10: the 4x true-peak envelope, erosion, float64
+     moving average and release, the gain) on the 180 s track made hot
+     (x2) and on an album's 12 hot stereo tracks of 150-420 s (the
+     benchmark's lengths, stratified), each limited to its own length as
+     forward_tracks limits it: lookahead_limiter's route, one launch a
+     track, against
+     lookahead_limit_ref within 1e-6 max abs and the gain within 2e-6 of
+     the twin's; the kernel's time (CUDA events, queued as phase 45's), the
+     twin's (CUDA events) and the bound (arithmetic: the FIR's 256 FLOP a
+     sample and channel and 12 a frame over 67 TFLOP/s, against 8 bytes a
+     sample over 3.35 TB/s), which the kernel may not beat by more than
+     5 %
+
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
 peak rate of their type (67 TFLOP/s fp32 on the CUDA cores; 495 TFLOP/s
@@ -414,7 +433,8 @@ distance from the plain twin over every rank of phases 31-33, and
 from phase 40, its ``max_abs_err`` from phase 39; K5's
 ``latency_bound_ms`` from phase 12 and ``worker_events_ms`` /
 ``legacy_events_ms`` with their latency bounds from phase 45; K9's
-``launches`` from phase 4 and its times and bounds from phase 46) and
+``launches`` from phase 4 and its times and bounds from phase 46; K10's
+launches from phase 15 and its times and bounds from phase 47) and
 ``{"ok": true, "device": {...}}``.
 
 ``--kernel-times`` builds the kernels of the checkout it sits in and
@@ -533,6 +553,7 @@ REPLACES = {
     # no pallas_call: the JAX package's exact filter is a lax.scan
     "sos_scan": "python_audio_mastering_tpu/ops/iir.py:67",
     "gain_limit": "none: XLA's fused elementwise",
+    "lookahead_limit": "none: XLA's jnp ops of ops/limiter.py",
 }
 _CSRC = "python_audio_mastering_tpu_torch/csrc"
 # the tensor-core kernels' design, in the kernel record
@@ -560,6 +581,7 @@ SOURCES = {
     "replay_bnd": f"{_CSRC}/ballistics.cu",
     "sos_scan": f"{_CSRC}/sos_scan.cu",
     "gain_limit": f"{_CSRC}/gain_limit.cu",
+    "lookahead_limit": f"{_CSRC}/lookahead_limit.cu",
 }
 
 
@@ -1109,7 +1131,7 @@ def main():
     print("phase 6 ok", flush=True)
 
     multiband_phases(o, kernels)
-    quality_phases(o, card)
+    quality_phases(o, kernels, card)
     album_phases(o, kernels, card)
     legacy_phases(o, kernels, card)
     automaster_phases(o, kernels, card)
@@ -1119,12 +1141,13 @@ def main():
     scan_phases(o, kernels, card)
     k5_phase(o, kernels, card)
     gain_limit_phase(o, kernels, card)
+    lookahead_limit_phase(o, kernels, card)
 
     record = [{"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], **DESIGNS.get(name, {}),
                **kernels[name]}
               for name in NO_MB_KERNELS + MB_KERNELS
-              + ("sos_scan", "gain_limit")]
+              + ("sos_scan", "gain_limit", "lookahead_limit")]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1509,7 +1532,7 @@ def quality_ops(x44, x48):
     return out
 
 
-def quality_phases(o, card):
+def quality_phases(o, kernels, card):
     """Phases 14-17: quality mode, the resampler, the meters and the
     engines around them, on the same track (``o`` from
     :func:`main_path_operands`)."""
@@ -1526,7 +1549,6 @@ def quality_phases(o, card):
     )
     from python_audio_mastering_tpu_torch.io import wavio
     from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
-    from python_audio_mastering_tpu_torch.ops import limiter as lim
     from python_audio_mastering_tpu_torch.ops import meters as met
     from python_audio_mastering_tpu_torch.ops import resample as rs
     from python_audio_mastering_tpu_torch.parallel.streaming import (
@@ -1585,7 +1607,7 @@ def quality_phases(o, card):
             cmb.reset_launch_counts()
             res = master(x, p, qcfg, return_result=True)   # no device
             torch.cuda.synchronize()
-            counts = cmb.launch_counts()
+            counts, twins = cmb.launch_counts(), cmb.plain_calls()
             check(res.audio.device.type == "cuda",
                   f"quality master() ran on {res.audio.device}")
             y = res.audio.cpu().numpy()
@@ -1611,10 +1633,47 @@ def quality_phases(o, card):
             for name in NO_MB_KERNELS + (MB_COUNTED if mb else ()):
                 check(counts[name] > 0, f"kernel {name} was not launched by "
                                         f"the quality master()")
+            check(counts["lookahead_limit"] == 1
+                  and twins["lookahead_limit_ref"] == 0,
+                  f"quality master(): {counts['lookahead_limit']} K10 "
+                  f"launches, {twins['lookahead_limit_ref']} twin calls")
             limit, limit_rms = (MB_MAX, MB_RMS) if mb else (2e-4, None)
             check(d_max < limit, f"card vs CPU max abs {d_max} >= {limit}")
             check(limit_rms is None or d_rms < limit_rms,
                   f"card vs CPU rms {d_rms} >= {limit_rms}")
+    # the album path: each track limited to its own end on the chain's
+    # strided view of its rows, one K10 launch a track
+    p = MasteringParams.from_settings({**SETTINGS, "lufs": -8.0})
+    lengths = [x.shape[0], 97 * FS + 31, 31 * FS + 7]
+    batch = np.zeros((len(lengths),) + x.shape, np.float32)
+    for i, v in enumerate(lengths):
+        batch[i, :v] = x[:v]
+    album_chain = MasteringChain(qcfg).to(dev)
+    cmb.reset_launch_counts()
+    y_album, _, _ = album_chain.forward_tracks(
+        torch.from_numpy(batch).to(dev), p, lengths)
+    torch.cuda.synchronize()
+    counts, twins = cmb.launch_counts(), cmb.plain_calls()
+    print(f"phase 15 quality album of {lengths} frames through "
+          f"forward_tracks: lookahead_limit launches "
+          f"{counts['lookahead_limit']}, lookahead_limit_ref calls "
+          f"{twins['lookahead_limit_ref']}")
+    check(counts["lookahead_limit"] == len(lengths)
+          and twins["lookahead_limit_ref"] == 0,
+          f"quality album: {counts['lookahead_limit']} K10 launches for "
+          f"{len(lengths)} tracks, {twins['lookahead_limit_ref']} twin calls")
+    for i, v in enumerate(lengths):
+        one = master(x[:v], p, qcfg).cpu().numpy()
+        y_i = y_album[i].cpu().numpy()
+        d = float(np.abs(y_i[:v] - one).max())
+        print(f"phase 15 quality album track {i} ({v} frames): vs its "
+              f"quality master() max abs {d:.3e}")
+        check(d <= 2e-4, f"quality album track {i} vs master() {d}")
+        check(not y_i[v:].any(), f"quality album track {i}: not zero after "
+                                 f"its end")
+    kernels["lookahead_limit"] = {"launches": 1,
+                                  "album_launches": len(lengths)}
+    del y_album, album_chain
     for mb in (False, True):
         p = MasteringParams.from_settings({**SETTINGS, "lufs": -8.0,
                                            "multiband": mb})
@@ -1708,8 +1767,6 @@ def quality_phases(o, card):
     timed = {
         "quality master(), multiband": lambda: chain_q(x_dev, params),
         "soft-limiter master(), multiband": lambda: o.chain(x_dev, params),
-        "lookahead_limiter alone, 180 s hot": lambda: lim.lookahead_limiter(
-            hot_dev, FS),
         "quality master_streamed, multiband": lambda: master_streamed(
             x, params, qcfg),
         "quality master_streamed, multiband, return_meters":
@@ -1722,12 +1779,9 @@ def quality_phases(o, card):
         print(f"phase 17 {what}: {ms:.3f} ms ({card})")
     _, syncs = count_syncs(lambda: chain_q(x_dev, params))
     print(f"phase 17 host synchronisations per quality master(): {syncs}")
-    for what, fn in (("quality master(), multiband",
-                      timed["quality master(), multiband"]),
-                     ("lookahead_limiter alone",
-                      timed["lookahead_limiter alone, 180 s hot"])):
-        print(f"phase 17 profile of {what}, 180 s, input on the card:")
-        profile_calls(fn, top=8)
+    print("phase 17 profile of the quality master(), multiband, 180 s, "
+          "input on the card:")
+    profile_calls(timed["quality master(), multiband"], top=8)
     print("phase 17 ok", flush=True)
 
 
@@ -4472,6 +4526,84 @@ def gain_limit_phase(o, kernels, card):
                     f"{prefix}bound_by": bnd["bound_by"]})
     rec["library_ms"] = None
     print("phase 46 ok", flush=True)
+
+
+LIMITER_FLOPS = (256, 12)   # the FIR's a sample and channel; a frame's
+
+
+def limiter_case(what, tracks, kernels_rec, card):
+    """K10 through the limiter's route against its twin on ``tracks``
+    (each a whole track), timed."""
+    from python_audio_mastering_tpu_torch.ops import cuda_multiband as cmb
+    from python_audio_mastering_tpu_torch.ops import limiter as lim
+
+    def route():
+        return [lim.lookahead_limiter(x, FS) for x in tracks]
+
+    worst = [0.0, 0.0]
+    cmb.reset_launch_counts()
+    for x in tracks:
+        got = lim.lookahead_limiter(x, FS)
+        want = lim.lookahead_limit_ref(x, FS)
+        # the gain on each frame's loudest channel, relative to the twin's
+        big = x.abs().argmax(dim=1, keepdim=True)
+        xb = x.gather(1, big).double()[:, 0]
+        keep = xb.abs() > 1e-3
+        g_got = got.gather(1, big).double()[:, 0] / xb
+        g_want = want.gather(1, big).double()[:, 0] / xb
+        g_rel = ((g_got - g_want).abs() / g_want)[keep].max()
+        worst = [max(worst[0], (got - want).abs().max().item()),
+                 max(worst[1], g_rel.item())]
+        del got, want
+    launches = cmb.launch_counts()["lookahead_limit"]
+    frames = sum(x.shape[0] for x in tracks)
+    c = tracks[0].shape[1]
+    bnd = bound((LIMITER_FLOPS[0] * c + LIMITER_FLOPS[1]) * frames,
+                8 * c * frames)
+    print(f"phase 47 lookahead_limit {what}: {len(tracks)} tracks, {frames} "
+          f"frames x {c}: launches {launches}, max abs vs the twin "
+          f"{worst[0]:.3e}, gain {worst[1]:.3e} of the twin's", flush=True)
+    check(launches == len(tracks), f"{what}: {launches} launches for "
+                                   f"{len(tracks)} tracks")
+    check(worst[0] <= 1e-6 and worst[1] <= 2e-6,
+          f"{what}: K10 vs its twin {worst}")
+    ms = queued_ms(route, reps=5)
+    check(bnd["bound_ms"] / ms <= 1.05,
+          f"lookahead_limit {what}: {ms} ms, under its bound "
+          f"{bnd['bound_ms']} ms: the time leaves out some work")
+    plain_ms = median_of(lambda: cuda_ms(
+        lambda: [lim.lookahead_limit_ref(x, FS) for x in tracks], reps=2),
+        runs=3)
+    key = "" if what == "track" else "album_"
+    kernels_rec.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms,
+                        f"{key}bound_ms": bnd["bound_ms"],
+                        f"{key}bound_by": bnd["bound_by"]})
+    print(f"phase 47 lookahead_limit {what}: kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}), {100 * bnd['bound_ms'] / ms:.1f} % of it "
+          f"({card})", flush=True)
+
+
+def lookahead_limit_phase(o, kernels, card):
+    """Phase 47: K10 ``lookahead_limit`` on the 180 s track made hot and on
+    an album's 12 tracks (``o`` from :func:`main_path_operands`): its
+    agreement with its twin and its time; the main path's launches are
+    phase 15's."""
+    dev = o.xrows.device
+    rec = kernels.setdefault("lookahead_limit", {})
+    limiter_case("track", [torch.from_numpy(o.x * 2.0).to(dev)], rec, card)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    tracks = []
+    for i in range(BENCH_ALBUM_TRACKS):
+        n = int(FS * (150 + 270 * (i + 0.5) / BENCH_ALBUM_TRACKS))
+        t = torch.arange(n, device=dev) / FS
+        x = (0.5 * torch.sin(2 * np.pi * 55.0 * t)[:, None]
+             + 0.4 * torch.randn((n, 2), generator=gen, device=dev))
+        x[n // 4: n // 2] *= 3.0                   # hard limiting
+        tracks.append(x)
+    limiter_case("album", tracks, rec, card)
+    rec["library_ms"] = None
+    print("phase 47 ok", flush=True)
 
 
 if __name__ == "__main__":

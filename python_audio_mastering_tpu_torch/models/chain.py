@@ -98,6 +98,10 @@ from python_audio_mastering_tpu_torch.ops.biquad import (
 from python_audio_mastering_tpu_torch.ops.cuda_multiband import front_chain
 from python_audio_mastering_tpu_torch.ops.gain_limit import gain_limit
 from python_audio_mastering_tpu_torch.ops.limiter import lookahead_limiter
+from python_audio_mastering_tpu_torch.ops.lookahead_limit import (
+    MAX_LOOK,
+    look_frames,
+)
 from python_audio_mastering_tpu_torch.ops.loudness import (
     _gating_geometry,
     block_cell_energies_rows,
@@ -202,7 +206,8 @@ def _db_gain(gain_db, dtype=torch.float32):
 
 def check_supported(params: MasteringParams, config: ChainConfig):
     """Raise ``ValueError`` for a variant, a filter method, a ballistics
-    execution or a limiter mode that does not exist."""
+    execution or a limiter mode that does not exist, and for the quality
+    limiter at a sample rate whose look-ahead K10 cannot take."""
     if config.variant not in VARIANTS:
         raise ValueError(f"unknown variant {config.variant!r}: one of "
                          f"{VARIANTS}")
@@ -215,6 +220,14 @@ def check_supported(params: MasteringParams, config: ChainConfig):
     if config.limiter_mode not in _LIMITER_MODES:
         raise ValueError(f"unknown limiter_mode {config.limiter_mode!r}: "
                          f"one of {_LIMITER_MODES}")
+    # the chain's lookahead limiter looks 1.5 ms ahead (its default); K10
+    # takes at most MAX_LOOK frames, so a rate past ~910 kHz is refused
+    if (config.limiter_mode == "lookahead_truepeak"
+            and look_frames(config.sample_rate, 1.5) > MAX_LOOK):
+        raise ValueError(f"limiter_mode 'lookahead_truepeak' at "
+                         f"{config.sample_rate} Hz: the limiter's 1.5 ms "
+                         f"look-ahead is over the kernel's {MAX_LOOK} "
+                         f"frames")
 
 
 def require_device(device, what: str):

@@ -37,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     # x, packed, wt, s_in, y, mono, C, nb, L, S, dry, wet, drive, width,
     # stream
@@ -67,6 +68,10 @@ _SIGNATURES = {
                          _I, _P],
     # x, gain, y, C, T, M, n, threshold, knee, variant, stream
     "pam_gain_limit": [_P, _P, _P, _I, _I, _LL, _LL, _F, _F, _I, _P],
+    # x, y, n, C, sn, sc, look, true_peak, ceiling, rho, rho_tile, taps,
+    # flags, vals, tiles, stream
+    "pam_lookahead_limit": [_P, _P, _LL, _I, _LL, _LL, _I, _I, _F, _D, _D,
+                            _P, _P, _P, _I, _P],
 }
 
 

@@ -33,7 +33,8 @@ on the card.  Each counts its kernel launches in ``<wrapper>.launches``
 (only where it launches the kernel); :func:`reset_launch_counts` and
 :func:`launch_counts` read and clear them for every kernel of the port,
 the ballistics kernels of ``ops.ballistics``, the scan kernel of
-``ops.sos_scan`` and the tail kernel of ``ops.gain_limit`` included.
+``ops.sos_scan``, the tail kernel of ``ops.gain_limit`` and the lookahead
+limiter's of ``ops.lookahead_limit`` included.
 
 ``front_chain`` and ``kweight_cells`` also run under autograd (the
 automaster differentiates the chain through them): given an input that
@@ -65,6 +66,9 @@ from python_audio_mastering_tpu_torch.ops._kernels import raise_on as _raise_on
 from python_audio_mastering_tpu_torch.ops._kernels import (
     wants_grad as _wants_grad,
 )
+from python_audio_mastering_tpu_torch.ops.lookahead_limit import (
+    lookahead_limit,
+)
 from python_audio_mastering_tpu_torch.ops.sos_scan import (
     sos_scan,
     sos_scan_ref,
@@ -78,7 +82,7 @@ from python_audio_mastering_tpu_torch.ops.waveshaper import (
 __all__ = ["front_chain", "front_chain_ref", "kweight_cells",
            "kweight_cells_ref", "band_energies", "band_energies_ref",
            "band_gain_apply", "band_gain_apply_ref", "launch_counts",
-           "reset_launch_counts", "plain_calls"]
+           "reset_launch_counts", "plain_calls", "counts_plain_calls"]
 
 # csrc/tf32_wgmma.cuh: a tile holds 128 rows, every channel of a block
 # among them; the wrappers take L a multiple of 128 (K1's tile width) and
@@ -650,11 +654,19 @@ band_energies.launches = 0
 band_gain_apply.launches = 0
 _WRAPPERS = (front_chain, kweight_cells, band_energies, band_gain_apply,
              ballistics.pass1_hull, ballistics.pass1_runs, ballistics.replay,
-             ballistics.replay_bnd, sos_scan, gain_limit)
+             ballistics.replay_bnd, sos_scan, gain_limit, lookahead_limit)
 
 
-_PLAIN_TWINS = (front_chain_ref, kweight_cells_ref, sos_scan_ref,
-                gain_limit_ref)
+_PLAIN_TWINS = [front_chain_ref, kweight_cells_ref, sos_scan_ref,
+                gain_limit_ref]
+
+
+def counts_plain_calls(twin):
+    """Decorator: count ``twin.calls`` in :func:`plain_calls` too.  For a
+    plain twin in a module that imports this one (``ops.limiter``'s, whose
+    stages need the meters' interpolator); the package imports it."""
+    _PLAIN_TWINS.append(twin)
+    return twin
 
 
 def reset_launch_counts():

@@ -24,21 +24,52 @@ whole-signal tensor operation:
 history and pending buffer and the release gain, matching the one-shot
 limiter to rounding.  Nothing in either path synchronises with the host.
 
-Each stage opens a ``utils.tracing`` span: ``truepeak`` (the interpolator
-and the peak envelope), ``attack`` (the raw gain, erosion and moving
-average) and ``release`` (the float64 prefix-max scan); the gain multiply
-and the casts lie outside them.
+On a CUDA float32 signal outside autograd, :func:`lookahead_limiter` is
+one launch of K10 (``ops.lookahead_limit``, ``csrc/lookahead_limit.cu``):
+the FIR's float32 FMAs, the envelope, erosion, the float64 moving sum
+and the float64 release in shared memory and registers, each frame read
+once and written once.  The kernel takes a look-ahead of at most
+:data:`MAX_LOOK` frames (31 ms at 44.1 kHz; the chain's is 1.5 ms) and
+raises beyond it.  Everywhere else (the CPU, float64, autograd) the
+limiter runs the plain stages above, its twin :func:`lookahead_limit_ref`,
+at any look-ahead; so does :func:`lookahead_limiter_chunk`.  The twin
+counts its calls in ``lookahead_limit_ref.calls``
+(``cuda_multiband.plain_calls``).
+
+Each plain stage opens a ``utils.tracing`` span: ``truepeak`` (the
+interpolator and the peak envelope), ``attack`` (the raw gain, erosion
+and moving average) and ``release`` (the float64 prefix-max scan); the
+gain multiply and the casts lie outside them.  The kernel opens none: on
+the card the stages are one launch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from python_audio_mastering_tpu_torch.ops import _kernels
+from python_audio_mastering_tpu_torch.ops._kernels import (
+    wants_grad as _wants_grad,
+)
+from python_audio_mastering_tpu_torch.ops.cuda_multiband import (
+    counts_plain_calls,
+)
+from python_audio_mastering_tpu_torch.ops.lookahead_limit import (
+    MAX_LOOK,
+    lookahead_limit,
+)
+from python_audio_mastering_tpu_torch.ops.lookahead_limit import (
+    look_frames as _look,
+)
+from python_audio_mastering_tpu_torch.ops.lookahead_limit import (
+    release_rho as _rho,
+)
 from python_audio_mastering_tpu_torch.ops.meters import (
     _interpolate,
     _oversample_taps,
@@ -46,7 +77,8 @@ from python_audio_mastering_tpu_torch.ops.meters import (
 from python_audio_mastering_tpu_torch.utils.tracing import span
 
 __all__ = ["lookahead_limiter", "lookahead_limiter_chunk",
-           "lookahead_limiter_init", "LookaheadLimiterState"]
+           "lookahead_limiter_init", "LookaheadLimiterState",
+           "lookahead_limit_ref", "MAX_LOOK"]
 
 _SCAN_ROW = 1024   # samples a row of the release's prefix max
 
@@ -92,6 +124,10 @@ def _release_scan(target, rho, g0=None):
     """
     n = target.shape[0]
     t64 = target.to(torch.float64)
+    if rho == 0.0:
+        # no memory: u[i] = max(1 − t[i], 0), the carried gain unread
+        return torch.minimum(t64, 1.0 - torch.clamp_min(1.0 - t64, 0.0)).to(
+            target.dtype)
     log_rho = math.log(rho)
     steps = torch.arange(n, dtype=torch.float64,
                          device=target.device) * log_rho
@@ -151,7 +187,7 @@ def _attack_gain(raw_gain, look):
 
 def _limiter_gain(work, sample_rate, ceiling_db, lookahead_ms, true_peak):
     """Raw gain from the peak envelope, then the attack: ``(N,)``."""
-    look = max(1, int(lookahead_ms * sample_rate / 1000.0))
+    look = _look(sample_rate, lookahead_ms)
     ceiling = 10.0 ** (ceiling_db / 20.0)
     with span("truepeak"):
         peak = _peak_env(work, true_peak)
@@ -161,15 +197,31 @@ def _limiter_gain(work, sample_rate, ceiling_db, lookahead_ms, true_peak):
         return _attack_gain(raw_gain, look)
 
 
-def _rho(sample_rate, release_ms):
-    return math.exp(-1.0 / (release_ms * sample_rate / 1000.0))
-
-
 def lookahead_limiter(x, sample_rate, ceiling_db=-1.0, lookahead_ms=1.5,
                       release_ms=60.0, true_peak=True):
     """Limit ``(N, C)`` (or ``(N,)``) audio to ``ceiling_db`` (dBTP by
     default).  The output has the input's shape and is time-aligned with
-    it (the gain curve looks ahead; the signal is not delayed)."""
+    it (the gain curve looks ahead; the signal is not delayed).
+
+    A CUDA float32 signal that needs no gradient takes K10
+    (``ops.lookahead_limit``), which takes a look-ahead of at most
+    :data:`MAX_LOOK` frames and raises ``ValueError`` beyond it; anything
+    else the plain stages (:func:`lookahead_limit_ref`), at any
+    look-ahead."""
+    x = torch.as_tensor(x)
+    args = (sample_rate, ceiling_db, lookahead_ms, release_ms, true_peak)
+    if x.is_cuda and x.dtype == torch.float32 and not _wants_grad(x):
+        return lookahead_limit(x, _k10_taps(x.device), *args)
+    return lookahead_limit_ref(x, *args)
+
+
+@counts_plain_calls
+def lookahead_limit_ref(x, sample_rate, ceiling_db=-1.0, lookahead_ms=1.5,
+                        release_ms=60.0, true_peak=True):
+    """Plain version of K10 ``ops.lookahead_limit``: the limiter's stages as
+    whole-signal tensor operations, on any device and dtype, under
+    autograd too."""
+    lookahead_limit_ref.calls += 1
     x = torch.as_tensor(x)
     squeeze = x.ndim == 1
     if squeeze:
@@ -179,6 +231,17 @@ def lookahead_limiter(x, sample_rate, ceiling_db=-1.0, lookahead_ms=1.5,
     gain = _release_scan(att_gain, _rho(sample_rate, release_ms))
     y = x * gain[:, None]
     return y[:, 0] if squeeze else y
+
+
+@functools.lru_cache(maxsize=8)
+def _k10_taps(device):
+    """The interpolator's taps as the kernel reads them, on ``device``: 128
+    float32, ``h[4·i + p]`` (phase ``p``'s tap ``i``), the float32
+    operator's."""
+    return _kernels.upload(_oversample_taps(4), torch.float32, device)
+
+
+lookahead_limit_ref.calls = 0
 
 
 # ---------------------------------------------------------------------------

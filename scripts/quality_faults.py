@@ -5,13 +5,17 @@ has to fail, and their fail shares on the card.
         [--out chiprun_out/quality_faults.json]
 
 Each fault takes the album entry ``fn(batch, params, lengths)`` and
-returns it broken, in the form of ``bench_port/faults.py``:
+returns it broken, in the form of ``bench_port/faults.py``.  Each runs
+the chain's own limiter hook, ``models.chain.lookahead_limiter``, with
+other arguments, so it takes whatever route the limiter takes (on the
+card K10 ``lookahead_limit``, on the CPU the plain stages):
 
-* ``sample_peak``: the limiter's envelope is the sample peak, not the 4x
-  interpolated true peak;
-* ``look_one``: a look-ahead of one sample instead of 1.5 ms;
-* ``instant_release``: the gain returns at once after a peak (the
-  release's recurrence left out);
+* ``sample_peak``: ``true_peak=False``, the envelope the sample peak, not
+  the 4x interpolated true peak;
+* ``look_one``: ``lookahead_ms=0``, a look-ahead of one sample instead of
+  1.5 ms;
+* ``instant_release``: a ``release_ms`` so short that the release's
+  ``rho`` is 0: the gain returns at once after a peak;
 * ``padded_length``: each track limited over the album's padded length,
   reading the EQ's ring-out and the padding after its end, where its
   one-shot ``master()`` replicates its last sample (the batched album
@@ -20,7 +24,7 @@ returns it broken, in the form of ``bench_port/faults.py``:
 The script runs ``bench_port/calibrate.py``'s reading of every track that
 a run can check (``calibrate.read_tracks``: the cell's albums on the
 card, each track against the plain reference its configuration names)
-with these faults in the place of ``bench_port.faults``', and prints
+with these faults beside ``bench_port.faults``' own, and prints
 ``calibrate.summary``: each output's share of 2 000 seeds on which a
 run's check fails it, at the cell's ``check_tracks``.  Needs an NVIDIA
 GPU.
@@ -66,30 +70,29 @@ def _under(owner, name, make):
     return fault
 
 
-def _limiter():
-    from python_audio_mastering_tpu_torch.ops import limiter
+def _limited_with(**wrong):
+    """A fault that runs the chain's limiter hook with the keywords
+    ``wrong``."""
+    from python_audio_mastering_tpu_torch.models import chain
 
-    return limiter
+    def make(limit, _):
+        return lambda x, sample_rate, **kwargs: limit(
+            x, sample_rate, **{**kwargs, **wrong})
+    return _under(chain, "lookahead_limiter", make)
 
 
 def sample_peak(fn):
-    lim = _limiter()
-    return _under(lim, "_peak_env",
-                  lambda env, _: lambda x, true_peak: env(x, False))(fn)
+    return _limited_with(true_peak=False)(fn)
 
 
 def look_one(fn):
-    lim = _limiter()
     # look = max(1, int(lookahead_ms · fs / 1000)): 1 at 0 ms
-    return _under(lim, "_limiter_gain",
-                  lambda gain, _: lambda x, fs, ceiling, look_ms, tp: gain(
-                      x, fs, ceiling, 0.0, tp))(fn)
+    return _limited_with(lookahead_ms=0.0)(fn)
 
 
 def instant_release(fn):
-    lim = _limiter()
-    return _under(lim, "_release_scan",
-                  lambda scan, _: lambda target, rho, g0=None: target)(fn)
+    # rho = exp(-1 / (release_ms · fs / 1000)): exp(-22 676) is 0
+    return _limited_with(release_ms=1e-6)(fn)
 
 
 def padded_length(fn):
@@ -123,8 +126,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cell = registry.cell(args.workload)
     t0 = time.perf_counter()
-    with _patched(faults, "FAULTS", FAULTS), \
-            _patched(faults, "faults_for", lambda traffic: list(FAULTS)):
+    own = faults.faults_for
+    with _patched(faults, "FAULTS", {**faults.FAULTS, **FAULTS}), \
+            _patched(faults, "faults_for",
+                     lambda traffic: own(traffic) + list(FAULTS)):
         tracks = calibrate.read_tracks(cell)
     out = {"workload": args.workload, "card": card_line(), "tracks": tracks,
            "summary": calibrate.summary(cell, tracks),

@@ -244,7 +244,7 @@ def test_fit_step_launches_and_plain_calls():
     loss = pm.loss(theta, pm.as_audio(x),
                    am.spectral_profile(torch.from_numpy(ref), FS))
     want = {"front_chain_ref": 1, "kweight_cells_ref": 2, "sos_scan_ref": 0,
-            "gain_limit_ref": 0}
+            "gain_limit_ref": 0, "lookahead_limit_ref": 0}
     assert cmb.plain_calls() == want
     loss.backward()
     assert cmb.plain_calls() == want
@@ -343,7 +343,8 @@ def test_folded_step_makes_one_chain_call(shared):
                                   torch.from_numpy(targets[:t]), shared)
         assert cmb.plain_calls() == {
             "front_chain_ref": 1 if shared else t, "kweight_cells_ref": 2,
-            "sos_scan_ref": 0, "gain_limit_ref": 0}
+            "sos_scan_ref": 0, "gain_limit_ref": 0,
+            "lookahead_limit_ref": 0}
         for i in range(t):
             alone = pm.loss(theta if shared else theta[i], tracks[i],
                             torch.from_numpy(targets[i]))

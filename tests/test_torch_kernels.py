@@ -13,7 +13,8 @@ on the card: fp32 sums in another order, max abs ≤ 1e-4 (K2, K4:
 relative to the largest value; K1-K4 run their products in 3xTF32 on
 ``wgmma``, close to fp32, and their states term in fp32); the ballistics
 kernels K5-K7 run the plain version's float operations in its order, so
-they agree bitwise.
+they agree bitwise.  K10 against its plain twin: float32 with the twin's
+float64 sums, gain within 2e-6 relative, output max abs within 1e-6.
 The multiband chain on the card vs the CPU path: max abs < 5e-3, rms <
 5e-5, |ΔLUFS| < 1e-3 (the JAX package's on-chip kernels-vs-XLA residual,
 1.2e-3 max / 1.3e-5 rms, comes from detector threshold flips,
@@ -147,7 +148,8 @@ def test_wrappers_take_the_plain_version_on_cpu(emit_mono):
     assert cmb.launch_counts() == {
         "front_chain": 0, "kweight_cells": 0, "band_energies": 0,
         "band_gain_apply": 0, "pass1_hull": 0, "pass1_runs": 0, "replay": 0,
-        "replay_bnd": 0, "sos_scan": 0, "gain_limit": 0}
+        "replay_bnd": 0, "sos_scan": 0, "gain_limit": 0,
+        "lookahead_limit": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -565,7 +567,7 @@ def test_band_energies_kernel_matches_plain_at_every_block_and_hop(
 @pytest.mark.parametrize("source", ["ballistics.cu", "band_gain_apply.cu",
                                     "front_chain.cu", "band_energies.cu",
                                     "kweight_cells.cu", "sos_scan.cu",
-                                    "gain_limit.cu"])
+                                    "gain_limit.cu", "lookahead_limit.cu"])
 def test_kernel_sources_do_not_spill(cuda_device, source):
     """ptxas -v on the rewritten sources: every kernel in them reports 0
     bytes of spill stores and loads.  The band kernels are the
@@ -1100,3 +1102,211 @@ def test_gain_limit_refuses_what_the_kernel_cannot_take(cuda_device):
         args = {"xr": xr, "gain": gain, "n": 60, **bad}
         with pytest.raises(ValueError, match="gain_limit"):
             k9.gain_limit(args["xr"], args["gain"], args["n"], 0.98)
+
+
+# K10 lookahead_limit ---------------------------------------------------------
+
+FS_Q = 44100
+
+
+def _limiter_input(kind, n, channels, device, seed=0):
+    """Seeded float32 ``(n, C)`` on the card: hot noise with a loud and a
+    quiet stretch, silence, a hot square wave, or a quiet track that ends
+    in a burst (inside an attack)."""
+    r = np.random.default_rng(seed)
+    if kind == "noise":
+        x = r.standard_normal((n, channels)) * 0.6
+        x[n // 3: n // 2] *= 4.0
+        x[2 * n // 3:] *= 0.05
+    elif kind == "silence":
+        x = np.zeros((n, channels))
+    elif kind == "square":
+        t = np.arange(n) / FS_Q
+        x = np.repeat(1.6 * np.sign(np.sin(2 * np.pi * 441.0 * t))[:, None],
+                      channels, 1)
+    else:
+        x = r.standard_normal((n, channels)) * 0.05
+        x[-min(n, 33):] *= 60.0
+    return torch.as_tensor(x.astype(np.float32), device=device)
+
+
+def _k10_against_twin(x, **kw):
+    """K10 through the limiter's route and its twin on ``x``: one launch
+    and no twin call on the route, the gain within 2e-6 of the
+    twin's relative to it, the output within 1e-6 (the only freedom is the
+    FIR's order of sums in float32, ~1 unit of the envelope, and the
+    float64 sums' rounding before their cast: a few units of the gain),
+    the input's envelope times the kernel's gain at most the ceiling
+    times 1 + 1e-6 (its two float32 roundings and the output's: the true
+    peak the limiter controls, -1 dBTP + 1e-6 dB), and the output's own
+    true peak the twin's within 3e-5 dB (the outputs' 1e-6 through the
+    interpolator, whose phases sum |taps| to 2.25 at most, over these
+    outputs' peaks of 0.69 or more: 3.3e-6 relative, 2.8e-5 dB)."""
+    from python_audio_mastering_tpu_torch.ops import limiter as lim
+    from python_audio_mastering_tpu_torch.ops import meters
+
+    cmb.reset_launch_counts()
+    got = lim.lookahead_limiter(x, FS_Q, **kw)
+    assert cmb.launch_counts()["lookahead_limit"] == 1
+    assert cmb.plain_calls()["lookahead_limit_ref"] == 0
+    want = lim.lookahead_limit_ref(x, FS_Q, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.is_contiguous()
+    assert (got - want).abs().max().item() <= 1e-6
+    xs = x if x.ndim == 2 else x[:, None]
+    big = xs.abs().argmax(dim=1, keepdim=True)       # the loudest channel
+    xb = xs.gather(1, big).double()[:, 0]
+    keep = xb.abs() > 1e-3
+    g_got = ((got if got.ndim == 2 else got[:, None]).gather(1, big)
+             .double()[:, 0] / xb)
+    g_want = ((want if want.ndim == 2 else want[:, None]).gather(1, big)
+              .double()[:, 0] / xb)
+    if keep.any():
+        rel = ((g_got - g_want).abs() / g_want)[keep].max().item()
+        assert rel <= 2e-6, rel
+        if kw.get("true_peak", True):
+            env = lim._peak_env(xs, True).double()
+            ceiling = 10.0 ** (kw.get("ceiling_db", -1.0) / 20.0)
+            assert (env * g_got)[keep].max().item() <= ceiling * (1 + 1e-6)
+    if got.abs().max() > 0:
+        tp = meters.true_peak_db(got).item()
+        assert abs(tp - meters.true_peak_db(want).item()) <= 3e-5
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("true_peak", [True, False])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("n", [1, 65, 149, 4155, 9001, 300017])
+@pytest.mark.parametrize("kind", ["noise", "silence", "square", "end_attack"])
+def test_lookahead_limit_kernel_against_its_twin(cuda_device, kind, n,
+                                                 channels, true_peak):
+    """K10 on tracks shorter than its halos, lengths that fill no tile
+    (4154 frames at the default look-ahead), several tiles chained by the
+    look-back, silence, hard limiting and a track ending in an attack."""
+    x = _limiter_input(kind, n, channels, cuda_device, seed=n)
+    _k10_against_twin(x, true_peak=true_peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"lookahead_ms": 0.0}, {"release_ms": 1e-6},
+                                {"release_ms": 2000.0},
+                                {"ceiling_db": -3.0, "lookahead_ms": 5.0}])
+def test_lookahead_limit_kernel_other_settings(cuda_device, kw):
+    """A look-ahead of one frame (the direct erosion), no release (rho =
+    0), a release long enough that the look-back walks past 32 tiles,
+    another ceiling and a longer look-ahead."""
+    x = _limiter_input("noise", 400_000, 2, cuda_device, seed=5)
+    _k10_against_twin(x, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["chain_rows", "padded_length", "mono_1d",
+                                  "three_channels"])
+def test_lookahead_limit_kernel_on_strided_views(cuda_device, view):
+    """The chain's track view ``xr[:, i, :v].T`` (element strides (1,
+    T·M)), the ``as_strided`` view over the padding after it, a 1-D mono
+    track and three channels (read again from the L2 cache for the
+    output)."""
+    tracks, m, v = 3, 200_000, 123_457
+    if view in ("chain_rows", "padded_length"):
+        rows = _limiter_input("noise", 2 * tracks * m, 1, cuda_device,
+                              seed=9).reshape(2, tracks, m)
+        x = rows[:, 1, :v].T
+        if view == "padded_length":
+            x = x.as_strided((m, 2), x.stride(), x.storage_offset())
+        assert not x.is_contiguous()
+    elif view == "mono_1d":
+        x = _limiter_input("noise", v, 1, cuda_device, seed=10)[:, 0]
+    else:
+        x = _limiter_input("noise", v, 3, cuda_device, seed=11)
+    _k10_against_twin(x)
+
+
+@pytest.mark.cuda
+def test_lookahead_limit_adds_no_host_sync(cuda_device):
+    """K10's wrapper under PyTorch's sync debug mode set to raise: the
+    workspace is zeroed on the stream, the taps uploaded once, the launch
+    never waits for the card."""
+    from python_audio_mastering_tpu_torch.ops import limiter as lim
+
+    x = _limiter_input("noise", 50_000, 2, cuda_device)
+    lim.lookahead_limiter(x, FS_Q)                 # the library loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lim.lookahead_limiter(x, FS_Q)
+        lim.lookahead_limiter(x[:, 0], FS_Q, true_peak=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lookahead_limit_refuses_what_the_kernel_cannot_take(cuda_device):
+    """A float64 signal, and a look-ahead over ``MAX_LOOK`` frames, which
+    the route takes to the kernel on the card and the kernel refuses."""
+    from python_audio_mastering_tpu_torch.ops import limiter as lim
+    from python_audio_mastering_tpu_torch.ops import lookahead_limit as k10
+
+    x = _limiter_input("noise", 1000, 2, cuda_device)
+    taps = lim._k10_taps(x.device)
+    with pytest.raises(ValueError, match="lookahead_limit"):
+        k10.lookahead_limit(x.double(), taps, FS_Q)
+    with pytest.raises(ValueError, match="at most 1365 frames"):
+        lim.lookahead_limiter(x, FS_Q, lookahead_ms=40.0)
+    lim.lookahead_limiter(x, FS_Q, lookahead_ms=30.0)      # 1323 frames
+
+
+@pytest.mark.cuda
+def test_forward_tracks_quality_launches_lookahead_limit_a_track(cuda_device):
+    """The album in quality mode on the card: one K10 launch a track,
+    no K9, each track limited to its own end (zeros after it), as many
+    host synchronisations as with the plain stages, and the CPU path's
+    output within the chain budget 5e-3."""
+    import warnings
+
+    from python_audio_mastering_tpu_torch.models import chain as chain_mod
+    from python_audio_mastering_tpu_torch.ops import limiter as lim
+
+    cfg = dataclasses.replace(ChainConfig.gpu_default(FS_Q),
+                              limiter_mode="lookahead_truepeak")
+    params = MasteringParams.from_settings({**SETTINGS, "lufs": -8.0})
+    lengths = [FS_Q, 30011, 9001]
+    batch = np.zeros((3, FS_Q, 2), np.float32)
+    for i, v in enumerate(lengths):
+        batch[i, :v] = _signal(v, 2, FS_Q, 40 + i).T * 0.8
+    chain = MasteringChain(cfg).to(cuda_device)
+    xb = torch.as_tensor(batch, device=cuda_device)
+    chain.forward_tracks(xb, params, lengths)        # operators built
+    syncs, outs = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        for kernel in (True, False):
+            if not kernel:
+                mp.setattr(chain_mod, "lookahead_limiter",
+                           lim.lookahead_limit_ref)
+            cmb.reset_launch_counts()
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    y, _, _ = chain.forward_tracks(xb, params, lengths)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            syncs.append(sum("synchroniz" in str(w.message)
+                             and "does not yet detect" not in str(w.message)
+                             for w in caught))
+            counts = cmb.launch_counts()
+            assert counts["lookahead_limit"] == (3 if kernel else 0)
+            assert counts["gain_limit"] == 0
+            outs.append(y)
+    assert syncs[0] == syncs[1], syncs
+    got, plain = outs
+    assert (got - plain).abs().max().item() <= 1e-6
+    for i, v in enumerate(lengths):
+        assert not got[i, v:].any()
+    ref, _, _ = MasteringChain(cfg).forward_tracks(torch.as_tensor(batch),
+                                                   params, lengths)
+    assert (got.cpu() - ref).abs().max().item() < 5e-3
